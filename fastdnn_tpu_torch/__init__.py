@@ -1,0 +1,78 @@
+"""fastdnn_tpu_torch — the PyTorch/CUDA port of fastdnn_tpu.
+
+The int8 acoustic scorer on an NVIDIA H100: the JAX package's modules,
+names and data layouts in PyTorch, with its Pallas kernels rewritten by hand
+in CUDA C++ for Hopper (csrc/, built by nvcc at first use).  The JAX
+package stays the reference the port is tested against.
+
+Quick start::
+
+    import fastdnn_tpu_torch as fdt
+
+    net = fdt.load_model("model.bin")              # reference binary format
+    qnet = fdt.quantize_net(net, cutoff=3.0)       # int8, transform fused
+    scorer = fdt.Scorer(qnet, device="cuda")       # "cpu": plain versions
+    posteriors = scorer.score(frames)              # [n, senones] numpy
+"""
+
+from .config import EngineConfig
+from .engine.scorer import Scorer, build_hidden_stack, hidden_forward, score_fn
+from .formats.binary import (
+    RawNetwork,
+    read_features,
+    read_model,
+    write_features,
+    write_features_text,
+    write_model,
+)
+from .models.feedforward import (
+    FeedForwardNet,
+    align,
+    apply_transform,
+    forward,
+    from_raw,
+    fuse_transform,
+    random_net,
+    to_raw,
+)
+from .quant.quantize import QuantizedNet, pad_qnet, quantize_layer, quantize_net
+from .quant.serialize import load_qnet, load_quantized, qnet_from_arrays, save_qnet
+
+__version__ = "0.1.0"
+
+
+def load_model(path) -> FeedForwardNet:
+    """Load a reference-format binary model into a float net."""
+    return from_raw(read_model(path))
+
+
+__all__ = [
+    "EngineConfig",
+    "FeedForwardNet",
+    "QuantizedNet",
+    "RawNetwork",
+    "Scorer",
+    "align",
+    "apply_transform",
+    "build_hidden_stack",
+    "forward",
+    "from_raw",
+    "fuse_transform",
+    "hidden_forward",
+    "load_model",
+    "load_qnet",
+    "load_quantized",
+    "pad_qnet",
+    "qnet_from_arrays",
+    "quantize_layer",
+    "quantize_net",
+    "random_net",
+    "read_features",
+    "read_model",
+    "save_qnet",
+    "score_fn",
+    "to_raw",
+    "write_features",
+    "write_features_text",
+    "write_model",
+]

@@ -1,0 +1,83 @@
+"""Scorer CLI of the PyTorch/CUDA port, the dense path of fastdnn_tpu/cli/score.py:
+
+    python -m fastdnn_tpu_torch.cli.score MODEL INPUT [OUT] [BIN|TXT]
+        [--cutoff F] [--device cuda|cpu]
+
+Loads a reference-format binary model (quantized on load) or a `.npz` int8
+checkpoint and a binary feature matrix, scores it, prints topology and
+timing, and dumps posteriors to stdout or to a file in BIN or TXT format.
+`--device cuda` (the default) runs the hand-written kernels and fails when
+no GPU is present; `--device cpu` runs their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..config import EngineConfig
+from ..engine.scorer import Scorer
+from ..formats.binary import read_features, write_features, write_features_text
+from ..quant.serialize import load_quantized
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="fastdnn-torch-score",
+        description="Score acoustic features with a quantized DNN (PyTorch/CUDA)",
+    )
+    p.add_argument("model", help="reference-format binary model, or a .npz int8 checkpoint")
+    p.add_argument("input", help="binary feature matrix")
+    p.add_argument("out", nargs="?", default=None, help="output file (default: stdout)")
+    p.add_argument(
+        "out_type", nargs="?", default="TXT", choices=["BIN", "TXT"], help="output format"
+    )
+    p.add_argument("--cutoff", type=float, default=3.0, help="weight quantization cutoff")
+    p.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="cuda: hand-written kernels (fails without a GPU); cpu: plain versions",
+    )
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    qnet, topology = load_quantized(args.model, cutoff=args.cutoff)
+    print(f"Model File  = {args.model}")
+    print(f"Network     = {topology}")
+    frames = read_features(args.input)
+    print(f"Input       = {frames.shape[0]}x{frames.shape[1]}")
+    scorer = Scorer(qnet, EngineConfig(), device=args.device)
+
+    scorer.score(frames[:1])  # warm-up: the first CUDA call builds the kernels
+    t0 = time.perf_counter()
+    output = scorer.score(frames)  # returns host numpy, so the device is done
+    elapsed_ms = (time.perf_counter() - t0) * 1000
+    device = torch.cuda.get_device_name(scorer.device) if scorer.device.type == "cuda" else "cpu"
+    print(f"Dnn calculation time = {elapsed_ms:.2f} ms. ({device})")
+
+    if args.out is None:
+        np.savetxt(sys.stdout, output, fmt="%f", delimiter=" ")
+    elif args.out_type == "BIN":
+        write_features(output, args.out)
+    else:
+        write_features_text(output, args.out)
+    return 0
+
+
+def _cli(argv=None) -> int:
+    """Entry point with one-line error reporting for expected failures
+    (bad paths, dims or parameters, no GPU)."""
+    try:
+        return main(argv)
+    except (OSError, ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    sys.exit(_cli())

@@ -1,0 +1,51 @@
+"""Engine configuration of the PyTorch/CUDA port.
+
+The constants are the reference's (see fastdnn_tpu/config.py:23-31); the
+`EngineConfig` keeps only the knobs the port's scoring path reads.  The
+TPU block sizes, `input_precision`, `interpret` and the tuning fields of the
+JAX package have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+WEIGHT_SCALE = 127.0
+ACTIVATION_SCALE = 255.0
+SIGMOID_LOOKUP_SIZE = 1280
+SIGMOID_HALF_LOOKUP_SIZE = SIGMOID_LOOKUP_SIZE // 2
+SIGMOID_RESOLUTION = 100.0  # LUT index = round(x * 100)
+
+DEFAULT_CUTOFF = 3.0
+DEFAULT_INPUT_ALIGNMENT = 4
+DEFAULT_HIDDEN_ALIGNMENT = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Knobs for the scoring engine."""
+
+    #: clamp |w| above this before per-layer linear quantization
+    cutoff: float = DEFAULT_CUTOFF
+    #: "auto": hand-written CUDA kernels for tensors on a GPU, their plain
+    #: PyTorch versions for tensors on the CPU; "cuda": the kernels, and a
+    #: CPU device is an error; "torch": the plain versions on any device
+    #: (the reference the kernels are checked against).
+    backend: Literal["auto", "cuda", "torch"] = "auto"
+    #: frame counts are padded up to a multiple of this, which is also a
+    #: multiple of every kernel's frame tile
+    frame_bucket: int = 128
+    #: batches of at most this many frames run the whole hidden trunk as one
+    #: kernel (ops.kernels.hidden_stack); larger ones run one kernel per
+    #: layer.  0 disables the stack.
+    stack_hidden_max_frames: int = 8192
+
+    def resolve_backend(self, device) -> str:
+        """The backend for weights on `device` ("cuda" or "torch")."""
+        on_gpu = device.type == "cuda"
+        if self.backend == "cuda" and not on_gpu:
+            raise ValueError(f"backend='cuda' needs a CUDA device, got {device}")
+        if self.backend == "torch":
+            return "torch"
+        return "cuda" if on_gpu else "torch"

@@ -1,0 +1,50 @@
+"""Adapter from the engine's layer-step signatures to the CUDA kernels
+(ops/kernels.py), as engine/pallas_backend.py is for the Pallas kernels.
+The plain path (backend="torch") calls ops/matmul.py instead, with the same
+signatures, so scorer.py stays backend-agnostic."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import kernels
+from ..ops.matmul import matmul_f32
+from ..quant.quantize import QuantizedNet
+
+
+def prepare(net: QuantizedNet) -> QuantizedNet:
+    """The net with its int8 weights in the kernels' layout (transposed,
+    [out, in], K contiguous: ops.kernels.kernel_layout).  Done once, when a
+    Scorer loads the net; the layer steps below take weights so prepared.
+    The shape properties of the result (layer_dims, padded_output_dim)
+    no longer read as for the JAX layout."""
+    return dataclasses.replace(
+        net, weights=tuple(kernels.kernel_layout(w) for w in net.weights)
+    )
+
+
+def input_layer_step(frames_f32: torch.Tensor, w_f32: torch.Tensor, b_f32: torch.Tensor):
+    """Float first layer (a library matmul, as XLA ran it for the JAX
+    package) -> K1 epilogue -> shifted int8."""
+    return kernels.bias_sigmoid_i8(matmul_f32(frames_f32, w_f32), b_f32)
+
+
+def hidden_layer_step(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32):
+    return kernels.hidden_layer(acts_i8, w_t, colsum128_i32, inv_scale, bias_f32)
+
+
+def hidden_stack_step(acts_i8, hstack):
+    """All hidden layers in one K3 launch; hstack as built by
+    engine.scorer.build_hidden_stack."""
+    w, colsum, inv_scales, bias = hstack
+    return kernels.hidden_stack(acts_i8, w, colsum, inv_scales, bias)
+
+
+def output_posteriors_resident(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32, *,
+                               out_dim: int):
+    """Output layer + full softmax in one K4 launch -> f32 [B, out_dim]."""
+    return kernels.resident_softmax(
+        acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, out_dim=out_dim
+    )

@@ -1,0 +1,225 @@
+"""Python wrappers of the port's hand-written Hopper kernels (csrc/*.cu).
+
+Dispatch rule, with no fallback: a tensor on the CPU goes to the kernel's
+plain PyTorch version (ops/matmul.py); a CUDA tensor goes to the kernel,
+and a kernel that cannot build or launch raises.  Each wrapper checks
+device, dtype, shape and contiguity, allocates its output with
+`torch.empty`, launches on the current stream of the tensor's device and
+adds one to its launch count (`launch_counts`), which is how a run shows
+that its main path went through the kernels.
+
+The kernels read their int8 weights transposed, K contiguous ([N, K], or
+[L, N, K] for the stack; `kernel_layout`), so that every tensor-core
+operand is one `ldmatrix`; the plain versions keep the JAX package's
+[K, N].  A wrapper given CPU tensors transposes back for its plain version.
+
+    K1 bias_sigmoid_i8    the quantized-sigmoid epilogue as its own kernel
+    K2 hidden_layer       one int8 hidden layer with the fused epilogue
+    K3 hidden_stack       all equal-width hidden layers in one launch
+    K4 resident_softmax   int8 output layer + full row softmax
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+
+import torch
+
+from . import _build
+from . import matmul as plain
+
+#: frame-tile multiples of the kernels (BM in csrc/*.cu)
+HIDDEN_LAYER_FRAMES = 64
+HIDDEN_STACK_FRAMES = 64
+RESIDENT_SOFTMAX_FRAMES = 64
+#: K-stage depth and output-column tile of the shared tile engine
+#: (kBK, kBN in csrc/common.cuh); pad_qnet pads node dims to TILE_N
+TILE_K = 128
+TILE_N = 128
+#: Hopper's opt-in shared-memory limit per block, where torch does not say
+HOPPER_BLOCK_SMEM = 232448
+
+
+@dataclass(frozen=True)
+class Kernel:
+    """What a kernel is, for reports: its source and the TPU function it
+    replaces."""
+
+    source: str
+    replaces: str
+
+
+# wrapper name -> kernel; each wrapper's plain version is named in its docstring
+KERNELS = {
+    "bias_sigmoid_i8": Kernel(
+        "fastdnn_tpu_torch/csrc/bias_sigmoid.cu", "fastdnn_tpu/ops/pallas_kernels.py:50"
+    ),
+    "hidden_layer": Kernel(
+        "fastdnn_tpu_torch/csrc/hidden_layer.cu", "fastdnn_tpu/ops/pallas_kernels.py:180"
+    ),
+    "hidden_stack": Kernel(
+        "fastdnn_tpu_torch/csrc/hidden_stack.cu", "fastdnn_tpu/ops/pallas_kernels.py:244"
+    ),
+    "resident_softmax": Kernel(
+        "fastdnn_tpu_torch/csrc/resident_softmax.cu", "fastdnn_tpu/ops/pallas_kernels.py:364"
+    ),
+}
+
+_count_lock = threading.Lock()
+_counts = dict.fromkeys(KERNELS, 0)
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last `reset_launch_counts`, by wrapper."""
+    with _count_lock:
+        return dict(_counts)
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for name in _counts:
+            _counts[name] = 0
+
+
+def kernel_layout(w: torch.Tensor) -> torch.Tensor:
+    """int8 weights [..., K, N] -> the kernels' layout [..., N, K], contiguous."""
+    return w.transpose(-1, -2).contiguous()
+
+
+def _launch(name: str, device: torch.device, fn, *args) -> None:
+    """Run one C entry on `device`'s current stream, raise on a non-zero
+    status, count the launch."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = fn(*args, device.index, stream)
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {status}")
+    with _count_lock:
+        _counts[name] += 1
+
+
+def _check(name, tensors, dtypes, shapes) -> torch.device:
+    """All tensors CUDA, on one device, contiguous, of the given dtypes and
+    shapes (None in a shape matches any size)."""
+    device = tensors[0].device
+    for t, dtype, shape in zip(tensors, dtypes, shapes):
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on one CUDA device, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return device
+
+
+def _require_multiples(name: str, **dims) -> None:
+    bad = [f"{k}={v} (multiple of {m})" for k, (v, m) in dims.items() if v % m]
+    if bad:
+        raise ValueError(
+            f"{name}: padded shapes required: {', '.join(bad)}; "
+            "use quant.quantize.pad_qnet and frame bucketing"
+        )
+
+
+def _require_smem(name: str, device: torch.device, need: int) -> None:
+    limit = getattr(
+        torch.cuda.get_device_properties(device), "shared_memory_per_block_optin",
+        HOPPER_BLOCK_SMEM,
+    )
+    if need > limit:
+        raise ValueError(
+            f"{name}: needs {need} bytes of shared memory per block, the card allows {limit}"
+        )
+
+
+def bias_sigmoid_i8(lin: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K1: quantized_sigmoid_shifted_i8(lin + bias), f32 [B, N], [N] -> s8 [B, N].
+    Plain version: ops.matmul.bias_sigmoid_i8."""
+    if lin.device.type == "cpu":
+        return plain.bias_sigmoid_i8(lin, bias)
+    n = lin.shape[-1] if lin.dim() == 2 else -1
+    device = _check("bias_sigmoid_i8", (lin, bias), (torch.float32,) * 2, ((None, None), (n,)))
+    out = torch.empty(lin.shape, dtype=torch.int8, device=device)
+    if lin.numel():
+        lib = _build.load()
+        _launch("bias_sigmoid_i8", device, lib.fdn_bias_sigmoid_i8,
+                lin.data_ptr(), bias.data_ptr(), out.data_ptr(), lin.numel(), n)
+    return out
+
+
+def hidden_layer(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
+    """K2: one hidden layer, s8 [B, K] x s8 [K, N] -> shifted s8 [B, N];
+    the weight given as w_t = kernel_layout(w), [N, K].  Plain version:
+    ops.matmul.hidden_layer_step."""
+    if acts.device.type == "cpu":
+        return plain.hidden_layer_step(acts, w_t.t(), colsum, inv_scale, bias)
+    b, k = acts.shape
+    n = w_t.shape[0]
+    device = _check(
+        "hidden_layer", (acts, w_t, colsum, bias),
+        (torch.int8, torch.int8, torch.int32, torch.float32),
+        ((b, k), (n, k), (n,), (n,)),
+    )
+    _require_multiples("hidden_layer", B=(b, HIDDEN_LAYER_FRAMES), K=(k, TILE_K), N=(n, TILE_N))
+    out = torch.empty((b, n), dtype=torch.int8, device=device)
+    if b:
+        lib = _build.load()
+        _launch("hidden_layer", device, lib.fdn_hidden_layer,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), out.data_ptr(), b, k, n)
+    return out
+
+
+def hidden_stack(acts, w_t, colsum, inv_scales, bias) -> torch.Tensor:
+    """K3: L square hidden layers in one launch, s8 [B, H] -> s8 [B, H].
+    w_t s8 [L, H, H] (each layer in kernel_layout), colsum i32 [L, H],
+    inv_scales f32 [L], bias f32 [L, H].  Plain version:
+    ops.matmul.hidden_stack_step."""
+    if acts.device.type == "cpu":
+        return plain.hidden_stack_step(acts, (w_t.transpose(1, 2), colsum, inv_scales, bias))
+    b, h = acts.shape
+    layers = w_t.shape[0] if w_t.dim() == 3 else -1
+    device = _check(
+        "hidden_stack", (acts, w_t, colsum, inv_scales, bias),
+        (torch.int8, torch.int8, torch.int32, torch.float32, torch.float32),
+        ((b, h), (layers, h, h), (layers, h), (layers,), (layers, h)),
+    )
+    _require_multiples("hidden_stack", B=(b, HIDDEN_STACK_FRAMES), H=(h, TILE_N))
+    out = torch.empty((b, h), dtype=torch.int8, device=device)
+    if b:
+        lib = _build.load()
+        _require_smem("hidden_stack", device, lib.fdn_hidden_stack_smem_bytes(h))
+        _launch("hidden_stack", device, lib.fdn_hidden_stack,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), inv_scales.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), b, h, layers)
+    return out
+
+
+def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, *, out_dim: int) -> torch.Tensor:
+    """K4: output layer + row softmax over the first `out_dim` columns,
+    s8 [B, K] x s8 [K, N] -> f32 [B, out_dim]; the weight given as
+    w_t = kernel_layout(w), [N, K].  Plain version: ops.matmul.output_posteriors."""
+    if acts.device.type == "cpu":
+        return plain.output_posteriors(acts, w_t.t(), colsum, inv_scale, bias, out_dim=out_dim)
+    b, k = acts.shape
+    n = w_t.shape[0]
+    device = _check(
+        "resident_softmax", (acts, w_t, colsum, bias),
+        (torch.int8, torch.int8, torch.int32, torch.float32),
+        ((b, k), (n, k), (n,), (n,)),
+    )
+    _require_multiples(
+        "resident_softmax", B=(b, RESIDENT_SOFTMAX_FRAMES), K=(k, TILE_K), N=(n, TILE_N)
+    )
+    if not 0 < out_dim <= n:
+        raise ValueError(f"resident_softmax: out_dim={out_dim} must be in [1, {n}]")
+    out = torch.empty((b, out_dim), dtype=torch.float32, device=device)
+    if b:
+        lib = _build.load()
+        _require_smem("resident_softmax", device, lib.fdn_resident_softmax_smem_bytes(k))
+        _launch("resident_softmax", device, lib.fdn_resident_softmax,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), out.data_ptr(), b, k, n, out_dim)
+    return out

@@ -1,0 +1,108 @@
+"""Plain PyTorch versions of the quantized engine's stages.
+
+Each function computes what fastdnn_tpu/ops/matmul.py computes, in eager
+PyTorch on any device.  They are the reference the port's CUDA kernels are
+held to (ops/kernels.py), the path a CPU tensor takes, and the whole of
+`backend="torch"`.  They share the JAX package's layouts: activations
+[B, K] as zero-point-shifted int8, weights [K, N] int8, per-layer colsum128
+int32 [N], bias f32 [N] and an f32 inverse scale.
+
+The layer-step names below match engine/cuda_backend.py, so the scorer
+selects one module or the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .sigmoid import quantized_sigmoid_shifted_i8
+
+#: the softmax cap of padding columns, as in the TPU kernels
+NEG_CAP = -1e30
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 [B, K] @ f32 [K, N] -> f32, free of every TF32 switch.
+
+    The product is taken in float64 and rounded once to f32.  TF32 and the
+    reduced-precision f32 modes apply only to f32 products, so neither
+    `torch.backends.cuda.matmul.allow_tf32` nor
+    `torch.set_float32_matmul_precision` can reach it, and no process-wide
+    switch is read or changed.  The result is at least as close to the exact
+    sum as any f32 summation order; against XLA's f32 dot it differs only in
+    the last bit of rare entries, as two f32 summation orders do.
+    """
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.float32)
+
+
+def int8_matmul(a_i8: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
+    """[B, K] int8 @ [K, N] int8 -> [B, N] int32, exact.
+
+    `torch._int_mm` is exact (int32 accumulation); on CUDA it needs more than
+    16 rows and K, N multiples of 8.  Otherwise the product runs in float64,
+    which is exact too: |sum| <= K * 128 * 128 stays far below 2**53.  (Plain
+    f32 is not exact: at K = 2048 a sum can exceed 2**24.)
+    """
+    b, k = a_i8.shape
+    n = w_i8.shape[1]
+    if a_i8.device.type == "cpu" or (b > 16 and k % 8 == 0 and n % 8 == 0):
+        return torch._int_mm(a_i8.contiguous(), w_i8.contiguous())
+    return torch.matmul(a_i8.to(torch.float64), w_i8.to(torch.float64)).to(torch.int32)
+
+
+def bias_sigmoid_i8(lin_f32: torch.Tensor, bias_f32: torch.Tensor) -> torch.Tensor:
+    """quantized_sigmoid_shifted_i8(lin + bias): the input layer's epilogue."""
+    return quantized_sigmoid_shifted_i8(lin_f32 + bias_f32)
+
+
+def input_layer_step(frames_f32, w_f32, b_f32):
+    """Float first layer -> shifted-int8 quantized sigmoid activations.
+
+    The input layer is not quantized; the feature shift/scale is already
+    fused into (w, b).
+    """
+    return bias_sigmoid_i8(matmul_f32(frames_f32, w_f32), b_f32)
+
+
+def dequantize(acc_i32, colsum128_i32, inv_scale, bias_f32):
+    """(acc + colsum128) * inv_scale + bias, rounded after each op.
+
+    acc is the s8 x s8 product of shifted activations; adding colsum128
+    recovers the true uint8 x int8 sum.  `inv_scale` is a Python float or a
+    0-d f32 tensor holding the f32 scale.
+    """
+    return (acc_i32 + colsum128_i32).to(torch.float32) * inv_scale + bias_f32
+
+
+def hidden_layer_step(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32):
+    """One quantized hidden layer: int8 product -> dequant -> bias ->
+    quantized sigmoid -> shifted int8."""
+    acc = int8_matmul(acts_i8, w_i8)
+    return quantized_sigmoid_shifted_i8(dequantize(acc, colsum128_i32, inv_scale, bias_f32))
+
+
+def hidden_stack_step(acts_i8, hstack):
+    """All hidden layers of a stack (engine.scorer.build_hidden_stack) in
+    turn: the plain version of the one-launch stack kernel."""
+    w, colsum, inv_scales, bias = hstack
+    for i in range(w.shape[0]):
+        acts_i8 = hidden_layer_step(acts_i8, w[i], colsum[i], inv_scales[i], bias[i])
+    return acts_i8
+
+
+def output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32):
+    """Output layer linear activations (pre-softmax), f32 [B, N]."""
+    return dequantize(int8_matmul(acts_i8, w_i8), colsum128_i32, inv_scale, bias_f32)
+
+
+def output_posteriors(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, *, out_dim: int):
+    """Output layer + stable row softmax over the first `out_dim` columns
+    -> f32 [B, out_dim].  Columns past `out_dim` (tile padding) are capped
+    at NEG_CAP, as the resident TPU kernel does, so they add nothing."""
+    z = output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32)
+    if out_dim < z.shape[1]:
+        z[:, out_dim:] = NEG_CAP
+    m = z.amax(dim=1, keepdim=True)
+    e = torch.exp(z - m)
+    p = e / e.sum(dim=1, keepdim=True)
+    return p[:, :out_dim].contiguous()
