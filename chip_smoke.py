@@ -6,8 +6,10 @@
 Builds the port's CUDA kernels from csrc/, checks each against its plain
 PyTorch version on the card at the shapes the main path gives it, drives the
 main path (`Scorer.score` on the 432 -> 7x2048 -> 8000 net, seeded random
-weights) at three batch sizes, shows through the launch counters that the
-path went through every kernel, and times kernels and path beside their
+weights) at three batch sizes and the lazy path (`Scorer.score_masked` under
+both semantics and in the block-sparse and gathered modes, and a beam decode
+through `LazyContext`), shows through the launch counters that each run went
+through the kernels it should, and times kernels and paths beside their
 plain versions.  Any failed check raises and the script exits non-zero.
 The last line of standard output is one JSON object:
 
@@ -31,6 +33,9 @@ SEED = 0
 INPUT_DIM, HIDDEN, DEPTH, SENONES = 432, 2048, 7, 8000
 FRAMES_PER_AUDIO_SECOND = 100  # 10 ms frame shift
 TIMED_REPS = 12
+LAZY_DENSITY = 0.4  # the JAX bench's lazy mix: 40% of the senones active
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-3
+DECODE_FRAMES = 60
 
 
 def phase(title: str) -> None:
@@ -60,6 +65,28 @@ def time_ms(torch, fn, reps: int = TIMED_REPS) -> float:
     return statistics.median(times)
 
 
+def band_masks(rng, frames: int, block: int = 64, width: int = SENONES // 10) -> np.ndarray:
+    """Clustered masks: each `block`-frame block activates half of one band
+    of `width` senones (about 10% of them), as clustered decoder masks do."""
+    masks = np.zeros((frames, SENONES), np.uint8)
+    for lo in range(0, frames, block):
+        start = int(rng.integers(0, SENONES - width))
+        rows = min(block, frames - lo)
+        masks[lo:lo + rows, start:start + width] = rng.random((rows, width)) < 0.5
+    return masks
+
+
+def close(got, want, what: str, bound: float = 1e-4) -> None:
+    """Posteriors `got` (host f32) within `bound` of `want` with argmax
+    agreement >= 0.999, finite and of the same shape."""
+    check(got.shape == want.shape and got.dtype == np.float32 and bool(np.isfinite(got).all()),
+          f"{what}: finite f32 {list(got.shape)}")
+    dp = float(np.abs(got - want).max())
+    agree = float((got.argmax(1) == want.argmax(1)).mean())
+    check(dp <= bound and agree >= 0.999,
+          f"{what}: max |dp| = {dp:.3g} <= {bound:g}, argmax agreement {agree:.4f} >= 0.999")
+
+
 def main() -> int:
     import torch
 
@@ -67,7 +94,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
 
-    from fastdnn_tpu_torch import EngineConfig, Scorer, quantize_net, random_net
+    from fastdnn_tpu_torch import (
+        BeamDecoder,
+        EngineConfig,
+        Scorer,
+        quantize_net,
+        random_lexicon,
+        random_net,
+    )
     from fastdnn_tpu_torch.ops import _build, kernels
     from fastdnn_tpu_torch.ops import matmul as plain
     from fastdnn_tpu_torch.ops.sigmoid import reference_lut_lookup
@@ -94,6 +128,20 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     report = {name: {"max_abs_err": None, "ms": None, "plain_ms": None} for name in kernels.KERNELS}
+    path_launches = dict.fromkeys(kernels.KERNELS, 0)
+
+    def drive(title: str, expect: dict, fn):
+        """Run one path with every launch count set to 0 just before, check
+        each count exactly just after, and add them to the path's totals."""
+        kernels.reset_launch_counts()
+        result = fn()
+        counts = kernels.launch_counts()
+        print(f"  launch counts of {title}: {counts}")
+        for name, count in counts.items():
+            check(count == expect.get(name, 0),
+                  f"{title}: {name} launched {count} times (expected {expect.get(name, 0)})")
+            path_launches[name] += count
+        return result
 
     phase("3. K1 quantized sigmoid, exhaustive against the reference table")
     k = np.arange(-640, 641, dtype=np.float64)
@@ -162,10 +210,10 @@ def main() -> int:
     phase("5. main path: Scorer.score on the 432-7x2048-8000 net")
     sizes = (1000, 8192, 8300)  # 8300 buckets to 8320 > 8192: per-layer trunk
     want_p = {n: reference.score(frames[:n]) for n in sizes}
-    kernels.reset_launch_counts()
-    got_p = {n: scorer.score(frames[:n]) for n in sizes}
-    launches = kernels.launch_counts()
-    print(f"  launch counts of the main-path run: {launches}")
+    dense_expect = {"bias_sigmoid_i8": 3, "hidden_stack": 2, "hidden_layer": DEPTH - 1,
+                    "resident_softmax": 3}
+    got_p = drive("the main-path run", dense_expect,
+                  lambda: {n: scorer.score(frames[:n]) for n in sizes})
     for n in sizes:
         got, want = got_p[n], want_p[n]
         check(got.shape == (n, SENONES) and got.dtype == np.float32 and bool(np.isfinite(got).all()),
@@ -175,9 +223,6 @@ def main() -> int:
         check(dp <= 1e-4 and agree >= 0.999,
               f"n={n}: max |dp| = {dp:.3g} <= 1e-4, argmax agreement {agree:.4f} >= 0.999")
         check(float(np.abs(got.astype(np.float64).sum(1) - 1).max()) <= 1e-5, f"n={n}: row sums 1 +- 1e-5")
-    expect = {"bias_sigmoid_i8": 3, "hidden_stack": 2, "hidden_layer": DEPTH - 1, "resident_softmax": 3}
-    for name, count in expect.items():
-        check(launches[name] == count, f"{name} launched {launches[name]} times (expected {count})")
 
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -211,13 +256,162 @@ def main() -> int:
         print(f"  {name:17s} {shape:18s} kernel {report[name]['ms']:.4f} ms, "
               f"plain {report[name]['plain_ms']:.4f} ms  [{smi}]")
 
+    phase("7. K4 masked and bf16, K5, K6 against their plain versions at the flagship shapes")
+    n_pad = out[0].shape[0]
+    masks_host = (rng.random((8320, SENONES), dtype=np.float32) < LAZY_DENSITY).astype(np.uint8)
+    masks_host[7] = 0  # a frame with no active senone
+    bands_host = band_masks(rng, 8192)
+
+    def device_masks(m):
+        return torch.nn.functional.pad(torch.from_numpy(m).to(dev), (0, n_pad - SENONES))
+
+    masks40, bands = device_masks(masks_host[:8192]), device_masks(bands_host)
+    skip40, skip_bands = kernels.block_skip_share(masks40), kernels.block_skip_share(bands)
+    print(f"  masks: uniform {LAZY_DENSITY:.0%} (density {float(masks40.float().mean()):.4f}, "
+          f"K6 skip share {skip40:.4f}); bands (density {float(bands.float().mean()):.4f}, "
+          f"K6 skip share {skip_bands:.4f})")
+    for sem in ("reference", "active_only"):
+        k4m = kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES, semantics=sem)
+        p4m = plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES, semantics=sem)
+        d = float((k4m - p4m).abs().max())
+        check(d <= 3e-5, f"K4 masked {sem} B=8192 N={n_pad} max |d| = {d:.3g} <= 3e-5")
+        check(torch.equal(k4m.argmax(1), p4m.argmax(1)), f"K4 masked {sem}: argmax equal")
+        if sem == "active_only":
+            check(bool((k4m[7] == 0).all()) and bool((k4m[masks40[:, :SENONES] == 0] == 0).all()),
+                  "K4 active_only: inactive senones and the fully masked row are exactly 0")
+        else:
+            check(float((k4m[7] - 1.0 / SENONES).abs().max()) <= 1e-9,
+                  "K4 reference: the fully masked row is uniform")
+        report["resident_softmax"]["max_abs_err"] = max(report["resident_softmax"]["max_abs_err"], d)
+    for m, what in ((None, "unmasked"), (masks40, "masked reference")):
+        k4f = kernels.resident_softmax(p3, *out, m, out_dim=SENONES, fast=True)
+        p4 = plain.output_posteriors(p3, *plain_out, m, out_dim=SENONES)
+        df = float((k4f.float() - p4).abs().max())
+        check(k4f.dtype == torch.bfloat16 and bool(torch.allclose(k4f.float(), p4, rtol=BF16_RTOL, atol=BF16_ATOL)),
+              f"K4 fast {what}: bf16 within rtol {BF16_RTOL}, atol {BF16_ATOL} of the plain f32 (max |d| = {df:.3g})")
+    # K5 writes the padded width: its plain version takes the same padded
+    # operands, the weight back in the plain layout
+    plain_out_padded = (out[0].t(), *out[1:])
+    for b in (64, 8192):
+        k5 = kernels.output_logits(p3[:b], *out)
+        p5 = plain.output_logits(p3[:b], *plain_out_padded)
+        check(k5.shape == (b, n_pad) and torch.equal(k5, p5), f"K5 output_logits B={b} N={n_pad} bitwise")
+    report["output_logits"]["max_abs_err"] = 0.0
+    report["resident_softmax_block_sparse"]["max_abs_err"] = 0.0
+    for m, what, sems in ((masks40, "40% masks", ("reference",)),
+                          (bands, "band masks", ("reference", "active_only"))):
+        for sem in sems:
+            k6 = kernels.resident_softmax_block_sparse(p3, *out, m, out_dim=SENONES, semantics=sem)
+            p6 = plain.output_posteriors_block_sparse(p3, *plain_out, m, out_dim=SENONES, semantics=sem)
+            d6 = float((k6 - p6).abs().max())
+            check(d6 <= 3e-5 and torch.equal(k6.argmax(1), p6.argmax(1)),
+                  f"K6 {what} {sem} B=8192 max |d| = {d6:.3g} <= 3e-5, argmax equal")
+            report["resident_softmax_block_sparse"]["max_abs_err"] = max(
+                report["resident_softmax_block_sparse"]["max_abs_err"], d6)
+
+    phase("8. lazy path: score_masked, block-sparse, gathered, LazyContext beam decode")
+    semantics_scorers = {
+        "reference": (scorer, reference),
+        "active_only": (Scorer(qnet, EngineConfig(lazy_semantics="active_only"), device="cuda"),
+                        Scorer(qnet, EngineConfig(backend="torch", lazy_semantics="active_only"),
+                               device="cuda")),
+    }
+    for sem, (lazy, plain_lazy) in semantics_scorers.items():
+        want_m = {n: plain_lazy.score_masked(frames[:n], masks_host[:n]) for n in sizes}
+        got_m = drive(f"score_masked {sem}", dense_expect,
+                      lambda: {n: lazy.score_masked(frames[:n], masks_host[:n]) for n in sizes})
+        for n in sizes:
+            close(got_m[n], want_m[n], f"score_masked {sem} n={n}")
+        if sem == "active_only":
+            check(bool((got_m[8192][7] == 0).all()), "score_masked active_only: the fully masked row is 0")
+
+    sparse = Scorer(qnet, EngineConfig(lazy_mode="block_sparse"), device="cuda")
+    sparse_sizes = (1000, 8192)
+    want_b = {n: reference.score_masked(frames[:n], bands_host[:n]) for n in sparse_sizes}
+    got_b = drive("score_masked block_sparse",
+                  {"bias_sigmoid_i8": 2, "hidden_stack": 2, "resident_softmax_block_sparse": 2},
+                  lambda: {n: sparse.score_masked(frames[:n], bands_host[:n]) for n in sparse_sizes})
+    for n in sparse_sizes:
+        close(got_b[n], want_b[n], f"score_masked block_sparse n={n} (band masks)")
+
+    gathered = Scorer(qnet, EngineConfig(lazy_mode="gathered"), device="cuda")
+    subset = rng.choice(SENONES, SENONES * 3 // 8, replace=False)  # a union the capacity admits
+    masks_g = np.zeros((1000, SENONES), np.uint8)
+    masks_g[:, subset] = masks_host[:1000, subset]
+    got_g = drive("score_masked gathered", {"bias_sigmoid_i8": 1, "hidden_stack": 1},
+                  lambda: gathered.score_masked(frames[:1000], masks_g))
+    close(got_g, reference.score_masked(frames[:1000], masks_g), "score_masked gathered n=1000")
+
+    decoder = BeamDecoder(random_lexicon(np.random.default_rng(3), 30, SENONES), SENONES,
+                          beam_width=32, word_exit_beam=4)
+    utterance = frames[:DECODE_FRAMES]
+    lazy_dec, dense_dec = drive(
+        "LazyContext beam decode + dense decode",
+        {"bias_sigmoid_i8": 2, "hidden_stack": 2, "output_logits": DECODE_FRAMES, "resident_softmax": 1},
+        lambda: (decoder.decode_lazy(scorer, utterance), decoder.decode_dense(scorer, utterance)),
+    )
+    check(lazy_dec.words == dense_dec.words,
+          f"LazyContext decode words equal the dense decode's ({len(lazy_dec.words)} words)")
+    check(np.array_equal(lazy_dec.masks, dense_dec.masks),
+          f"LazyContext decode masks equal the dense decode's (density {lazy_dec.avg_density:.4f}, "
+          f"churn {lazy_dec.avg_churn:.4f})")
+
+    phase(f"9. lazy times (median of {TIMED_REPS} CUDA-event-timed calls; card: {smi})")
+    masks_dev = torch.from_numpy(masks_host[:8192]).to(dev)
+    masked_ms = time_ms(torch, lambda: scorer._run_masked(batch, masks_dev))
+    plain_masked_ms = time_ms(torch, lambda: reference._run_masked(batch, masks_dev))
+    print(f"  score_masked B=8192 {LAZY_DENSITY:.0%} kernels: {masked_ms:.4f} ms/batch, "
+          f"{audio_s / masked_ms * 1e3:.1f} audio-s/s  [{smi}]")
+    print(f"  score_masked B=8192 {LAZY_DENSITY:.0%} plain:   {plain_masked_ms:.4f} ms/batch, "
+          f"{audio_s / plain_masked_ms * 1e3:.1f} audio-s/s  [{smi}]")
+    bands_dev = torch.from_numpy(bands_host).to(dev)
+    sparse_ms = time_ms(torch, lambda: sparse._run_masked(batch, bands_dev))
+    dense_bands_ms = time_ms(torch, lambda: scorer._run_masked(batch, bands_dev))
+    print(f"  score_masked B=8192 band masks, block_sparse: {sparse_ms:.4f} ms/batch, "
+          f"dense: {dense_bands_ms:.4f} ms/batch  [{smi}]")
+    for sc, what in ((scorer, "kernels"), (reference, "plain")):
+        ctx = sc.new_lazy_context(DECODE_FRAMES)
+        ctx.calculate_until_output(utterance)
+        ctx.calculate_for_output_nodes(lazy_dec.masks[0])  # warm-up
+        ctx.calculate_until_output(utterance)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in lazy_dec.masks:
+            ctx.calculate_for_output_nodes(m)
+        per_frame = (time.perf_counter() - t0) * 1e3 / DECODE_FRAMES
+        print(f"  LazyContext.calculate_for_output_nodes {what}: {per_frame:.4f} ms/frame "
+              f"(host clock, numpy in and out)  [{smi}]")
+    lazy_cases = {
+        "K4 masked reference": ("resident_softmax", lambda: kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES),
+                                lambda: plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES)),
+        "K4 masked active_only": ("resident_softmax", lambda: kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES, semantics="active_only"),
+                                  lambda: plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES, semantics="active_only")),
+        "K4 fast masked ref.": ("resident_softmax", lambda: kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES, fast=True),
+                                lambda: plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES, fast=True)),
+        "K5 B=8192": ("output_logits", lambda: kernels.output_logits(p3, *out),
+                      lambda: plain.output_logits(p3, *plain_out_padded)),
+        "K6 40% masks": ("resident_softmax_block_sparse", lambda: kernels.resident_softmax_block_sparse(p3, *out, masks40, out_dim=SENONES),
+                         lambda: plain.output_posteriors_block_sparse(p3, *plain_out, masks40, out_dim=SENONES)),
+        # the last case of each kernel is the one its JSON row reports:
+        # K5 at the LazyContext shape, K6 on the masks it is meant for
+        "K5 B=64": ("output_logits", lambda: kernels.output_logits(p3[:64], *out),
+                    lambda: plain.output_logits(p3[:64], *plain_out_padded)),
+        "K6 band masks": ("resident_softmax_block_sparse", lambda: kernels.resident_softmax_block_sparse(p3, *out, bands, out_dim=SENONES),
+                          lambda: plain.output_posteriors_block_sparse(p3, *plain_out, bands, out_dim=SENONES)),
+    }
+    for title, (name, kernel_fn, plain_fn) in lazy_cases.items():
+        ms, plain_ms = time_ms(torch, kernel_fn), time_ms(torch, plain_fn)
+        if name != "resident_softmax":  # K4's row keeps the unmasked main-path time
+            report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
+        print(f"  {title:22s} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{smi}]")
+
     rows = [
         {
             "name": name,
             "route": "cuda",
             "source": k.source,
             "replaces": k.replaces,
-            "launches": launches[name],
+            "launches": path_launches[name],
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],

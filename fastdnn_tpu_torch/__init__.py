@@ -13,10 +13,19 @@ Quick start::
     qnet = fdt.quantize_net(net, cutoff=3.0)       # int8, transform fused
     scorer = fdt.Scorer(qnet, device="cuda")       # "cpu": plain versions
     posteriors = scorer.score(frames)              # [n, senones] numpy
+    lazy = scorer.score_masked(frames, masks)      # masks [n, senones], nonzero = active
 """
 
 from .config import EngineConfig
-from .engine.scorer import Scorer, build_hidden_stack, hidden_forward, score_fn
+from .decoder import BeamDecoder, Lexicon, random_lexicon
+from .engine.scorer import (
+    LazyContext,
+    Scorer,
+    build_hidden_stack,
+    hidden_forward,
+    score_fn,
+    score_masked_fn,
+)
 from .formats.binary import (
     RawNetwork,
     read_features,
@@ -47,8 +56,11 @@ def load_model(path) -> FeedForwardNet:
 
 
 __all__ = [
+    "BeamDecoder",
     "EngineConfig",
     "FeedForwardNet",
+    "LazyContext",
+    "Lexicon",
     "QuantizedNet",
     "RawNetwork",
     "Scorer",
@@ -66,11 +78,13 @@ __all__ = [
     "qnet_from_arrays",
     "quantize_layer",
     "quantize_net",
+    "random_lexicon",
     "random_net",
     "read_features",
     "read_model",
     "save_qnet",
     "score_fn",
+    "score_masked_fn",
     "to_raw",
     "write_features",
     "write_features_text",

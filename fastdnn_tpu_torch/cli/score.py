@@ -1,11 +1,14 @@
-"""Scorer CLI of the PyTorch/CUDA port, the dense path of fastdnn_tpu/cli/score.py:
+"""Scorer CLI of the PyTorch/CUDA port, the single-device path of
+fastdnn_tpu/cli/score.py:
 
     python -m fastdnn_tpu_torch.cli.score MODEL INPUT [OUT] [BIN|TXT]
-        [--cutoff F] [--device cuda|cpu]
+        [--cutoff F] [--device cuda|cpu] [--mask-density F]
+        [--lazy-mode auto|dense|gathered|block_sparse] [--seed N]
 
 Loads a reference-format binary model (quantized on load) or a `.npz` int8
-checkpoint and a binary feature matrix, scores it, prints topology and
-timing, and dumps posteriors to stdout or to a file in BIN or TXT format.
+checkpoint and a binary feature matrix, scores it (lazily, with synthetic
+evolving masks, under --mask-density), prints topology and timing, and
+dumps posteriors to stdout or to a file in BIN or TXT format.
 `--device cuda` (the default) runs the hand-written kernels and fails when
 no GPU is present; `--device cpu` runs their plain PyTorch versions.
 """
@@ -41,7 +44,41 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="cuda: hand-written kernels (fails without a GPU); cpu: plain versions",
     )
+    p.add_argument(
+        "--mask-density",
+        type=float,
+        default=None,
+        help="if set, score lazily with synthetic evolving masks at this active density",
+    )
+    p.add_argument(
+        "--lazy-mode",
+        default="auto",
+        choices=["auto", "dense", "gathered", "block_sparse"],
+        help="masked-scoring strategy (config.EngineConfig.lazy_mode); block_sparse "
+        "skips all-inactive tiles (cuda only; pair with clustered senone ids, "
+        "engine.cluster)",
+    )
+    p.add_argument("--seed", type=int, default=1, help="seed of the synthetic masks")
     return p
+
+
+def generate_masks(rng, count, dim, density, churn_frac=0.03):
+    """Evolving decoder-style masks, as the reference's functional test
+    makes them: a random active set at `density`, then each frame turns
+    `churn_frac` of the senones on and as many off."""
+    active = max(1, int(dim * density))
+    churn = max(1, int(dim * churn_frac))
+    masks = np.zeros((count, dim), dtype=np.uint8)
+    masks[0, rng.choice(dim, size=active, replace=False)] = 1
+    for i in range(1, count):
+        masks[i] = masks[i - 1]
+        off = np.flatnonzero(masks[i] == 0)
+        on = np.flatnonzero(masks[i] == 1)
+        if off.size:
+            masks[i, rng.choice(off, size=min(churn, off.size), replace=False)] = 1
+        if on.size > churn:
+            masks[i, rng.choice(on, size=churn, replace=False)] = 0
+    return masks
 
 
 def main(argv=None) -> int:
@@ -51,11 +88,21 @@ def main(argv=None) -> int:
     print(f"Network     = {topology}")
     frames = read_features(args.input)
     print(f"Input       = {frames.shape[0]}x{frames.shape[1]}")
-    scorer = Scorer(qnet, EngineConfig(), device=args.device)
+    scorer = Scorer(qnet, EngineConfig(lazy_mode=args.lazy_mode), device=args.device)
 
-    scorer.score(frames[:1])  # warm-up: the first CUDA call builds the kernels
+    masks = None
+    if args.mask_density is not None:
+        rng = np.random.default_rng(args.seed)
+        masks = generate_masks(rng, frames.shape[0], scorer.output_dim, args.mask_density)
+
+    def run(n: int) -> np.ndarray:
+        if masks is None:
+            return scorer.score(frames[:n])
+        return scorer.score_masked(frames[:n], masks[:n])
+
+    run(1)  # warm-up: the first CUDA call builds the kernels
     t0 = time.perf_counter()
-    output = scorer.score(frames)  # returns host numpy, so the device is done
+    output = run(frames.shape[0])  # returns host numpy, so the device is done
     elapsed_ms = (time.perf_counter() - t0) * 1000
     device = torch.cuda.get_device_name(scorer.device) if scorer.device.type == "cuda" else "cpu"
     print(f"Dnn calculation time = {elapsed_ms:.2f} ms. ({device})")

@@ -1,9 +1,10 @@
 """Engine configuration of the PyTorch/CUDA port.
 
 The constants are the reference's (see fastdnn_tpu/config.py:23-31); the
-`EngineConfig` keeps only the knobs the port's scoring path reads.  The
-TPU block sizes, `input_precision`, `interpret` and the tuning fields of the
-JAX package have no counterpart here.
+`EngineConfig` keeps only the knobs the port's scoring path reads, with the
+JAX package's names, defaults and meaning.  The TPU block sizes (the
+block-sparse kernel skips at its own tile), `input_precision`, `interpret`
+and the tuning fields of the JAX package have no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,6 +41,31 @@ class EngineConfig:
     #: kernel (ops.kernels.hidden_stack); larger ones run one kernel per
     #: layer.  0 disables the stack.
     stack_hidden_max_frames: int = 8192
+    #: output layer and softmax in one kernel (ops.kernels.resident_softmax)
+    #: instead of the logits kernel (ops.kernels.output_logits) followed by
+    #: a library softmax.  The frame-by-frame LazyContext always takes the
+    #: logits kernel.
+    fused_softmax: bool = True
+    #: emit the fused path's posteriors as bfloat16 (host results are
+    #: widened back to f32); off by default for bit-parity.
+    fast_posteriors: bool = False
+
+    # Lazy / masked output -------------------------------------------------
+    #: "reference" reproduces the reference softmax-over-zeros semantics for
+    #: inactive senones (inactive logit 0, still in the denominator);
+    #: "active_only" renormalizes over active senones (inactive posteriors
+    #: 0, a frame with no active senone an all-zero row).
+    lazy_semantics: Literal["reference", "active_only"] = "reference"
+    #: masked-output strategy: "dense" runs the full output product and
+    #: masks the logits; "gathered" computes only the union of active senone
+    #: columns (engine.lazy); "block_sparse" skips all-inactive (64-frame x
+    #: 128-senone) tiles inside the masked kernel
+    #: (ops.kernels.resident_softmax_block_sparse; cuda backend with
+    #: fused_softmax only).  "auto" resolves to dense, as in the JAX package.
+    lazy_mode: Literal["auto", "dense", "gathered", "block_sparse"] = "auto"
+    #: capacity (fraction of output nodes) of the gathered lazy product;
+    #: unions above it raise (explicit "gathered" mode only).
+    lazy_capacity: float = 0.6
 
     def resolve_backend(self, device) -> str:
         """The backend for weights on `device` ("cuda" or "torch")."""

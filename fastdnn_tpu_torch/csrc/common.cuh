@@ -1,10 +1,10 @@
 // Device code shared by the port's Hopper kernels: the quantized-sigmoid
 // epilogue (K1), the dequantization step, and an int8 tensor-core tile engine that
-// K2 (hidden layer), K3 (hidden stack) and K4 (resident softmax) run their
-// products through.
+// K2 (hidden layer), K3 (hidden stack), K4 (resident softmax), K5 (output
+// logits) and K6 (block-sparse resident softmax) run their products through.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false, never
-// --use_fast_math (fastdnn_tpu_torch/ops/_build.py).
+// --use_fast_math, one nvcc per source (fastdnn_tpu_torch/ops/_build.py).
 #pragma once
 
 #include <cuda_runtime.h>

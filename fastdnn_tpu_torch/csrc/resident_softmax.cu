@@ -1,22 +1,60 @@
-// K4: output layer + full row softmax, s8[B, K] x s8[K, N] -> f32[B, out_dim]
-// (the weight arrives transposed, Wt s8[N, K]; ops/kernels.py:kernel_layout).
+// K4: output layer + full row softmax, s8[B, K] x s8[K, N] -> f32 or bf16
+// [B, out_dim], optionally masked (u8 [B, N], nonzero = active).
+// K6: the masked K4 skipping every all-inactive (64-frame x 128-senone) tile.
+// Both take the weight transposed, Wt s8[N, K] (ops/kernels.py:kernel_layout),
+// and share this tile loop.
 //
-// Replaces fastdnn_tpu/ops/pallas_kernels.py:output_layer_posteriors_resident
-// -> _resident_softmax_kernel_factory (:321-434), unmasked, f32 output.  On
-// the TPU the whole K x N int8 weight (16.8 MB at 2048 x 8192) sat in VMEM and
-// each grid step saw complete logit rows.  No SM holds that, so here one
+// Replaces, as K4, fastdnn_tpu/ops/pallas_kernels.py:
+// output_layer_posteriors_resident -> _resident_softmax_kernel_factory
+// (:321-434): unmasked or masked, both lazy semantics, f32 or bf16 (`fast`)
+// posteriors; as K6, fastdnn_tpu/ops/pallas_kernels.py:
+// output_layer_posteriors_resident_block_sparse ->
+// _resident_block_sparse_kernel_factory (:974-1100).
+//
+// On the TPU the whole K x N int8 weight (16.8 MB at 2048 x 8192) sat in VMEM
+// and each grid step saw complete logit rows.  No SM holds that, so here one
 // block owns BM = 64 frames (their activations stay in shared memory), walks
-// the N tiles 128 columns at a time, writes the raw logits of the columns
-// below out_dim straight into the output and keeps a running (max, sum-exp)
-// per row; padding columns are capped at -1e30 as on the TPU (:346-348).  A
-// second sweep of the same block rescales its own rows in place to
-// exp(z - m) / s.  Softmax is per row, so no block needs another's result.
+// the N tiles 128 columns at a time, writes the logits of the columns below
+// out_dim to device memory and keeps a running (max, sum-exp) per row; padding
+// columns are capped at -1e30 as on the TPU (:346-348).  A second sweep of the
+// same block rescales its own rows to exp(z - m) / s.  Softmax is per row, so
+// no block needs another's result.
+//
+// Masking happens before the logit is stored or joins the stats, as in the
+// TPU kernel (:340-345): under "reference" an inactive senone's logit is 0
+// and takes part in the max, so the second sweep writes exp(0 - m) / s for
+// it; under "active_only" it is -1e30 and adds nothing, and a row whose max
+// stayed at -1e30 (no active senone) is written as zeros (:352-354).
+//
+// The mask is read one tile ahead: before a tile's products, each lane loads
+// the 32 mask bytes of the next tile that its epilogue will need into
+// registers (load_mask), and turns them into one word of bits only when that
+// tile starts (mask_word).  K6's skip test is a __syncthreads_or over the
+// same bits, so each block reads its own mask tiles, instead of a
+// wrapper-side activity table as the TPU's scalar prefetch had
+// (:1062-1064).  A skipped
+// tile loads no weight and issues no MMA, but still counts: its valid columns
+// are stored and folded into the stats as the fill logit (0 under
+// "reference": the max becomes max(m, 0) and the sum gains count * exp(0 -
+// m); -1e30 under "active_only": nothing).  The skip granularity is this
+// kernel's 128-column tile, where the TPU's default was 512; the posteriors do
+// not depend on it.
 //
 // Bound: 271 G int8 ops at B = 8192, K = 2048, N = 8064, but as for K2 the
 // measured bound is L2 traffic: each block re-reads the whole 16.5 MB weight.
 // The logits make one extra round trip through device memory (written, then
 // read and rewritten in the second sweep: 2 x 4 x B x out_dim bytes), the part
-// the TPU kept on chip.  expf, not __expf.
+// the TPU kept on chip.  The f32 path keeps them in the output itself; the
+// bf16 path cannot, so its wrapper allocates an f32 scratch [B, out_dim]
+// (262 MB at B = 8192, out_dim = 8000; written once, read once) and the second
+// sweep reads it and writes 2-byte posteriors.  The mask adds one byte per
+// (frame, padded column), read once (66 MB at B = 8192, N = 8064).  Read in
+// the epilogue, after the tile's products, it showed: K4 masked took 2.96 ms
+// against 2.29 unmasked, every tile waiting on it once more.  Read one tile
+// ahead it costs 2.54 ms (H100 80GB HBM3 at 700 W, one call).  Only the
+// masked instantiations carry the mask code (MASKED), so the unmasked main
+// path keeps its 80 registers and its time.  expf, not __expf.
+#include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -29,6 +67,11 @@ constexpr int BM = 64;
 // 64-frame block is then 2048
 constexpr int kStages = 4;
 constexpr float kNegCap = -1e30f;
+// a row max at or below this means no senone of the row was active
+constexpr float kEmptyRowMax = -1e29f;
+
+// masked semantics (ops/kernels.py:_SEMANTICS): 0 reference, 1 active_only
+constexpr int kReference = 0;
 
 __host__ __device__ constexpr size_t smem_bytes(int k) {
   return static_cast<size_t>(BM) * k + kStages * fdn::kWStageBytes +
@@ -47,10 +90,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ void store_p(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_p(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+constexpr int kWarps = fdn::kThreads / 32;
+constexpr int kRowsPerWarp = BM / kWarps;  // epilogue rows of one warp
+constexpr int kColsPerLane = fdn::kBN / 32;
+
+// This lane's mask bytes of the tile at n0: raw[i][j] is row warp + kWarps i,
+// column n0 + lane + 32 j, exactly the logits the lane handles in the
+// epilogue.  The loads are independent (each warp reads 32 consecutive bytes
+// per load) and nothing reads them until the next tile, so issued one tile
+// ahead they land while this tile's products run.
+__device__ __forceinline__ void load_mask(uint8_t (&raw)[kRowsPerWarp][kColsPerLane],
+                                          const uint8_t* __restrict__ mask, int N, int m0, int n0,
+                                          int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const uint8_t* row = mask + static_cast<size_t>(m0 + warp + kWarps * i) * N + n0 + lane;
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) raw[i][j] = row[32 * j];
+  }
+}
+
+// raw bytes -> one word, bit kColsPerLane * i + j set for an active senone
+__device__ __forceinline__ uint32_t mask_word(const uint8_t (&raw)[kRowsPerWarp][kColsPerLane]) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j)
+      word |= static_cast<uint32_t>(raw[i][j] != 0) << (kColsPerLane * i + j);
+  return word;
+}
+
+// MASKED: the mask (u8 [B, N]) is read, otherwise it is never touched.
+// `logits` holds the raw f32 logits between the two sweeps; for f32
+// posteriors it is `out` itself (so neither is __restrict__).
+template <bool SKIP, bool MASKED, typename OutT>
 __global__ void __launch_bounds__(fdn::kThreads)
     resident_softmax_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
                             const int* __restrict__ colsum, const float* __restrict__ bias,
-                            float inv_scale, float* __restrict__ out, int K, int N, int out_dim) {
+                            float inv_scale, const uint8_t* __restrict__ mask, int semantics,
+                            float* logits, OutT* out, int K, int N, int out_dim) {
   extern __shared__ __align__(128) unsigned char smem[];
   int8_t* a_res = reinterpret_cast<int8_t*>(smem);
   int8_t* w_stage = a_res + BM * K;
@@ -71,27 +153,43 @@ __global__ void __launch_bounds__(fdn::kThreads)
   }
   __syncthreads();
 
+  // the logit of an inactive senone
+  const float fill = semantics == kReference ? 0.0f : kNegCap;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kWarps = fdn::kThreads / 32;
+  uint8_t raw[kRowsPerWarp][kColsPerLane] = {};
+  if constexpr (MASKED) load_mask(raw, mask, N, m0, 0, warp, lane);
   for (int n0 = 0; n0 < N; n0 += fdn::kBN) {
-    fdn::Acc<BM> acc;
-    fdn::mma_tile<BM, true, kStages>(acc, nullptr, 0, 0, a_res, wt, K, n0, K, nullptr, w_stage);
-    fdn::store_acc<BM>(acc, c_tile);
+    uint32_t word = ~0u;
+    if constexpr (MASKED) {
+      word = mask_word(raw);
+      if (n0 + fdn::kBN < N) load_mask(raw, mask, N, m0, n0 + fdn::kBN, warp, lane);
+    }
+    bool active = true;
+    // the tile is skipped when no lane of any warp holds a set bit
+    if constexpr (SKIP) active = __syncthreads_or(word != 0) != 0;
+    if (active) {
+      fdn::Acc<BM> acc;
+      fdn::mma_tile<BM, true, kStages>(acc, nullptr, 0, 0, a_res, wt, K, n0, K, nullptr, w_stage);
+      fdn::store_acc<BM>(acc, c_tile);
+    }
     __syncthreads();
     // one warp per row: lane covers columns lane, lane + 32, ... of the tile,
     // so the logit stores coalesce; each row's stats belong to one warp
-    for (int r = warp; r < BM; r += kWarps) {
-      float z[fdn::kBN / 32];
+    for (int r = warp; r < BM; r += kWarps, word >>= kColsPerLane) {
+      const size_t row = static_cast<size_t>(m0 + r);
+      float z[kColsPerLane];
       float tile_max = kNegCap;
 #pragma unroll
-      for (int j = 0; j < fdn::kBN / 32; ++j) {
+      for (int j = 0; j < kColsPerLane; ++j) {
         const int n = n0 + lane + 32 * j;
-        float v = fdn::dequantize(c_tile[r * fdn::kLdc + lane + 32 * j], colsum[n], inv_scale,
-                                  bias[n]);
+        float v = kNegCap;
         if (n < out_dim) {
-          out[static_cast<size_t>(m0 + r) * out_dim + n] = v;
-        } else {
-          v = kNegCap;
+          v = fill;
+          if (active && (!MASKED || (word >> j & 1u))) {
+            v = fdn::dequantize(c_tile[r * fdn::kLdc + lane + 32 * j], colsum[n], inv_scale,
+                                bias[n]);
+          }
+          logits[row * out_dim + n] = v;
         }
         z[j] = v;
         tile_max = fmaxf(tile_max, v);
@@ -101,7 +199,7 @@ __global__ void __launch_bounds__(fdn::kThreads)
       const float m_new = fmaxf(m_old, tile_max);
       float e = 0.0f;
 #pragma unroll
-      for (int j = 0; j < fdn::kBN / 32; ++j) e += expf(z[j] - m_new);
+      for (int j = 0; j < kColsPerLane; ++j) e += expf(z[j] - m_new);
       e = warp_sum(e);
       __syncwarp();
       if (lane == 0) {
@@ -117,28 +215,65 @@ __global__ void __launch_bounds__(fdn::kThreads)
   for (int r = warp; r < BM; r += kWarps) {
     const float m = row_m[r];
     const float s = row_s[r];
-    float* row = out + static_cast<size_t>(m0 + r) * out_dim;
-    for (int n = lane; n < out_dim; n += 32) row[n] = expf(row[n] - m) / s;
+    const bool empty = m <= kEmptyRowMax;
+    const size_t row = static_cast<size_t>(m0 + r) * out_dim;
+    for (int n = lane; n < out_dim; n += 32)
+      store_p(out + row + n, empty ? 0.0f : expf(logits[row + n] - m) / s);
   }
+}
+
+template <bool SKIP, bool MASKED, typename OutT>
+int launch(const void* x, const void* wt, const void* colsum, const void* bias, float inv_scale,
+           const void* mask, int semantics, void* logits, void* out, int b, int k, int n,
+           int out_dim, int device, void* stream) {
+  const size_t bytes = smem_bytes(k);
+  auto kernel = resident_softmax_kernel<SKIP, MASKED, OutT>;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = fdn::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<b / BM, fdn::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
+      static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
+      static_cast<const uint8_t*>(mask), semantics, static_cast<float*>(logits),
+      static_cast<OutT*>(out), k, n, out_dim);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Requires B % 64 == 0, K % 128 == 0, N % 128 == 0, 0 < out_dim <= N and
+// K4.  mask: nullptr (unmasked) or u8 [B, N]; semantics 0 reference,
+// 1 active_only.  fast == 0: out is f32 [B, out_dim] and `logits` is ignored
+// (the logits live in out); fast != 0: out is bf16 [B, out_dim] and `logits`
+// an f32 [B, out_dim] scratch.  Requires B % 64 == 0, K % 128 == 0,
+// N % 128 == 0, 0 < out_dim <= N, 16-byte aligned x, wt and mask, and
 // fdn_resident_softmax_smem_bytes(K) within the block limit (checked by the
 // wrapper).
 extern "C" int fdn_resident_softmax(const void* x, const void* wt, const void* colsum,
-                                    const void* bias, float inv_scale, void* out, int b, int k,
+                                    const void* bias, float inv_scale, const void* mask,
+                                    int semantics, void* logits, void* out, int fast, int b, int k,
                                     int n, int out_dim, int device, void* stream) {
-  const size_t bytes = smem_bytes(k);
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = fdn::allow_smem(resident_softmax_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  resident_softmax_kernel<<<b / BM, fdn::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
-      static_cast<float*>(out), k, n, out_dim);
-  return static_cast<int>(cudaGetLastError());
+  if (fast && mask)
+    return launch<false, true, __nv_bfloat16>(x, wt, colsum, bias, inv_scale, mask, semantics,
+                                              logits, out, b, k, n, out_dim, device, stream);
+  if (fast)
+    return launch<false, false, __nv_bfloat16>(x, wt, colsum, bias, inv_scale, mask, semantics,
+                                               logits, out, b, k, n, out_dim, device, stream);
+  if (mask)
+    return launch<false, true, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out,
+                                      b, k, n, out_dim, device, stream);
+  return launch<false, false, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b,
+                                     k, n, out_dim, device, stream);
+}
+
+// K6: masked (mask u8 [B, N], required), f32 out [B, out_dim]; the same
+// requirements as K4.
+extern "C" int fdn_resident_softmax_block_sparse(const void* x, const void* wt,
+                                                 const void* colsum, const void* bias,
+                                                 float inv_scale, const void* mask, int semantics,
+                                                 void* out, int b, int k, int n, int out_dim,
+                                                 int device, void* stream) {
+  return launch<true, true, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b,
+                                   k, n, out_dim, device, stream);
 }
 
 extern "C" long long fdn_resident_softmax_smem_bytes(int k) {

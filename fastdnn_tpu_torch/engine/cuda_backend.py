@@ -42,9 +42,27 @@ def hidden_stack_step(acts_i8, hstack):
     return kernels.hidden_stack(acts_i8, w, colsum, inv_scales, bias)
 
 
-def output_posteriors_resident(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32, *,
-                               out_dim: int):
-    """Output layer + full softmax in one K4 launch -> f32 [B, out_dim]."""
+def output_logits(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32):
+    """Output-layer logits f32 [B, N] in one K5 launch."""
+    return kernels.output_logits(acts_i8, w_t, colsum128_i32, inv_scale, bias_f32)
+
+
+def output_posteriors_resident(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32,
+                               masks=None, *, out_dim: int, semantics: str = "reference",
+                               fast: bool = False):
+    """Output layer + full (optionally masked) softmax in one K4 launch
+    -> [B, out_dim], f32 or (fast) bf16."""
     return kernels.resident_softmax(
-        acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, out_dim=out_dim
+        acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, out_dim=out_dim,
+        semantics=semantics, fast=fast,
+    )
+
+
+def output_posteriors_block_sparse(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32,
+                                   masks, *, out_dim: int, semantics: str = "reference"):
+    """Masked output + softmax skipping all-inactive tiles, one K6 launch
+    -> f32 [B, out_dim] (no `fast` variant: the gain is skipped work)."""
+    return kernels.resident_softmax_block_sparse(
+        acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, out_dim=out_dim,
+        semantics=semantics,
     )

@@ -1,15 +1,25 @@
-"""Scoring engine: the dense forward pass over a QuantizedNet, in PyTorch.
+"""Scoring engine: the forward passes over a QuantizedNet, in PyTorch.
 
-The counterpart of fastdnn_tpu/engine/scorer.py (dense path only):
+The counterpart of fastdnn_tpu/engine/scorer.py on one device:
 
-  * `score(frames)`        numpy in, posteriors f32 [n, out] numpy out
-  * `score_device(frames)` device tensor in, device tensor out
+  * `score(frames)`               numpy in, posteriors f32 [n, out] numpy out
+  * `score_device(frames)`        device tensor in, device tensor out
+  * `score_masked(frames, masks)` the lazy path, a whole utterance at once:
+                                  masks [n, out], nonzero = senone active
+  * `score_utterances(utts)`      many utterances in one pass
+  * `LazyContext`                 frame-by-frame lazy scoring for decoders
 
 The pass has three stages: the float input layer (a library matmul, then the
 K1 quantized-sigmoid kernel), the hidden trunk (one K3 launch for batches of
 at most `stack_hidden_max_frames`, else one K2 launch per layer) and the
-output layer with its softmax (one K4 launch).  With backend "torch" every
-stage runs its plain PyTorch version instead (ops/matmul.py).
+output layer.  With `fused_softmax` (the default) the output layer and its
+softmax are one K4 launch, masked under the lazy semantics for
+`score_masked`, or one K6 launch (tile skipping) for
+lazy_mode="block_sparse"; without it they are a K5 logits launch and a
+library softmax.  LazyContext scores each frame with K5 and the masked
+softmax in plain tensor ops, as the JAX package did in XLA, and
+lazy_mode="gathered" runs engine.lazy's library product.  With backend
+"torch" every kernel's plain PyTorch version (ops/matmul.py) runs instead.
 
 Frame counts are bucketed (padded up to `config.frame_bucket`), which also
 makes them multiples of every kernel's frame tile.
@@ -28,6 +38,7 @@ from ..ops import matmul as xops
 from ..quant.quantize import QuantizedNet, pad_qnet
 from ..utils.align import aligned_size
 from . import cuda_backend
+from . import lazy as _lazy
 
 
 def build_hidden_stack(net: QuantizedNet):
@@ -75,25 +86,92 @@ def hidden_forward(
     return acts
 
 
+def _output_args(net: QuantizedNet):
+    return (net.weights[-1], net.colsum128[-1], net.inv_scales[-1], net.biases[-1])
+
+
+def output_logits(net: QuantizedNet, acts: torch.Tensor, backend: str) -> torch.Tensor:
+    """Output-layer logits f32 [B, N] (K5, or its plain version)."""
+    steps = xops if backend == "torch" else cuda_backend
+    return steps.output_logits(acts, *_output_args(net))
+
+
+def _fused_posteriors(net, acts, masks, *, backend, out_dim, semantics, fast, block_sparse=False):
+    """Output layer + softmax in one launch: K4 (masks optional, bf16 with
+    `fast`), or K6 for masked block-sparse calls (f32 only).  The plain
+    versions of the same kernels on backend "torch"."""
+    args = (acts, *_output_args(net))
+    if block_sparse and masks is not None:
+        steps = xops if backend == "torch" else cuda_backend
+        return steps.output_posteriors_block_sparse(
+            *args, masks, out_dim=out_dim, semantics=semantics
+        )
+    fn = xops.output_posteriors if backend == "torch" else cuda_backend.output_posteriors_resident
+    return fn(*args, masks, out_dim=out_dim, semantics=semantics, fast=fast)
+
+
 def score_fn(
     net: QuantizedNet,
     frames: torch.Tensor,
     *,
     backend: str,
     out_dim: Optional[int] = None,
+    fused_softmax: bool = False,
+    fast_posteriors: bool = False,
     hstack=None,
     stack_max_frames: int = 0,
 ) -> torch.Tensor:
-    """Full forward pass -> posteriors f32 [B, out_dim].  `out_dim`
-    defaults to the net's true senone count; padding columns never join
-    the softmax."""
+    """Full forward pass -> posteriors [B, out_dim] (bf16 only with
+    fused_softmax and fast_posteriors).  `out_dim` defaults to the net's
+    true senone count; padding columns never join the softmax."""
     if out_dim is None:
         out_dim = net.output_dim
     acts = hidden_forward(net, frames, backend, hstack, stack_max_frames)
-    args = (acts, net.weights[-1], net.colsum128[-1], net.inv_scales[-1], net.biases[-1])
-    if backend == "torch":
-        return xops.output_posteriors(*args, out_dim=out_dim)
-    return cuda_backend.output_posteriors_resident(*args, out_dim=out_dim)
+    if fused_softmax:
+        return _fused_posteriors(
+            net, acts, None, backend=backend, out_dim=out_dim, semantics="reference",
+            fast=fast_posteriors,
+        )
+    return torch.softmax(output_logits(net, acts, backend)[:, :out_dim], dim=-1)
+
+
+def score_masked_fn(
+    net: QuantizedNet,
+    frames: torch.Tensor,
+    masks: torch.Tensor,
+    *,
+    backend: str,
+    semantics: str = "reference",
+    out_dim: Optional[int] = None,
+    fused_softmax: bool = False,
+    fast_posteriors: bool = False,
+    hstack=None,
+    stack_max_frames: int = 0,
+    block_sparse: bool = False,
+) -> torch.Tensor:
+    """Lazy/masked forward pass -> posteriors [B, out_dim].
+
+    masks: u8 [B, out_dim] (or the padded width) on the frames' device,
+    nonzero = senone active for that frame.  block_sparse selects the
+    tile-skipping kernel (fused_softmax only; see
+    config.lazy_mode="block_sparse").
+    """
+    if out_dim is None:
+        out_dim = net.output_dim
+    acts = hidden_forward(net, frames, backend, hstack, stack_max_frames)
+    if fused_softmax:
+        # the kernels read masks at the tile-padded width (padding columns
+        # are excluded by the out_dim cutoff anyway); the CUDA backend keeps
+        # the weight in the kernels' layout [N, K] (cuda_backend.prepare)
+        n_pad = net.weights[-1].shape[0 if backend == "cuda" else 1]
+        if masks.shape[-1] != n_pad:
+            masks = torch.nn.functional.pad(masks, (0, n_pad - masks.shape[-1]))
+        return _fused_posteriors(
+            net, acts, masks, backend=backend, out_dim=out_dim, semantics=semantics,
+            fast=fast_posteriors, block_sparse=block_sparse,
+        )
+    logits = output_logits(net, acts, backend)[:, :out_dim]
+    return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
 
 
 class Scorer:
@@ -105,7 +183,8 @@ class Scorer:
     are also padded to the kernels' tiles and transposed into the kernels'
     layout (cuda_backend.prepare).  The per-layer scales stay host scalars:
     the kernels take them by value, so scoring never waits on the device to
-    read one.
+    read one.  The gathered lazy path reads the mask union on the host, as
+    the JAX package does.
     """
 
     def __init__(
@@ -122,9 +201,17 @@ class Scorer:
                 "to score with the plain PyTorch versions"
             )
         self._backend = self.config.resolve_backend(self.device)
+        if self.config.lazy_mode == "block_sparse" and not (
+            self._backend == "cuda" and self.config.fused_softmax
+        ):
+            raise ValueError(
+                "lazy_mode='block_sparse' needs backend='cuda' (or 'auto' on a CUDA "
+                "device) with fused_softmax=True: the tile skipping lives inside the "
+                "masked kernel"
+            )
         if self._backend == "cuda":
             tile = max(kernels.HIDDEN_LAYER_FRAMES, kernels.HIDDEN_STACK_FRAMES,
-                       kernels.RESIDENT_SOFTMAX_FRAMES)
+                       kernels.RESIDENT_SOFTMAX_FRAMES, kernels.OUTPUT_LOGITS_FRAMES)
             if self.config.frame_bucket % tile:
                 raise ValueError(
                     f"frame_bucket={self.config.frame_bucket} must be a multiple of "
@@ -139,6 +226,33 @@ class Scorer:
         self._hstack = (
             build_hidden_stack(self.net) if self.config.stack_hidden_max_frames > 0 else None
         )
+        self._kw = dict(
+            backend=self._backend,
+            out_dim=self._output_dim,
+            fused_softmax=self.config.fused_softmax,
+            fast_posteriors=self.config.fast_posteriors,
+            hstack=self._hstack,
+            stack_max_frames=self.config.stack_hidden_max_frames,
+        )
+        self._gather_capacity = min(
+            aligned_size(max(int(self._output_dim * self.config.lazy_capacity), 1), 128),
+            self._output_dim,
+        )
+
+    @staticmethod
+    def _masked_from_acts_fn(net, acts, masks, *, backend, semantics, out_dim):
+        """Masked posteriors for a few rows of last-hidden activations: the
+        logits (K5) and the masked softmax in plain tensor ops.  The kernel
+        takes whole 64-frame tiles, so the rows are padded for it and cut
+        back after."""
+        n = acts.shape[0]
+        if backend == "cuda" and n % kernels.OUTPUT_LOGITS_FRAMES:
+            pad = kernels.OUTPUT_LOGITS_FRAMES - n % kernels.OUTPUT_LOGITS_FRAMES
+            acts = torch.nn.functional.pad(acts, (0, 0, 0, pad))
+        logits = output_logits(net, acts, backend)[:n, :out_dim]
+        return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
+
+    # -- helpers ------------------------------------------------------------
 
     @property
     def backend(self) -> str:
@@ -168,21 +282,44 @@ class Scorer:
             padded = np.zeros((bucket, self.input_dim), np.float32)
             padded[:n, :dim] = frames
             frames = padded
-        return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device), n
+        return self._to_device(frames), n
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _pad_masks(self, masks: np.ndarray, pad_n: int) -> np.ndarray:
+        """[n, output_dim] host masks -> u8 [pad_n, output_dim], rows past n
+        inactive (the masked program pads the width itself)."""
+        out = np.zeros((pad_n, self._output_dim), dtype=np.uint8)
+        out[: masks.shape[0], : self._output_dim] = masks != 0
+        return out
 
     def _finish(self, out: torch.Tensor, n: int) -> np.ndarray:
-        """Device posteriors -> host [n, output_dim] f32."""
-        return out[:n].cpu().numpy()
+        """Device posteriors -> host [n, output_dim] f32 (bf16 widened)."""
+        return out[:n].float().cpu().numpy()
 
     def _run(self, frames: torch.Tensor) -> torch.Tensor:
-        return score_fn(
-            self.net,
-            frames,
-            backend=self._backend,
-            out_dim=self._output_dim,
-            hstack=self._hstack,
-            stack_max_frames=self.config.stack_hidden_max_frames,
+        return score_fn(self.net, frames, **self._kw)
+
+    def _run_masked(self, frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        return score_masked_fn(
+            self.net, frames, masks, semantics=self.config.lazy_semantics,
+            block_sparse=self.config.lazy_mode == "block_sparse", **self._kw,
         )
+
+    def _hidden(self, frames: torch.Tensor) -> torch.Tensor:
+        """Input layer + hidden trunk -> last-hidden s8 activations."""
+        return hidden_forward(
+            self.net, frames, self._backend, self._hstack, self.config.stack_hidden_max_frames
+        )
+
+    def _gathered(self, acts, masks, idx) -> torch.Tensor:
+        return _lazy.gathered_output_posteriors(
+            self.net, acts, masks, idx, out_dim=self._output_dim,
+            semantics=self.config.lazy_semantics, kernel_layout=self._backend == "cuda",
+        )
+
+    # -- public API ----------------------------------------------------------
 
     def score(self, frames) -> np.ndarray:
         """Posteriors f32 [n, out] for a frame batch."""
@@ -195,7 +332,7 @@ class Scorer:
 
     def score_device(self, frames: torch.Tensor) -> torch.Tensor:
         """Device-resident variant: f32 [B, input_dim] on the scorer's
-        device -> f32 [B, output_dim] on it, with no host transfer and no
+        device -> [B, output_dim] on it, with no host transfer and no
         padding (on the CUDA backend B must be a multiple of the kernels'
         frame tile, as the bucketed counts are)."""
         if frames.device.type != self.device.type or frames.dtype != torch.float32:
@@ -205,3 +342,124 @@ class Scorer:
             )
         with torch.inference_mode():
             return self._run(frames)
+
+    def score_masked(self, frames, masks) -> np.ndarray:
+        """Lazy path, whole utterance at once: masks [n, out] (nonzero =
+        active).  The dense masked kernel unless config.lazy_mode asks for
+        "gathered" or "block_sparse"."""
+        frames = np.asarray(frames, dtype=np.float32)
+        masks = np.asarray(masks)
+        if masks.shape != (frames.shape[0], self.output_dim):
+            raise ValueError(
+                f"masks must be [n={frames.shape[0]}, out={self.output_dim}], got {masks.shape}"
+            )
+        padded, n = self._prepare(frames)
+        masks_p = self._pad_masks(masks, padded.shape[0])
+        with torch.inference_mode():
+            if self._use_gathered(masks_p):
+                idx, _ = _lazy.union_active_indices(masks_p, self._gather_capacity)
+                out = self._gathered(
+                    self._hidden(padded), self._to_device(masks_p), self._to_device(idx)
+                )
+            else:
+                out = self._run_masked(padded, self._to_device(masks_p))
+            return self._finish(out, n)
+
+    def _use_gathered(self, masks: np.ndarray) -> bool:
+        if self.config.lazy_mode != "gathered":
+            # "auto" resolves to dense, as in the JAX package; gathered runs
+            # only on explicit request
+            return False
+        union = int(masks.any(axis=0).sum())
+        if union > self._gather_capacity:
+            raise ValueError(
+                f"active union {union} exceeds gather capacity "
+                f"{self._gather_capacity}; raise config.lazy_capacity or "
+                "use lazy_mode='dense'"
+            )
+        return True
+
+    def score_utterances(self, utterances):
+        """Score many utterances in one pass.
+
+        Frames are independent, so utterances are concatenated into one
+        frame batch and split back.  Accepts a dict {id: [n, dim]} or a list
+        of [n, dim] arrays; returns the same container shape.
+        """
+        keys = None
+        if isinstance(utterances, dict):
+            keys = list(utterances.keys())
+            mats = [np.asarray(utterances[k], np.float32) for k in keys]
+        else:
+            mats = [np.asarray(u, np.float32) for u in utterances]
+        if not mats:
+            return {} if keys is not None else []
+        counts = [m.shape[0] for m in mats]
+        out = self.score(np.concatenate(mats, axis=0))
+        splits = np.split(out, np.cumsum(counts)[:-1])
+        if keys is not None:
+            return dict(zip(keys, splits))
+        return list(splits)
+
+    def _score_masked_from_acts(self, acts: torch.Tensor, masks: np.ndarray) -> np.ndarray:
+        """Posteriors for a few rows of stored last-hidden activations."""
+        b = acts.shape[0]
+        masks_p = self._pad_masks(np.asarray(masks), b)
+        with torch.inference_mode():
+            out = self._masked_from_acts_fn(
+                self.net, acts, self._to_device(masks_p), backend=self._backend,
+                semantics=self.config.lazy_semantics, out_dim=self._output_dim,
+            )
+            return self._finish(out, b)
+
+    def new_lazy_context(self, input_vector_count: int) -> "LazyContext":
+        """The reference's QuantizedDnn.getNewLazyContext."""
+        return LazyContext(self, input_vector_count)
+
+
+class LazyContext:
+    """Frame-by-frame lazy scoring, the reference's LazyContext:
+    `calculate_until_output(frames)` runs everything up to the last hidden
+    layer once and keeps the activations on the device; each
+    `calculate_for_output_nodes(mask)` scores the next frame's senones.
+
+    For throughput prefer Scorer.score_masked: this pays one launch and one
+    host round trip per frame.
+    """
+
+    def __init__(self, scorer: Scorer, input_vector_count: int):
+        self._scorer = scorer
+        self.input_vector_count = input_vector_count
+        self.current_vector_index = 0
+        self._acts: Optional[torch.Tensor] = None
+
+    def calculate_until_output(self, frames) -> None:
+        frames = np.asarray(frames, dtype=np.float32)
+        if frames.shape[0] != self.input_vector_count:
+            raise ValueError(
+                f"expected {self.input_vector_count} frames, got {frames.shape[0]}"
+            )
+        padded, _ = self._scorer._prepare(frames)
+        with torch.inference_mode():
+            self._acts = self._scorer._hidden(padded)
+        self.current_vector_index = 0  # the context is reusable across utterances
+
+    def calculate_for_output_nodes(self, mask) -> np.ndarray:
+        """Posteriors f32 [out] for the next frame given its active-node mask."""
+        if self._acts is None:
+            raise RuntimeError("call calculate_until_output first")
+        i = self.current_vector_index
+        if i >= self.input_vector_count:
+            raise IndexError("all frames already consumed")
+        scorer = self._scorer
+        mask = (np.asarray(mask).reshape(1, -1) != 0).astype(np.uint8)
+        with torch.inference_mode():
+            acts_i = self._acts[i : i + 1]
+            if scorer._use_gathered(mask):
+                idx, _ = _lazy.union_active_indices(mask, scorer._gather_capacity)
+                out = scorer._gathered(acts_i, scorer._to_device(mask), scorer._to_device(idx))
+                res = scorer._finish(out, 1)[0]
+            else:
+                res = scorer._score_masked_from_acts(acts_i, mask)[0]
+        self.current_vector_index += 1
+        return res

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-The sources are compiled by `nvcc` straight into one shared library with a
-plain C interface, loaded with ctypes, so no PyTorch header is compiled.
+Each source is compiled by its own `nvcc` process, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ctypes, so no PyTorch header is compiled.
 The library lands in `fastdnn_tpu_torch/_build/` (not committed), named by
 a hash of the sources and the flags, so a stale build is never loaded.
 Nothing here runs at import time: a machine without nvcc can import the
@@ -26,13 +27,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 #: contraction anywhere (the epilogue must round like the XLA oracle).
 #: No --use_fast_math: tanhf and expf stay the accurate libdevice versions,
 #: and division and square root stay IEEE.
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH_FLAGS,
     "-std=c++17",
     "-O3",
     "-fmad=false",
     "-Xptxas", "-v",
-    "-shared",
     "-Xcompiler", "-fPIC",
 )
 
@@ -57,10 +58,20 @@ _SIGNATURES = {
     "fdn_hidden_stack_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "fdn_resident_softmax": (
         ctypes.c_int,
-        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, _P],
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    ),
+    "fdn_resident_softmax_block_sparse": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     ),
     "fdn_resident_softmax_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_output_logits": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _P],
+    ),
 }
 
 _lock = threading.Lock()
@@ -86,8 +97,13 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_command(nvcc: str, source: Path, obj: Path) -> list[str]:
+    """Compile one source into an object file."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(source)]
+
+
+def link_command(nvcc: str, objects: list[Path], out: Path) -> list[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *map(str, objects)]
 
 
 def library_path() -> Path:
@@ -99,29 +115,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfastdnn_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(commands: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands concurrently -> (return code, stdout + stderr) each."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in commands
+    ]
+    outputs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, text) for p, text in zip(procs, outputs)]
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these exact sources exists.
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as a .log file."""
+    """Compile the kernels unless a library for these exact sources exists:
+    one nvcc per source, all at once, then one link.  The compiler's report
+    (registers, shared memory, spills) is kept beside the library as a .log
+    file."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            nvcc_command(find_nvcc(), Path(tmp)), capture_output=True, text=True
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        results = _run_all(
+            [nvcc_command(nvcc, src, obj) for src, obj in zip(sources(), objects)]
         )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        lib = Path(tmp) / out.name
+        if all(rc == 0 for rc, _ in results):
+            results += _run_all([link_command(nvcc, objects, lib)])
+        log = "".join(text for _, text in results)
+        out.with_suffix(".log").write_text(log)
+        failed = [rc for rc, _ in results if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
     return out
 
 

@@ -13,10 +13,16 @@ The kernels read their int8 weights transposed, K contiguous ([N, K], or
 operand is one `ldmatrix`; the plain versions keep the JAX package's
 [K, N].  A wrapper given CPU tensors transposes back for its plain version.
 
-    K1 bias_sigmoid_i8    the quantized-sigmoid epilogue as its own kernel
-    K2 hidden_layer       one int8 hidden layer with the fused epilogue
-    K3 hidden_stack       all equal-width hidden layers in one launch
-    K4 resident_softmax   int8 output layer + full row softmax
+    K1 bias_sigmoid_i8                the quantized-sigmoid epilogue as its own kernel
+    K2 hidden_layer                   one int8 hidden layer with the fused epilogue
+    K3 hidden_stack                   all equal-width hidden layers in one launch
+    K4 resident_softmax               int8 output layer + full row softmax, optionally
+                                      masked (both lazy semantics) and bf16
+    K5 output_logits                  int8 output layer -> f32 logits, no softmax
+    K6 resident_softmax_block_sparse  K4 masked, skipping all-inactive
+                                      (64-frame x 128-senone) tiles
+
+Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from . import matmul as plain
 HIDDEN_LAYER_FRAMES = 64
 HIDDEN_STACK_FRAMES = 64
 RESIDENT_SOFTMAX_FRAMES = 64
+OUTPUT_LOGITS_FRAMES = 64
 #: K-stage depth and output-column tile of the shared tile engine
 #: (kBK, kBN in csrc/common.cuh); pad_qnet pads node dims to TILE_N
 TILE_K = 128
@@ -64,7 +71,16 @@ KERNELS = {
     "resident_softmax": Kernel(
         "fastdnn_tpu_torch/csrc/resident_softmax.cu", "fastdnn_tpu/ops/pallas_kernels.py:364"
     ),
+    "output_logits": Kernel(
+        "fastdnn_tpu_torch/csrc/output_logits.cu", "fastdnn_tpu/ops/pallas_kernels.py:1104"
+    ),
+    "resident_softmax_block_sparse": Kernel(
+        "fastdnn_tpu_torch/csrc/resident_softmax.cu", "fastdnn_tpu/ops/pallas_kernels.py:1031"
+    ),
 }
+
+#: the lazy semantics as the resident-softmax kernels number them
+_SEMANTICS = {"reference": 0, "active_only": 1}
 
 _count_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)
@@ -197,29 +213,108 @@ def hidden_stack(acts, w_t, colsum, inv_scales, bias) -> torch.Tensor:
     return out
 
 
-def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, *, out_dim: int) -> torch.Tensor:
-    """K4: output layer + row softmax over the first `out_dim` columns,
-    s8 [B, K] x s8 [K, N] -> f32 [B, out_dim]; the weight given as
-    w_t = kernel_layout(w), [N, K].  Plain version: ops.matmul.output_posteriors."""
-    if acts.device.type == "cpu":
-        return plain.output_posteriors(acts, w_t.t(), colsum, inv_scale, bias, out_dim=out_dim)
+def _output_layer_shapes(name, acts, w_t, colsum, bias, masks, frames) -> torch.device:
+    """Check the output kernels' operands (masks may be None) and their
+    tile multiples; returns their device."""
     b, k = acts.shape
     n = w_t.shape[0]
-    device = _check(
-        "resident_softmax", (acts, w_t, colsum, bias),
-        (torch.int8, torch.int8, torch.int32, torch.float32),
-        ((b, k), (n, k), (n,), (n,)),
-    )
-    _require_multiples(
-        "resident_softmax", B=(b, RESIDENT_SOFTMAX_FRAMES), K=(k, TILE_K), N=(n, TILE_N)
-    )
+    tensors = [acts, w_t, colsum, bias]
+    dtypes = [torch.int8, torch.int8, torch.int32, torch.float32]
+    shapes = [(b, k), (n, k), (n,), (n,)]
+    if masks is not None:
+        tensors.append(masks)
+        dtypes.append(torch.uint8)
+        shapes.append((b, n))
+    device = _check(name, tensors, dtypes, shapes)
+    _require_multiples(name, B=(b, frames), K=(k, TILE_K), N=(n, TILE_N))
+    if masks is not None and masks.data_ptr() % 16:
+        raise ValueError(f"{name}: masks must start on a 16-byte boundary")
+    return device
+
+
+def _resident_args(name, acts, w_t, colsum, bias, masks, out_dim, semantics):
+    """Shared checks of K4 and K6 -> (device, semantics code)."""
+    device = _output_layer_shapes(name, acts, w_t, colsum, bias, masks, RESIDENT_SOFTMAX_FRAMES)
+    n = w_t.shape[0]
     if not 0 < out_dim <= n:
-        raise ValueError(f"resident_softmax: out_dim={out_dim} must be in [1, {n}]")
-    out = torch.empty((b, out_dim), dtype=torch.float32, device=device)
+        raise ValueError(f"{name}: out_dim={out_dim} must be in [1, {n}]")
+    if semantics not in _SEMANTICS:
+        raise ValueError(f"{name}: unknown lazy semantics {semantics!r}")
+    return device, _SEMANTICS[semantics]
+
+
+def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, out_dim: int,
+                     semantics: str = "reference", fast: bool = False) -> torch.Tensor:
+    """K4: output layer + row softmax over the first `out_dim` columns,
+    s8 [B, K] x s8 [K, N] -> [B, out_dim], f32 or (fast) bf16; the weight
+    given as w_t = kernel_layout(w), [N, K].  masks: None or u8 [B, N],
+    softmax under `semantics` ("reference" or "active_only").  Plain
+    version: ops.matmul.output_posteriors."""
+    if acts.device.type == "cpu":
+        return plain.output_posteriors(acts, w_t.t(), colsum, inv_scale, bias, masks,
+                                       out_dim=out_dim, semantics=semantics, fast=fast)
+    device, code = _resident_args("resident_softmax", acts, w_t, colsum, bias, masks, out_dim,
+                                  semantics)
+    b, k = acts.shape
+    out = torch.empty((b, out_dim), dtype=torch.bfloat16 if fast else torch.float32,
+                      device=device)
+    # bf16 posteriors cannot hold the logits between the kernel's two sweeps
+    logits = torch.empty((b, out_dim), dtype=torch.float32, device=device) if fast else out
     if b:
         lib = _build.load()
         _require_smem("resident_softmax", device, lib.fdn_resident_softmax_smem_bytes(k))
         _launch("resident_softmax", device, lib.fdn_resident_softmax,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
-                float(inv_scale), out.data_ptr(), b, k, n, out_dim)
+                float(inv_scale), None if masks is None else masks.data_ptr(), code,
+                logits.data_ptr(), out.data_ptr(), int(fast), b, k, w_t.shape[0], out_dim)
+    return out
+
+
+def resident_softmax_block_sparse(acts, w_t, colsum, inv_scale: float, bias, masks, *,
+                                  out_dim: int, semantics: str = "reference") -> torch.Tensor:
+    """K6: K4 masked, skipping the weight loads and products of every
+    (64-frame x 128-column) tile whose mask is all zero -> f32 [B, out_dim].
+    Plain version: ops.matmul.output_posteriors_block_sparse."""
+    if acts.device.type == "cpu":
+        return plain.output_posteriors_block_sparse(acts, w_t.t(), colsum, inv_scale, bias, masks,
+                                                    out_dim=out_dim, semantics=semantics)
+    device, code = _resident_args("resident_softmax_block_sparse", acts, w_t, colsum, bias, masks,
+                                  out_dim, semantics)
+    b, k = acts.shape
+    out = torch.empty((b, out_dim), dtype=torch.float32, device=device)
+    if b:
+        lib = _build.load()
+        _require_smem("resident_softmax_block_sparse", device,
+                      lib.fdn_resident_softmax_smem_bytes(k))
+        _launch("resident_softmax_block_sparse", device, lib.fdn_resident_softmax_block_sparse,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), masks.data_ptr(), code, out.data_ptr(), b, k, w_t.shape[0],
+                out_dim)
+    return out
+
+
+def block_skip_share(masks: torch.Tensor) -> float:
+    """Share of K6's (64-frame x 128-column) tiles that `masks` [B, N]
+    leaves all-inactive, i.e. the tiles K6 skips."""
+    b, n = masks.shape
+    tiles = masks.reshape(b // RESIDENT_SOFTMAX_FRAMES, RESIDENT_SOFTMAX_FRAMES, n // TILE_N, TILE_N)
+    return float((tiles != 0).any(dim=3).any(dim=1).logical_not().float().mean())
+
+
+def output_logits(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
+    """K5: output-layer logits, s8 [B, K] x s8 [K, N] -> f32 [B, N]; the
+    weight given as w_t = kernel_layout(w), [N, K].  Plain version:
+    ops.matmul.output_logits."""
+    if acts.device.type == "cpu":
+        return plain.output_logits(acts, w_t.t(), colsum, inv_scale, bias)
+    device = _output_layer_shapes("output_logits", acts, w_t, colsum, bias, None,
+                                  OUTPUT_LOGITS_FRAMES)
+    b, k = acts.shape
+    n = w_t.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=device)
+    if b:
+        lib = _build.load()
+        _launch("output_logits", device, lib.fdn_output_logits,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), out.data_ptr(), b, k, n)
     return out

@@ -17,9 +17,6 @@ import torch
 
 from .sigmoid import quantized_sigmoid_shifted_i8
 
-#: the softmax cap of padding columns, as in the TPU kernels
-NEG_CAP = -1e30
-
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """f32 [B, K] @ f32 [K, N] -> f32, free of every TF32 switch.
@@ -91,18 +88,88 @@ def hidden_stack_step(acts_i8, hstack):
 
 
 def output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32):
-    """Output layer linear activations (pre-softmax), f32 [B, N]."""
+    """Output layer linear activations (pre-softmax), f32 [B, N]: the plain
+    version of the logits kernel."""
     return dequantize(int8_matmul(acts_i8, w_i8), colsum128_i32, inv_scale, bias_f32)
 
 
-def output_posteriors(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, *, out_dim: int):
-    """Output layer + stable row softmax over the first `out_dim` columns
-    -> f32 [B, out_dim].  Columns past `out_dim` (tile padding) are capped
-    at NEG_CAP, as the resident TPU kernel does, so they add nothing."""
-    z = output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32)
-    if out_dim < z.shape[1]:
-        z[:, out_dim:] = NEG_CAP
-    m = z.amax(dim=1, keepdim=True)
+def masked_softmax_reference(logits, mask_bool):
+    """Softmax with the reference's lazy semantics: inactive senones keep a
+    zero logit and still add exp(0 - max) to the denominator (the zeros take
+    part in the max)."""
+    z = torch.where(mask_bool, logits, 0.0)
+    m = z.amax(dim=-1, keepdim=True)
     e = torch.exp(z - m)
-    p = e / e.sum(dim=1, keepdim=True)
-    return p[:, :out_dim].contiguous()
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def masked_softmax_active_only(logits, mask_bool):
+    """Softmax renormalized over active senones only; inactive posteriors
+    are exactly 0, and a frame with no active senone gives an all-zero row
+    (the denominator is floored at `tiny`, so no NaN)."""
+    finfo = torch.finfo(logits.dtype)
+    z = torch.where(mask_bool, logits, finfo.min)
+    m = z.amax(dim=-1, keepdim=True)
+    e = torch.where(mask_bool, torch.exp(z - m), 0.0)
+    s = e.sum(dim=-1, keepdim=True)
+    return e / torch.clamp(s, min=finfo.tiny)
+
+
+def masked_softmax(logits, mask_bool, semantics: str):
+    """The lazy softmax of `semantics` ("reference" or "active_only")."""
+    if semantics == "reference":
+        return masked_softmax_reference(logits, mask_bool)
+    if semantics == "active_only":
+        return masked_softmax_active_only(logits, mask_bool)
+    raise ValueError(f"unknown lazy semantics {semantics!r}")
+
+
+def masked_output_step(
+    acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, mask_bool, *, semantics: str = "reference"
+):
+    """Dense masked output scoring: the full output product, then the lazy
+    softmax of `semantics` over the masked logits."""
+    logits = output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32)
+    return masked_softmax(logits, mask_bool, semantics)
+
+
+def output_posteriors(
+    acts_i8,
+    w_i8,
+    colsum128_i32,
+    inv_scale,
+    bias_f32,
+    masks=None,
+    *,
+    out_dim: int,
+    semantics: str = "reference",
+    fast: bool = False,
+):
+    """Output layer + stable row softmax over the first `out_dim` columns
+    -> [B, out_dim]: the plain version of the resident softmax kernel.
+    Columns past `out_dim` (tile padding) never join the softmax.
+
+    masks: None, or [B, >= out_dim] with nonzero = active; the masked
+    softmax follows `semantics` (masked_softmax).  `fast` returns bfloat16
+    posteriors (the f32 result, rounded to nearest even)."""
+    z = output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32)[:, :out_dim]
+    if masks is None:
+        m = z.amax(dim=1, keepdim=True)
+        e = torch.exp(z - m)
+        p = e / e.sum(dim=1, keepdim=True)
+    else:
+        p = masked_softmax(z, masks[:, :out_dim] != 0, semantics)
+    return p.to(torch.bfloat16 if fast else torch.float32).contiguous()
+
+
+def output_posteriors_block_sparse(
+    acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, *, out_dim: int,
+    semantics: str = "reference",
+):
+    """The plain version of the block-sparse masked softmax kernel: the same
+    function as the dense masked softmax (skipping all-inactive tiles is the
+    kernel's way of computing it, not a different result)."""
+    return output_posteriors(
+        acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, out_dim=out_dim,
+        semantics=semantics,
+    )

@@ -161,10 +161,13 @@ class TestWrappers:
         assert all(v == 0 for v in kernels.launch_counts().values())
 
     def test_nvcc_command(self, tmp_path):
-        cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
-        assert "arch=compute_90a,code=sm_90a" in cmd
-        assert "-fmad=false" in cmd
-        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+        for src in _build.sources():
+            cmd = _build.nvcc_command("nvcc", src, tmp_path / f"{src.stem}.o")
+            assert "arch=compute_90a,code=sm_90a" in cmd
+            assert "-fmad=false" in cmd and "-c" in cmd and str(src) in cmd
+            assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+        link = _build.link_command("nvcc", [tmp_path / "a.o"], tmp_path / "lib.so")
+        assert "-shared" in link and str(tmp_path / "lib.so") in link
         assert {p.name for p in _build.sources()} == {
             k.source.rsplit("/", 1)[1] for k in kernels.KERNELS.values()
         }
