@@ -6,11 +6,14 @@
 Builds the port's CUDA kernels from csrc/, checks each against its plain
 PyTorch version on the card at the shapes the main path gives it, drives the
 main path (`Scorer.score` on the 432 -> 7x2048 -> 8000 net, seeded random
-weights) at three batch sizes and the lazy path (`Scorer.score_masked` under
+weights) at three batch sizes, the lazy path (`Scorer.score_masked` under
 both semantics and in the block-sparse and gathered modes, and a beam decode
-through `LazyContext`), shows through the launch counters that each run went
-through the kernels it should, and times kernels and paths beside their
-plain versions.  Any failed check raises and the script exits non-zero.
+through `LazyContext`), the same net with an int4 hidden trunk (unpacked,
+and packed two nibbles per byte through the packed-layer kernel), and the
+command-line chain from a Kaldi text model through `convert model`,
+`convert quantize --hidden-bits 4` and `score`; shows through the launch
+counters that each run went through the kernels it should, and times
+kernels and paths beside their plain versions.  Any failed check raises and the script exits non-zero.
 The last line of standard output is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -22,10 +25,12 @@ fails before printing any result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -36,6 +41,9 @@ TIMED_REPS = 12
 LAZY_DENSITY = 0.4  # the JAX bench's lazy mix: 40% of the senones active
 BF16_RTOL, BF16_ATOL = 2e-2, 1e-3
 DECODE_FRAMES = 60
+CLI_HIDDEN, CLI_DEPTH, CLI_SENONES = 256, 3, 1000  # the text net, before --extend
+CLI_FRAMES = 1000
+SMOKE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_cli"
 
 
 def phase(title: str) -> None:
@@ -74,6 +82,25 @@ def band_masks(rng, frames: int, block: int = 64, width: int = SENONES // 10) ->
         rows = min(block, frames - lo)
         masks[lo:lo + rows, start:start + width] = rng.random((rows, width)) < 0.5
     return masks
+
+
+def network_text(raw) -> str:
+    """A RawNetwork as Kaldi nnet1 text (weights row by row, then the bias)."""
+    out = ["<Nnet>"]
+    for i, layer in enumerate(raw.layers):
+        out.append(f"<AffineTransform> {layer.output_dim} {layer.input_dim}")
+        rows = [" ".join(f"{v:.9g}" for v in row) for row in layer.weights]
+        out.append("[ " + "\n  ".join(rows) + " ]")
+        out.append("[ " + " ".join(f"{v:.9g}" for v in layer.bias) + " ]")
+        out.append("<Softmax>" if i == len(raw.layers) - 1 else "<Sigmoid>")
+    return "\n".join(out + ["</Nnet>"]) + "\n"
+
+
+def transform_text(raw) -> str:
+    """The feature transform as Kaldi text: splice, shift and scale blocks."""
+    shift = " ".join(f"{v:.9g}" for v in raw.shift)
+    scale = " ".join(f"{v:.9g}" for v in raw.scale)
+    return f"<Splice> [ 0 ]\n<AddShift> [ {shift} ]\n<Rescale> [ {scale} ]\n"
 
 
 def close(got, want, what: str, bound: float = 1e-4) -> None:
@@ -404,6 +431,115 @@ def main() -> int:
         if name != "resident_softmax":  # K4's row keeps the unmasked main-path time
             report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
         print(f"  {title:22s} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{smi}]")
+
+    phase("10. K7 packed int4 hidden layer against its plain version and against K2")
+    q4 = quantize_net(net, hidden_bits=4)
+    int4 = Scorer(q4, EngineConfig(), device="cuda")
+    packed4 = Scorer(q4, EngineConfig(int4_packed=True), device="cuda")
+    plain_packed4 = Scorer(q4, EngineConfig(backend="torch", int4_packed=True), device="cuda")
+    check(packed4.net.packed_int4 and packed4._hstack is None and int4._hstack is not None,
+          "int4 scorers built: the packed one has no hidden stack")
+    check(tuple(packed4.net.weights[0].shape) == (HIDDEN, HIDDEN // 2),
+          f"packed layer in the kernels' layout [{HIDDEN}, {HIDDEN // 2}]")
+    acts4 = plain.input_layer_step(frames_dev, r.input_w, r.input_b)  # same input layer as int8
+    pnet = packed4.net
+    q7 = (pnet.weights[0], pnet.colsum128[0], pnet.inv_scales[0], pnet.biases[0])
+    p7_args = (plain_packed4.net.weights[0], *q7[1:])
+    k2_args = (int4.net.weights[0], *q7[1:])
+    k7 = kernels.hidden_layer_packed(acts4, *q7)
+    p7 = plain.hidden_layer_step_packed(acts4, *p7_args)
+    k2_4 = kernels.hidden_layer(acts4, *k2_args)
+    d7 = int((k7.int() - p7.int()).abs().max())
+    check(d7 == 0, f"K7 hidden_layer_packed B=8320 K=N={HIDDEN} (packed [{HIDDEN // 2}, {HIDDEN}]) "
+                   f"bitwise with its plain version (max |d| = {d7})")
+    check(torch.equal(k7, k2_4), "K7 bitwise with K2 on the same int4 values held unpacked")
+    report["hidden_layer_packed"]["max_abs_err"] = float(d7)
+    narrow = quantize_net(random_net(rng, INPUT_DIM, [384, 384], 400), hidden_bits=4)
+    n_packed = Scorer(narrow, EngineConfig(int4_packed=True), device="cuda").net
+    n_plain = Scorer(narrow, EngineConfig(backend="torch", int4_packed=True), device="cuda").net
+    n_int4 = Scorer(narrow, EngineConfig(), device="cuda").net
+    acts384 = torch.from_numpy(rng.integers(-128, 128, (8320, 384)).astype(np.int8)).to(dev)
+    layer384 = (n_packed.colsum128[0], n_packed.inv_scales[0], n_packed.biases[0])
+    k7n = kernels.hidden_layer_packed(acts384, n_packed.weights[0], *layer384)
+    check(torch.equal(k7n, plain.hidden_layer_step_packed(acts384, n_plain.weights[0], *layer384)),
+          "K7 B=8320 K=N=384 (packed half 192, not a multiple of 256) bitwise with its plain version")
+    check(torch.equal(k7n, kernels.hidden_layer(acts384, n_int4.weights[0], *layer384)),
+          "K7 K=N=384 bitwise with K2 on the same int4 values")
+
+    phase("11. int4 trunk: Scorer.score on the 432-7x2048-8000 int4 net, packed and unpacked")
+    plain_int4 = Scorer(q4, EngineConfig(backend="torch"), device="cuda")
+    want4 = {n: plain_int4.score(frames[:n]) for n in sizes}
+    want4p = {n: plain_packed4.score(frames[:n]) for n in sizes}
+    for n in sizes:
+        check(np.array_equal(want4[n], want4p[n]), f"n={n}: plain packed and unpacked int4 equal")
+    got4 = drive("int4 unpacked", dense_expect, lambda: {n: int4.score(frames[:n]) for n in sizes})
+    got4p = drive("int4 packed", {"bias_sigmoid_i8": 3, "hidden_layer_packed": 3 * (DEPTH - 1),
+                                  "resident_softmax": 3},
+                  lambda: {n: packed4.score(frames[:n]) for n in sizes})
+    for n in sizes:
+        close(got4[n], want4[n], f"int4 unpacked n={n}")
+        close(got4p[n], want4[n], f"int4 packed n={n}")
+    d48 = float(np.abs(got4[8192] - got_p[8192]).max())
+    agree48 = float((got4[8192].argmax(1) == got_p[8192].argmax(1)).mean())
+    print(f"  int4 against int8 posteriors at n=8192: max |dp| = {d48:.4g}, "
+          f"argmax agreement {agree48:.4f} (a different quantization, not a bound)")
+
+    phase("12. command line: Kaldi text -> convert model -> convert quantize --hidden-bits 4 -> score")
+    from fastdnn_tpu_torch import load_qnet, read_features, to_raw
+    from fastdnn_tpu_torch.cli import convert as convert_cli
+    from fastdnn_tpu_torch.cli import score as score_cli
+    from fastdnn_tpu_torch.formats.kaldi_text import write_features_text_kaldi
+
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    SMOKE_DIR.mkdir(parents=True)
+    try:
+        raw = to_raw(random_net(rng, INPUT_DIM, [CLI_HIDDEN] * CLI_DEPTH, CLI_SENONES))
+        (SMOKE_DIR / "nnet.txt").write_text(network_text(raw))
+        (SMOKE_DIR / "transform.txt").write_text(transform_text(raw))
+        cli_frames = rng.standard_normal((CLI_FRAMES, INPUT_DIM), dtype=np.float32)
+        write_features_text_kaldi({"utt-0": cli_frames}, SMOKE_DIR / "feats.txt")
+
+        def f(name: str) -> str:
+            return str(SMOKE_DIR / name)
+
+        check(convert_cli.main(["model", f("nnet.txt"), f("transform.txt"), f("m.bin"),
+                                "--extend", str(HIDDEN), str(SENONES)]) == 0,
+              f"convert model (text {INPUT_DIM}-{CLI_DEPTH - 1}x{CLI_HIDDEN}-{CLI_SENONES}, "
+              f"--extend {HIDDEN} {SENONES})")
+        check(convert_cli.main(["quantize", f("m.bin"), f("q4.npz"), "--hidden-bits", "4"]) == 0,
+              "convert quantize --hidden-bits 4")
+        check(convert_cli.main(["features", f("feats.txt"), f("feats.bin")]) == 0, "convert features")
+        cli_depth = CLI_DEPTH - 1  # hidden-to-hidden layers of the extended net
+        drive("score --device cuda --int4-packed (warm-up call + scoring call)",
+              {"bias_sigmoid_i8": 2, "hidden_layer_packed": 2 * cli_depth, "resident_softmax": 2},
+              lambda: check(score_cli.main([f("q4.npz"), f("feats.bin"), f("post.bin"), "BIN",
+                                            "--device", "cuda", "--int4-packed"]) == 0,
+                            "score --device cuda --int4-packed"))
+        q_cli = load_qnet(f("q4.npz"))
+        check(q_cli.hidden_bits == 4 and q_cli.layer_dims() == [HIDDEN] * CLI_DEPTH + [SENONES],
+              f"the checkpoint is the int4 {INPUT_DIM}-{cli_depth}x{HIDDEN}-{SENONES} net")
+        want_cli = Scorer(q_cli, device="cpu").score(read_features(f("feats.bin")))
+        close(read_features(f("post.bin")), want_cli, "CLI posteriors against Scorer(device='cpu')")
+    finally:
+        shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+
+    phase(f"13. int4 times (median of {TIMED_REPS} CUDA-event-timed calls; card: {smi})")
+    report["hidden_layer_packed"]["ms"] = time_ms(torch, lambda: kernels.hidden_layer_packed(acts4, *q7))
+    report["hidden_layer_packed"]["plain_ms"] = time_ms(
+        torch, lambda: plain.hidden_layer_step_packed(acts4, *p7_args))
+    k2_int4_ms = time_ms(torch, lambda: kernels.hidden_layer(acts4, *k2_args))
+    print(f"  hidden_layer_packed B=8320 K=N=2048 kernel {report['hidden_layer_packed']['ms']:.4f} ms, "
+          f"plain {report['hidden_layer_packed']['plain_ms']:.4f} ms; K2 on the same values "
+          f"{k2_int4_ms:.4f} ms  [{smi}]")
+    # in turns (int8, unpacked, packed, packed, unpacked, int8), one card, one call
+    path_order = (("int8", scorer), ("int4 unpacked", int4), ("int4 packed", packed4))
+    path_times = {name: [] for name, _ in path_order}
+    for name, sc in path_order + path_order[::-1]:
+        path_times[name].append(time_ms(torch, lambda: sc.score_device(batch)))
+    for name, ms in path_times.items():
+        mean = sum(ms) / len(ms)
+        print(f"  score_device B=8192 {name:13s} {ms[0]:.4f} / {ms[1]:.4f} ms/batch, "
+              f"{audio_s / mean * 1e3:.1f} audio-s/s  [{smi}]")
 
     rows = [
         {

@@ -2,15 +2,21 @@
 fastdnn_tpu/cli/score.py:
 
     python -m fastdnn_tpu_torch.cli.score MODEL INPUT [OUT] [BIN|TXT]
-        [--cutoff F] [--device cuda|cpu] [--mask-density F]
-        [--lazy-mode auto|dense|gathered|block_sparse] [--seed N]
+        [--cutoff F] [--hidden-bits 8|4] [--int4-packed] [--device cuda|cpu]
+        [--mask-density F] [--lazy-mode auto|dense|gathered|block_sparse]
+        [--seed N] [--text-input]
 
-Loads a reference-format binary model (quantized on load) or a `.npz` int8
-checkpoint and a binary feature matrix, scores it (lazily, with synthetic
-evolving masks, under --mask-density), prints topology and timing, and
-dumps posteriors to stdout or to a file in BIN or TXT format.
-`--device cuda` (the default) runs the hand-written kernels and fails when
-no GPU is present; `--device cpu` runs their plain PyTorch versions.
+Loads a reference-format binary model (quantized on load, with an int4
+hidden trunk under --hidden-bits 4) or a `.npz` checkpoint and a binary
+feature matrix, scores it (lazily, with synthetic evolving masks, under
+--mask-density), prints topology and timing, and dumps posteriors to stdout
+or to a file in BIN or TXT format.  --text-input reads a Kaldi text feature
+file instead, scores every utterance in one pass and writes the posteriors
+as Kaldi text under the utterance ids.  --int4-packed stores an int4 trunk
+two nibbles per byte (EngineConfig.int4_packed), a port option the JAX CLI
+does not have.  `--device cuda` (the default) runs the hand-written
+kernels and fails when no GPU is present; `--device cpu` runs their plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from ..config import EngineConfig
 from ..engine.scorer import Scorer
 from ..formats.binary import read_features, write_features, write_features_text
+from ..formats.kaldi_text import load_features_text, write_features_text_kaldi
 from ..quant.serialize import load_quantized
 
 
@@ -33,13 +40,23 @@ def build_parser() -> argparse.ArgumentParser:
         prog="fastdnn-torch-score",
         description="Score acoustic features with a quantized DNN (PyTorch/CUDA)",
     )
-    p.add_argument("model", help="reference-format binary model, or a .npz int8 checkpoint")
-    p.add_argument("input", help="binary feature matrix")
+    p.add_argument("model", help="reference-format binary model, or a .npz checkpoint")
+    p.add_argument("input", help="feature file: binary matrix, or Kaldi text with --text-input")
     p.add_argument("out", nargs="?", default=None, help="output file (default: stdout)")
     p.add_argument(
         "out_type", nargs="?", default="TXT", choices=["BIN", "TXT"], help="output format"
     )
     p.add_argument("--cutoff", type=float, default=3.0, help="weight quantization cutoff")
+    p.add_argument(
+        "--hidden-bits", type=int, default=None, choices=[8, 4],
+        help="hidden-trunk weight width: 4 halves the weight bytes (the output "
+        "layer stays int8); a checkpoint's stored width must match",
+    )
+    p.add_argument(
+        "--int4-packed", action="store_true",
+        help="store an int4 trunk two nibbles per byte and run the packed "
+        "hidden-layer kernel (config.EngineConfig.int4_packed)",
+    )
     p.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="cuda: hand-written kernels (fails without a GPU); cpu: plain versions",
@@ -59,6 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
         "engine.cluster)",
     )
     p.add_argument("--seed", type=int, default=1, help="seed of the synthetic masks")
+    p.add_argument(
+        "--text-input", action="store_true",
+        help="input is a Kaldi text feature file; every utterance is scored in "
+        "one pass and the output keeps utterance ids (text format)",
+    )
     return p
 
 
@@ -83,12 +105,28 @@ def generate_masks(rng, count, dim, density, churn_frac=0.03):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    qnet, topology = load_quantized(args.model, cutoff=args.cutoff)
+    if args.text_input and args.mask_density is not None:
+        raise ValueError(
+            "--text-input scores all utterances in one pass and does not combine "
+            "with --mask-density"
+        )
+    qnet, topology = load_quantized(args.model, cutoff=args.cutoff, hidden_bits=args.hidden_bits)
     print(f"Model File  = {args.model}")
     print(f"Network     = {topology}")
+    config = EngineConfig(lazy_mode=args.lazy_mode, int4_packed=args.int4_packed)
+    if args.text_input:
+        utts = load_features_text(args.input)
+        n = sum(m.shape[0] for m in utts.values())
+        print(f"Input       = {len(utts)} utterances, {n}x{next(iter(utts.values())).shape[1]}")
+        scorer = Scorer(qnet, config, device=args.device)
+        t0 = time.perf_counter()
+        scored = scorer.score_utterances(utts)
+        print(f"Dnn calculation time = {(time.perf_counter() - t0) * 1000:.2f} ms.")
+        write_features_text_kaldi(scored, args.out if args.out else sys.stdout)
+        return 0
     frames = read_features(args.input)
     print(f"Input       = {frames.shape[0]}x{frames.shape[1]}")
-    scorer = Scorer(qnet, EngineConfig(lazy_mode=args.lazy_mode), device=args.device)
+    scorer = Scorer(qnet, config, device=args.device)
 
     masks = None
     if args.mask_density is not None:

@@ -49,6 +49,13 @@ class EngineConfig:
     #: emit the fused path's posteriors as bfloat16 (host results are
     #: widened back to f32); off by default for bit-parity.
     fast_posteriors: bool = False
+    #: store an int4 hidden trunk two nibbles per byte
+    #: (quant.quantize.pack_int4_trunk, after padding) and run it one
+    #: packed-layer kernel per layer (ops.kernels.hidden_layer_packed):
+    #: half the weight bytes, bitwise the same activations.  Without it
+    #: the int4 values ride as int8 through the int8 kernels.  The packed
+    #: trunk never takes the hidden-stack kernel.  No effect on int8 nets.
+    int4_packed: bool = False
 
     # Lazy / masked output -------------------------------------------------
     #: "reference" reproduces the reference softmax-over-zeros semantics for

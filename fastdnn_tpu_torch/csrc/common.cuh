@@ -1,7 +1,8 @@
 // Device code shared by the port's Hopper kernels: the quantized-sigmoid
 // epilogue (K1), the dequantization step, and an int8 tensor-core tile engine that
 // K2 (hidden layer), K3 (hidden stack), K4 (resident softmax), K5 (output
-// logits) and K6 (block-sparse resident softmax) run their products through.
+// logits) and K6 (block-sparse resident softmax) run their products through;
+// K7 (packed int4 hidden layer) runs its own stage loop on the same pieces.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false, never
 // --use_fast_math, one nvcc per source (fastdnn_tpu_torch/ops/_build.py).

@@ -16,7 +16,8 @@ from ..quant.quantize import QuantizedNet
 
 def prepare(net: QuantizedNet) -> QuantizedNet:
     """The net with its int8 weights in the kernels' layout (transposed,
-    [out, in], K contiguous: ops.kernels.kernel_layout).  Done once, when a
+    [out, in], K contiguous: ops.kernels.kernel_layout; a packed int4
+    layer [K/2, N] becomes [N, K/2]).  Done once, when a
     Scorer loads the net; the layer steps below take weights so prepared.
     The shape properties of the result (layer_dims, padded_output_dim)
     no longer read as for the JAX layout."""
@@ -33,6 +34,12 @@ def input_layer_step(frames_f32: torch.Tensor, w_f32: torch.Tensor, b_f32: torch
 
 def hidden_layer_step(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32):
     return kernels.hidden_layer(acts_i8, w_t, colsum128_i32, inv_scale, bias_f32)
+
+
+def hidden_layer_step_packed(acts_i8, w_t_packed, colsum128_i32, inv_scale: float, bias_f32):
+    """One packed int4 hidden layer (weight [N, K/2] in the kernels'
+    layout) in one K7 launch."""
+    return kernels.hidden_layer_packed(acts_i8, w_t_packed, colsum128_i32, inv_scale, bias_f32)
 
 
 def hidden_stack_step(acts_i8, hstack):

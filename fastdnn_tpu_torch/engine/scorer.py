@@ -11,8 +11,9 @@ The counterpart of fastdnn_tpu/engine/scorer.py on one device:
 
 The pass has three stages: the float input layer (a library matmul, then the
 K1 quantized-sigmoid kernel), the hidden trunk (one K3 launch for batches of
-at most `stack_hidden_max_frames`, else one K2 launch per layer) and the
-output layer.  With `fused_softmax` (the default) the output layer and its
+at most `stack_hidden_max_frames`, else one K2 launch per layer; an int4
+trunk packed under `config.int4_packed` runs one K7 launch per layer) and
+the output layer.  With `fused_softmax` (the default) the output layer and its
 softmax are one K4 launch, masked under the lazy semantics for
 `score_masked`, or one K6 launch (tile skipping) for
 lazy_mode="block_sparse"; without it they are a K5 logits launch and a
@@ -35,7 +36,7 @@ import torch
 from ..config import EngineConfig
 from ..ops import kernels
 from ..ops import matmul as xops
-from ..quant.quantize import QuantizedNet, pad_qnet
+from ..quant.quantize import QuantizedNet, pack_int4_trunk, pad_qnet
 from ..utils.align import aligned_size
 from . import cuda_backend
 from . import lazy as _lazy
@@ -44,10 +45,11 @@ from . import lazy as _lazy
 def build_hidden_stack(net: QuantizedNet):
     """Stack the equal-width hidden layers for the one-launch trunk
     (ops.kernels.hidden_stack): (w [L, H, H], colsum [L, H], inv_scales [L],
-    bias [L, H]) on the net's device.  None when the topology has fewer
-    than 2 hidden layers or unequal or non-square widths."""
+    bias [L, H]) on the net's device.  None for a packed int4 trunk and when
+    the topology has fewer than 2 hidden layers or unequal or non-square
+    widths."""
     hw = net.weights[:-1]
-    if len(hw) < 2:
+    if net.packed_int4 or len(hw) < 2:
         return None
     shape = hw[0].shape
     if shape[0] != shape[1] or any(w.shape != shape for w in hw):
@@ -73,14 +75,16 @@ def hidden_forward(
     The input layer's product is `ops.matmul.matmul_f32`: float64 rounded
     to f32, so the process-wide TF32 switches cannot lower its precision.
     When `hstack` (see build_hidden_stack) is given and the frame count is
-    within `stack_max_frames`, all hidden layers run as one launch.
+    within `stack_max_frames`, all hidden layers run as one launch.  A
+    packed int4 trunk (net.packed_int4) runs the packed layer step.
     """
     steps = xops if backend == "torch" else cuda_backend
     acts = steps.input_layer_step(frames, net.input_w, net.input_b)
     if hstack is not None and frames.shape[0] <= stack_max_frames:
         return steps.hidden_stack_step(acts, hstack)
+    layer_step = steps.hidden_layer_step_packed if net.packed_int4 else steps.hidden_layer_step
     for i in range(len(net.weights) - 1):
-        acts = steps.hidden_layer_step(
+        acts = layer_step(
             acts, net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i]
         )
     return acts
@@ -183,8 +187,9 @@ class Scorer:
     are also padded to the kernels' tiles and transposed into the kernels'
     layout (cuda_backend.prepare).  The per-layer scales stay host scalars:
     the kernels take them by value, so scoring never waits on the device to
-    read one.  The gathered lazy path reads the mask union on the host, as
-    the JAX package does.
+    read one.  With `config.int4_packed` an int4 trunk is packed after the
+    padding and before the layout change.  The gathered lazy path reads the
+    mask union on the host, as the JAX package does.
     """
 
     def __init__(
@@ -218,6 +223,8 @@ class Scorer:
                     f"the kernels' frame tile {tile}"
                 )
             net = pad_qnet(net, lanes=kernels.TILE_N, out_lanes=kernels.TILE_N)
+        if self.config.int4_packed:
+            net = pack_int4_trunk(net)  # after padding: the halves split at the padded K
         self._output_dim = net.output_dim
         self._input_dim = net.input_dim
         self.net = net.to(self.device)

@@ -98,6 +98,27 @@ def align(
     )
 
 
+def extend(net: FeedForwardNet, hidden_width: int, output_count: int) -> FeedForwardNet:
+    """Grow a net to `hidden_width`-wide hidden layers and `output_count`
+    outputs (the reference's FeedForwardNetwork.extend, used to make the
+    large benchmark net from a small trained one): hidden layers are tiled
+    circularly along both dims (the input layer along its nodes only); the
+    output layer is zero-padded, so the added senones have zero weights and
+    bias."""
+    n = net.layer_count
+    ws, bs = [], []
+    for i, (w, b) in enumerate(zip(net.weights, net.biases)):
+        if i == n - 1:
+            ws.append(_pad_to(w, hidden_width, output_count))
+            bs.append(_pad_to(b, output_count))
+        else:
+            rows = torch.arange(w.shape[0] if i == 0 else hidden_width) % w.shape[0]
+            cols = torch.arange(hidden_width) % w.shape[1]
+            ws.append(w[rows][:, cols].contiguous())
+            bs.append(b[cols].contiguous())
+    return FeedForwardNet(tuple(ws), tuple(bs), net.shift, net.scale)
+
+
 def fuse_transform(net: FeedForwardNet) -> FeedForwardNet:
     """Fold `(x + shift) * scale` into the first layer:
 

@@ -51,6 +51,11 @@ _SIGNATURES = {
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, _P],
     ),
+    "fdn_hidden_layer_packed": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _P],
+    ),
     "fdn_hidden_stack": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],

@@ -21,6 +21,8 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
     K5 output_logits                  int8 output layer -> f32 logits, no softmax
     K6 resident_softmax_block_sparse  K4 masked, skipping all-inactive
                                       (64-frame x 128-senone) tiles
+    K7 hidden_layer_packed            K2 for an int4 layer stored two nibbles
+                                      per byte (quant.quantize.pack_int4_trunk)
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 """
@@ -76,6 +78,9 @@ KERNELS = {
     ),
     "resident_softmax_block_sparse": Kernel(
         "fastdnn_tpu_torch/csrc/resident_softmax.cu", "fastdnn_tpu/ops/pallas_kernels.py:1031"
+    ),
+    "hidden_layer_packed": Kernel(
+        "fastdnn_tpu_torch/csrc/hidden_layer_packed.cu", "fastdnn_tpu/ops/pallas_kernels.py:87"
     ),
 }
 
@@ -183,6 +188,32 @@ def hidden_layer(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
     if b:
         lib = _build.load()
         _launch("hidden_layer", device, lib.fdn_hidden_layer,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), out.data_ptr(), b, k, n)
+    return out
+
+
+def hidden_layer_packed(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
+    """K7: one int4 hidden layer stored two nibbles per byte, s8 [B, K] x
+    packed s8 [K/2, N] -> shifted s8 [B, N]; the weight given as
+    w_t = kernel_layout(packed), [N, K/2].  Bitwise equal to K2 on the same
+    int4 values held unpacked.  Plain version:
+    ops.matmul.hidden_layer_step_packed."""
+    if acts.device.type == "cpu":
+        return plain.hidden_layer_step_packed(acts, w_t.t(), colsum, inv_scale, bias)
+    b, k = acts.shape
+    n = w_t.shape[0]
+    device = _check(
+        "hidden_layer_packed", (acts, w_t, colsum, bias),
+        (torch.int8, torch.int8, torch.int32, torch.float32),
+        ((b, k), (n, k // 2), (n,), (n,)),
+    )
+    _require_multiples("hidden_layer_packed", B=(b, HIDDEN_LAYER_FRAMES), K=(k, TILE_K),
+                       N=(n, TILE_N))
+    out = torch.empty((b, n), dtype=torch.int8, device=device)
+    if b:
+        lib = _build.load()
+        _launch("hidden_layer_packed", device, lib.fdn_hidden_layer_packed,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), out.data_ptr(), b, k, n)
     return out

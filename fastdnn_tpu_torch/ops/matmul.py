@@ -78,6 +78,27 @@ def hidden_layer_step(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32):
     return quantized_sigmoid_shifted_i8(dequantize(acc, colsum128_i32, inv_scale, bias_f32))
 
 
+def unpack_int4_pair(packed_i8: torch.Tensor):
+    """[K/2, N] two-nibbles-per-byte int8 -> (lo, hi) int8 weight halves,
+    the inverse of quant.quantize.pack_int4_trunk: lo[k] is weight row k,
+    hi[k] weight row K/2 + k.  The low nibble is sign-extended as
+    ((v & 0xF) ^ 8) - 8; the high one by an arithmetic shift."""
+    w32 = packed_i8.to(torch.int32)
+    lo = (((w32 & 0xF) ^ 8) - 8).to(torch.int8)
+    hi = (w32 >> 4).to(torch.int8)
+    return lo, hi
+
+
+def hidden_layer_step_packed(acts_i8, w_packed_i8, colsum128_i32, inv_scale, bias_f32):
+    """hidden_layer_step for a pack_int4_trunk weight [K/2, N]: two exact
+    s8 products over the activation halves, bitwise equal to the unpacked
+    int4 layer.  The plain version of the packed hidden-layer kernel."""
+    kk = w_packed_i8.shape[0]
+    lo, hi = unpack_int4_pair(w_packed_i8)
+    acc = int8_matmul(acts_i8[:, :kk], lo) + int8_matmul(acts_i8[:, kk:], hi)
+    return quantized_sigmoid_shifted_i8(dequantize(acc, colsum128_i32, inv_scale, bias_f32))
+
+
 def hidden_stack_step(acts_i8, hstack):
     """All hidden layers of a stack (engine.scorer.build_hidden_stack) in
     turn: the plain version of the one-launch stack kernel."""

@@ -86,10 +86,29 @@ class TestQuantize:
             np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
             assert float(tm) == float(jm)
 
+    def test_int4_quantize_net_matches_jax_exactly(self):
+        t_net, j_net = _nets(6)
+        t_q = fdt.quantize_net(t_net, hidden_bits=4)
+        j_q = fd.quantize_net(j_net, hidden_bits=4)
+        assert t_q.hidden_bits == 4 and not t_q.packed_int4
+        # JAX holds the int4 trunk as ml_dtypes.int4 and its colsums as int64
+        for field in ("weights", "colsum128", "inv_scales", "multipliers", "biases"):
+            for a, b in zip(getattr(t_q, field), getattr(j_q, field), strict=True):
+                np.testing.assert_array_equal(_np(a), _np(b).astype(_np(a).dtype), err_msg=field)
+                assert _np(a).tobytes() == _np(b).astype(_np(a).dtype).tobytes(), field
+        assert t_q.weights[-1].dtype == torch.int8 and int(t_q.weights[-1].abs().max()) > 8
+        for w in t_q.weights[:-1]:
+            assert w.dtype == torch.int8 and -8 <= int(w.min()) and int(w.max()) <= 7
+
     def test_int4_is_refused(self):
+        """What stays refused for int4: other bit widths, and padding a
+        packed trunk (pad first, then pack)."""
         t_net, _ = _nets(6)
-        with pytest.raises(ValueError, match="int8"):
-            fdt.quantize_net(t_net, hidden_bits=4)
+        with pytest.raises(ValueError, match="hidden_bits must be 8 or 4"):
+            fdt.quantize_net(t_net, hidden_bits=2)
+        packed = fdt.pack_int4_trunk(fdt.quantize_net(t_net, hidden_bits=4))
+        with pytest.raises(ValueError, match="pad before packing"):
+            fdt.pad_qnet(packed)
 
     def test_pad_qnet_matches_pad_qnet_for_tpu(self):
         t_net, j_net = _nets(7, hidden=(200, 200, 200), out=1000)
@@ -176,8 +195,26 @@ class TestCheckpoints:
         assert banner == "432-256-256-256-400 (int8 checkpoint)"
         _assert_fields_equal(q2, t_q)
 
+    def test_int4_checkpoint_loads_in_port(self, tmp_path):
+        _, j_net = _nets(12)
+        j_q = fd.quantize_net(j_net, hidden_bits=4)
+        fd.save_qnet(j_q, tmp_path / "q4.npz")
+        t_q = fdt.load_qnet(tmp_path / "q4.npz")
+        assert t_q.hidden_bits == 4 and not t_q.packed_int4
+        for field in ("weights", "colsum128", "inv_scales", "multipliers", "biases"):
+            for a, b in zip(getattr(t_q, field), getattr(j_q, field), strict=True):
+                np.testing.assert_array_equal(_np(a), _np(b).astype(_np(a).dtype), err_msg=field)
+        q2, banner = fdt.load_quantized(tmp_path / "q4.npz")
+        assert banner == "432-256-256-256-400 (int4-trunk checkpoint)" and q2.hidden_bits == 4
+
     def test_int4_checkpoint_is_refused(self, tmp_path):
+        """What stays refused for int4 checkpoints: loading one as int8, and
+        saving a packed net (its bytes would load with the wrong meaning)."""
         _, j_net = _nets(12)
         fd.save_qnet(fd.quantize_net(j_net, hidden_bits=4), tmp_path / "q4.npz")
-        with pytest.raises(ValueError, match="int8"):
-            fdt.load_qnet(tmp_path / "q4.npz")
+        with pytest.raises(ValueError, match="hidden_bits=8 requested"):
+            fdt.load_quantized(tmp_path / "q4.npz", hidden_bits=8)
+        packed = fdt.pack_int4_trunk(fdt.load_qnet(tmp_path / "q4.npz"))
+        with pytest.raises(ValueError, match="unpacked net"):
+            fdt.save_qnet(packed, tmp_path / "packed.npz")
+        assert not (tmp_path / "packed.npz").exists()
