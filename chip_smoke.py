@@ -11,9 +11,13 @@ both semantics and in the block-sparse and gathered modes, and a beam decode
 through `LazyContext`), the same net with an int4 hidden trunk (unpacked,
 and packed two nibbles per byte through the packed-layer kernel), and the
 command-line chain from a Kaldi text model through `convert model`,
-`convert quantize --hidden-bits 4` and `score`; shows through the launch
-counters that each run went through the kernels it should, and times
-kernels and paths beside their plain versions.  Any failed check raises and the script exits non-zero.
+`convert quantize --hidden-bits 4` and `score`, the stats output kernel at
+the flagship shapes, a 432 -> 2x3072 -> 8000 net too wide for the resident
+softmax and the stack kernels (scored through the stats kernel), and the
+tensor-parallel `Scorer(mesh=...)` on the flagship net with two ranks on the
+one card (gloo); shows through the launch counters that each run went
+through the kernels it should, and times kernels and paths beside their
+plain versions.  Any failed check raises and the script exits non-zero.
 The last line of standard output is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -43,6 +47,9 @@ BF16_RTOL, BF16_ATOL = 2e-2, 1e-3
 DECODE_FRAMES = 60
 CLI_HIDDEN, CLI_DEPTH, CLI_SENONES = 256, 3, 1000  # the text net, before --extend
 CLI_FRAMES = 1000
+WIDE_HIDDEN, WIDE_DEPTH = 3072, 2  # wider than K4's K and K3's H
+TP_RANKS = 2  # tensor-parallel ranks on the one card
+TP_TIMEOUT_S = 300  # per-rank join timeout of phase 16
 SMOKE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_cli"
 
 
@@ -70,6 +77,21 @@ def time_ms(torch, fn, reps: int = TIMED_REPS) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int = TIMED_REPS) -> float:
+    """Median wall time of `fn` in ms over `reps` calls on the host clock,
+    each synchronized, after two warm-up calls: what a tensor-parallel rank
+    can time, its collectives going through the host."""
+    times = []
+    for i in range(2 + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -112,6 +134,71 @@ def close(got, want, what: str, bound: float = 1e-4) -> None:
     agree = float((got.argmax(1) == want.argmax(1)).mean())
     check(dp <= bound and agree >= 0.999,
           f"{what}: max |dp| = {dp:.3g} <= {bound:g}, argmax agreement {agree:.4f} >= 0.999")
+
+
+def tp_rank(rank: int, port: int, results) -> None:
+    """One rank of phase 16: the flagship net with its output layer split
+    over TP_RANKS model ranks on cuda:0 (gloo), every run checked against
+    the single-device path in this process; reports launch counts, errors
+    and times through `results`."""
+    import traceback
+
+    try:
+        import torch
+
+        from fastdnn_tpu_torch import EngineConfig, Scorer, quantize_net, random_net
+        from fastdnn_tpu_torch.ops import kernels
+        from fastdnn_tpu_torch.parallel.mesh import init_multihost, make_mesh
+        from fastdnn_tpu_torch.parallel.sharded import _valid_count
+
+        dev = torch.device("cuda", 0)
+        torch.zeros(1, device=dev)  # the rank's device, chosen before the mesh
+        init_multihost(f"tcp://localhost:{port}", world_size=TP_RANKS, rank=rank, backend="gloo")
+        mesh = make_mesh(1, TP_RANKS, device_type="cuda")
+        rng = np.random.default_rng(SEED)  # the parent's net and frames
+        qnet = quantize_net(random_net(rng, INPUT_DIM, [HIDDEN] * DEPTH, SENONES))
+        frames = rng.standard_normal((8192, INPUT_DIM), dtype=np.float32)
+        mask_rng = np.random.default_rng(SEED + 16)
+        masks = (mask_rng.random((8192, SENONES), dtype=np.float32) < LAZY_DENSITY).astype(np.uint8)
+        masks[7] = 0
+        bands = band_masks(mask_rng, 8192)
+        report = {"rank": rank, "runs": {}}
+        cases = (
+            ("score", EngineConfig(), None, "reference"),
+            ("score_masked reference", EngineConfig(), masks, "reference"),
+            ("score_masked active_only", EngineConfig(lazy_semantics="active_only"), masks,
+             "active_only"),
+            ("score_masked block_sparse, band masks", EngineConfig(lazy_mode="block_sparse"),
+             bands, "reference"),
+        )
+        tp = None
+        for title, config, m, semantics in cases:
+            single = Scorer(qnet, EngineConfig(lazy_semantics=semantics), device=dev)
+            want = single.score(frames) if m is None else single.score_masked(frames, m)
+            del single
+            tp = Scorer(qnet, config, device=dev, mesh=mesh)
+            kernels.reset_launch_counts()
+            got = tp.score(frames) if m is None else tp.score_masked(frames, m)
+            counts = kernels.launch_counts()
+            report["runs"][title] = {
+                "counts": counts,
+                "shape_ok": got.shape == want.shape and got.dtype == np.float32,
+                "finite": bool(np.isfinite(got).all()),
+                "max_dp": float(np.abs(got - want).max()),
+                "agree": float((got.argmax(1) == want.argmax(1)).mean()),
+            }
+        scorer = Scorer(qnet, EngineConfig(), device=dev, mesh=mesh)
+        batch = torch.from_numpy(frames).to(dev)
+        block = scorer.score_device(batch)
+        report["block_shape"] = list(block.shape)
+        report["valid_count"] = _valid_count(block.shape[1], SENONES, rank)
+        # both ranks in lockstep: each call all-reduces
+        report["score_device_ms"] = host_ms(torch, lambda: scorer.score_device(batch))
+        results.put(report)
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
 
 
 def main() -> int:
@@ -540,6 +627,201 @@ def main() -> int:
         mean = sum(ms) / len(ms)
         print(f"  score_device B=8192 {name:13s} {ms[0]:.4f} / {ms[1]:.4f} ms/batch, "
               f"{audio_s / mean * 1e3:.1f} audio-s/s  [{smi}]")
+
+    phase("14. K8 flash stats against its plain version at the flagship shapes")
+    from fastdnn_tpu_torch.engine import cuda_backend
+
+    def stats_check(title, got, want, fast=False):
+        """K8's (z, m, s[, tile_max]) against the plain version's: z, m and
+        the tile maxes bitwise, s within rtol 1e-5 -> the posteriors' max |d|
+        against the plain normalize of the plain stats."""
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K8 {title}: z{' (bf16)' if fast else ''} and m bitwise")
+        s_rel = float(((got[2] - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())
+        check(s_rel <= 1e-5, f"K8 {title}: s within rtol {s_rel:.3g} <= 1e-5")
+        if fast:
+            check(torch.equal(got[3], want[3]), f"K8 {title}: tile maxes bitwise")
+        tile = (got[3], want[3]) if fast else (None, None)
+        p_got = plain.normalize_stats(*got[:3], out_dim=SENONES, tile_max=tile[0])
+        p_want = plain.normalize_stats(*want[:3], out_dim=SENONES, tile_max=tile[1])
+        return p_got, float((p_got.float() - p_want.float()).abs().max())
+
+    report["flash_stats"]["max_abs_err"] = 0.0
+    report["flash_stats_block_sparse"]["max_abs_err"] = 0.0
+    for vc in (SENONES, 4096, 3904, 0):
+        got = kernels.flash_stats(p3, *out, valid_count=vc)
+        stats_check(f"unmasked valid_count={vc}", got, plain.flash_stats(p3, *plain_out_padded,
+                                                                         valid_count=vc))
+    got = kernels.flash_stats(p3, *out, valid_count=SENONES)
+    p8, d8 = stats_check("unmasked", got, plain.flash_stats(p3, *plain_out_padded,
+                                                            valid_count=SENONES))
+    d84 = float((p8 - k4).abs().max())
+    check(d8 <= 3e-5 and d84 <= 3e-5,
+          f"K8 + normalize B=8192 K={HIDDEN} N={n_pad}: max |d| {d8:.3g} against the plain "
+          f"version, {d84:.3g} against K4, <= 3e-5")
+    report["flash_stats"]["max_abs_err"] = max(d8, d84)
+    for sem in ("reference", "active_only"):
+        got = kernels.flash_stats(p3, *out, masks40, valid_count=SENONES, semantics=sem)
+        p8, d8 = stats_check(f"masked {sem}", got, plain.flash_stats(
+            p3, *plain_out_padded, masks40, valid_count=SENONES, semantics=sem))
+        d84 = float((p8 - kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES,
+                                                   semantics=sem)).abs().max())
+        check(d8 <= 3e-5 and d84 <= 3e-5,
+              f"K8 masked {sem}: posteriors max |d| {d8:.3g} (plain), {d84:.3g} (K4) <= 3e-5")
+        if sem == "active_only":
+            check(bool((p8[7] == 0).all()), "K8 active_only: the fully masked row is 0")
+        report["flash_stats"]["max_abs_err"] = max(report["flash_stats"]["max_abs_err"], d8, d84)
+    for m, what in ((None, "unmasked"), (masks40, "masked reference")):
+        got = kernels.flash_stats(p3, *out, m, valid_count=SENONES, fast=True)
+        p8f, _ = stats_check(f"fast {what}", got, plain.flash_stats(
+            p3, *plain_out_padded, m, valid_count=SENONES, fast=True), fast=True)
+        ref = kernels.resident_softmax(p3, *out, m, out_dim=SENONES)
+        check(p8f.dtype == torch.bfloat16 and bool(torch.allclose(p8f.float(), ref, rtol=BF16_RTOL,
+                                                                   atol=BF16_ATOL)),
+              f"K8 fast {what}: bf16 posteriors within rtol {BF16_RTOL}, atol {BF16_ATOL} of K4 f32")
+    for m, what in ((bands, "band masks"), (masks40, "40% masks")):
+        for sem in ("reference", "active_only"):
+            for capped, vc in ((False, SENONES), (True, 3904)):
+                got = kernels.flash_stats_block_sparse(p3, *out, m, valid_count=vc,
+                                                       semantics=sem, capped_fill=capped)
+                want = plain.block_sparse_stats(p3, *plain_out_padded, m, valid_count=vc,
+                                                semantics=sem, capped_fill=capped)
+                p8, d8 = stats_check(f"block-sparse {what} {sem} capped_fill={capped} "
+                                     f"valid_count={vc}", got, want)
+                if not capped:
+                    d86 = float((p8 - kernels.resident_softmax_block_sparse(
+                        p3, *out, m, out_dim=SENONES, semantics=sem)).abs().max())
+                    check(d8 <= 3e-5 and d86 <= 3e-5,
+                          f"K8 block-sparse {what} {sem}: posteriors max |d| {d8:.3g} (plain), "
+                          f"{d86:.3g} (K6) <= 3e-5")
+                    report["flash_stats_block_sparse"]["max_abs_err"] = max(
+                        report["flash_stats_block_sparse"]["max_abs_err"], d8, d86)
+
+    phase(f"15. a net too wide for K4 and K3: 432-{WIDE_DEPTH}x{WIDE_HIDDEN}-{SENONES} through K8")
+    lib = _build.load()
+    limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
+                    kernels.HOPPER_BLOCK_SMEM)
+    for fn, widest in ((lib.fdn_resident_softmax_smem_bytes, kernels.RESIDENT_SOFTMAX_MAX_K),
+                       (lib.fdn_hidden_stack_smem_bytes, kernels.HIDDEN_STACK_MAX_H)):
+        check(fn(widest) <= limit < fn(widest + kernels.TILE_K),
+              f"{fn.__name__}: {widest} fits the card's {limit} bytes "
+              f"({fn(widest)}), {widest + kernels.TILE_K} does not ({fn(widest + kernels.TILE_K)})")
+    q_wide = quantize_net(random_net(rng, INPUT_DIM, [WIDE_HIDDEN] * WIDE_DEPTH, SENONES))
+    wide = Scorer(q_wide, EngineConfig(), device="cuda")
+    wide_cpu = Scorer(q_wide, device="cpu")
+    check(wide._hstack is None, f"the wide net has no hidden stack (H = {WIDE_HIDDEN})")
+    one_call = {"bias_sigmoid_i8": 1, "hidden_layer": WIDE_DEPTH - 1, "flash_stats": 1}
+    for n in sizes:
+        want = wide_cpu.score(frames[:n])
+        close(drive(f"wide score n={n}", one_call, lambda: wide.score(frames[:n])), want,
+              f"wide score n={n} against Scorer(device='cpu')")
+    wide_masked = {sem: Scorer(q_wide, EngineConfig(lazy_semantics=sem), device="cuda")
+                   for sem in ("reference", "active_only")}
+    wide_sparse = {sem: Scorer(q_wide, EngineConfig(lazy_semantics=sem, lazy_mode="block_sparse"),
+                               device="cuda") for sem in ("reference", "active_only")}
+    for sem in ("reference", "active_only"):
+        cpu_sem = Scorer(q_wide, EngineConfig(lazy_semantics=sem), device="cpu")
+        for what, m in (("40% masks", masks_host[:1000]), ("band masks", bands_host[:1000])):
+            want = cpu_sem.score_masked(frames[:1000], m)
+            close(drive(f"wide score_masked {sem} {what}", one_call,
+                        lambda: wide_masked[sem].score_masked(frames[:1000], m)),
+                  want, f"wide score_masked {sem} {what} n=1000")
+            close(drive(f"wide block_sparse {sem} {what}",
+                        {"bias_sigmoid_i8": 1, "hidden_layer": WIDE_DEPTH - 1,
+                         "flash_stats_block_sparse": 1},
+                        lambda: wide_sparse[sem].score_masked(frames[:1000], m)),
+                  want, f"wide block_sparse {sem} {what} n=1000")
+
+    phase(f"16. tensor parallel on the one card: {TP_RANKS} model ranks (gloo), flagship net")
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    spawn = mp.get_context("spawn")
+    results = spawn.Queue()
+    ranks = [spawn.Process(target=tp_rank, args=(r, port, results)) for r in range(TP_RANKS)]
+    for proc in ranks:
+        proc.start()
+    reports = []
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for _ in ranks:
+            reports.append(results.get(timeout=max(deadline - time.monotonic(), 1)))
+        for proc in ranks:
+            proc.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for proc in ranks:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    errors = [r["error"] for r in reports if "error" in r]
+    check(not errors and all(proc.exitcode == 0 for proc in ranks),
+          f"{TP_RANKS} ranks finished" + ("" if not errors else ":\n" + "\n".join(errors)))
+    # the output pads to 128 x TP_RANKS columns: shards of n_local = 4096,
+    # valid counts 4096 and 3904
+    n_local = -(-SENONES // (kernels.TILE_N * TP_RANKS)) * kernels.TILE_N
+    for rep in sorted(reports, key=lambda r: r["rank"]):
+        rank = rep["rank"]
+        valid = min(max(SENONES - rank * n_local, 0), n_local)
+        check(rep["block_shape"] == [8192, n_local] and rep["valid_count"] == valid,
+              f"rank {rank}: score_device block [8192, {n_local}], valid count {valid}")
+        for title, run in rep["runs"].items():
+            kernel = "flash_stats_block_sparse" if "block_sparse" in title else "flash_stats"
+            expect = {"bias_sigmoid_i8": 1, "hidden_stack": 1, kernel: 1}
+            print(f"  rank {rank} launch counts of {title}: {run['counts']}")
+            for name, count in run["counts"].items():
+                check(count == expect.get(name, 0),
+                      f"rank {rank} {title}: {name} launched {count} times "
+                      f"(expected {expect.get(name, 0)})")
+                path_launches[name] += count
+            check(run["shape_ok"] and run["finite"] and run["max_dp"] <= 1e-4
+                  and run["agree"] >= 0.999,
+                  f"rank {rank} {title} n=8192: max |dp| = {run['max_dp']:.3g} <= 1e-4 against "
+                  f"one device, argmax agreement {run['agree']:.4f} >= 0.999")
+
+    phase(f"17. stats and tensor-parallel times (median of {TIMED_REPS} calls; card: {smi})")
+    stats_cases = {
+        "K8 unmasked": ("flash_stats", lambda: kernels.flash_stats(p3, *out, valid_count=SENONES),
+                        lambda: plain.flash_stats(p3, *plain_out_padded, valid_count=SENONES)),
+        "K8 fast": (None, lambda: kernels.flash_stats(p3, *out, valid_count=SENONES, fast=True),
+                    lambda: plain.flash_stats(p3, *plain_out_padded, valid_count=SENONES,
+                                              fast=True)),
+        "K8 masked ref.": (None, lambda: kernels.flash_stats(p3, *out, masks40, valid_count=SENONES),
+                           lambda: plain.flash_stats(p3, *plain_out_padded, masks40,
+                                                     valid_count=SENONES)),
+        "K8 block-sp. bands": ("flash_stats_block_sparse",
+                               lambda: kernels.flash_stats_block_sparse(p3, *out, bands,
+                                                                        valid_count=SENONES),
+                               lambda: plain.block_sparse_stats(p3, *plain_out_padded, bands,
+                                                                valid_count=SENONES)),
+        "K8 + normalize": (None, lambda: cuda_backend.output_posteriors(p3, *out, out_dim=SENONES),
+                           lambda: plain.output_posteriors_stats(p3, *plain_out_padded,
+                                                                 out_dim=SENONES)),
+    }
+    for title, (name, kernel_fn, plain_fn) in stats_cases.items():
+        ms, plain_ms = time_ms(torch, kernel_fn), time_ms(torch, plain_fn)
+        if name is not None:
+            report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
+        print(f"  {title:20s} B=8192 K={HIDDEN} N={n_pad} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"  [{smi}]")
+    k4_ms = time_ms(torch, lambda: kernels.resident_softmax(p3, *out, out_dim=SENONES))
+    k6_ms = time_ms(torch, lambda: kernels.resident_softmax_block_sparse(p3, *out, bands,
+                                                                         out_dim=SENONES))
+    print(f"  K4 on the same inputs {k4_ms:.4f} ms; K6 on the band masks {k6_ms:.4f} ms  [{smi}]")
+    wide_plain = Scorer(q_wide, EngineConfig(backend="torch"), device="cuda")
+    wide_ms = time_ms(torch, lambda: wide.score_device(batch))
+    wide_plain_ms = time_ms(torch, lambda: wide_plain.score_device(batch))
+    print(f"  wide net score_device B=8192: kernels {wide_ms:.4f} ms/batch, "
+          f"{audio_s / wide_ms * 1e3:.1f} audio-s/s; plain {wide_plain_ms:.4f} ms/batch  [{smi}]")
+    tp_ms = [rep["score_device_ms"] for rep in sorted(reports, key=lambda r: r["rank"])]
+    one_ms = host_ms(torch, lambda: scorer.score_device(batch))
+    print(f"  flagship score_device B=8192 (host clock): {TP_RANKS} model ranks on this one card "
+          f"{' / '.join(f'{t:.4f}' for t in tp_ms)} ms per call (each rank); one device "
+          f"{one_ms:.4f} ms.  Both ranks share one card, so this shows the cost of the split "
+          f"and the collectives, not scaling  [{smi}]")
 
     rows = [
         {

@@ -1,8 +1,9 @@
 // Device code shared by the port's Hopper kernels: the quantized-sigmoid
 // epilogue (K1), the dequantization step, and an int8 tensor-core tile engine that
 // K2 (hidden layer), K3 (hidden stack), K4 (resident softmax), K5 (output
-// logits) and K6 (block-sparse resident softmax) run their products through;
-// K7 (packed int4 hidden layer) runs its own stage loop on the same pieces.
+// logits), K6 (block-sparse resident softmax) and K8 (flash stats) run their
+// products through; K7 (packed int4 hidden layer) runs its own stage loop on
+// the same pieces.  Also the row-softmax epilogue pieces of K4, K6 and K8.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false, never
 // --use_fast_math, one nvcc per source (fastdnn_tpu_torch/ops/_build.py).
@@ -236,6 +237,63 @@ __device__ __forceinline__ void store_acc(Acc<BM>& acc, int* c_tile) {
       *reinterpret_cast<int2*>(c_tile + (r + 8) * kLdc + c) =
           make_int2(acc.c[i][j][2], acc.c[i][j][3]);
     }
+}
+
+// ---------------------------------------------------------------------------
+// Row-softmax epilogue pieces shared by K4, K6 (csrc/resident_softmax.cu) and
+// K8 (csrc/flash_stats.cu): one warp per row of a C tile, each lane holding
+// columns lane, lane + 32, ... of it, so logit stores coalesce.
+// ---------------------------------------------------------------------------
+constexpr int kWarps = kThreads / 32;
+constexpr int kColsPerLane = kBN / 32;
+// a logit excluded from the softmax (padding, beyond valid, inactive under
+// active_only): -1e30, not -inf, so exp(z - m) never sees inf - inf
+constexpr float kNegCap = -1e30f;
+// a row max at or below this means no senone of the row was active
+constexpr float kEmptyRowMax = -1e29f;
+// masked semantics (ops/kernels.py:_SEMANTICS): 0 reference, 1 active_only
+constexpr int kReference = 0;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// This lane's mask bytes of the tile at n0: raw[i][j] is row warp + kWarps i,
+// column n0 + lane + 32 j, exactly the logits the lane handles in the
+// epilogue.  The loads are independent (each warp reads 32 consecutive bytes
+// per load) and nothing reads them until the next tile, so issued one tile
+// ahead they land while this tile's products run.
+template <int ROWS>
+__device__ __forceinline__ void load_mask(uint8_t (&raw)[ROWS][kColsPerLane],
+                                          const uint8_t* __restrict__ mask, int N, int m0, int n0,
+                                          int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const uint8_t* row = mask + static_cast<size_t>(m0 + warp + kWarps * i) * N + n0 + lane;
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) raw[i][j] = row[32 * j];
+  }
+}
+
+// raw bytes -> one word, bit kColsPerLane * i + j set for an active senone
+template <int ROWS>
+__device__ __forceinline__ uint32_t mask_word(const uint8_t (&raw)[ROWS][kColsPerLane]) {
+  static_assert(ROWS * kColsPerLane <= 32, "one bit per (row, column) of the lane");
+  uint32_t word = 0;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j)
+      word |= static_cast<uint32_t>(raw[i][j] != 0) << (kColsPerLane * i + j);
+  return word;
 }
 
 // Kernels that need more than the default 48 KB of dynamic shared memory

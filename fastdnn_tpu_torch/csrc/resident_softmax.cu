@@ -66,63 +66,22 @@ constexpr int BM = 64;
 // K = 2048, H100 80GB HBM3 at 700 W); the widest K that fits beside the
 // 64-frame block is then 2048
 constexpr int kStages = 4;
-constexpr float kNegCap = -1e30f;
-// a row max at or below this means no senone of the row was active
-constexpr float kEmptyRowMax = -1e29f;
-
-// masked semantics (ops/kernels.py:_SEMANTICS): 0 reference, 1 active_only
-constexpr int kReference = 0;
+using fdn::kColsPerLane;
+using fdn::kEmptyRowMax;
+using fdn::kNegCap;
+using fdn::kReference;
+using fdn::kWarps;
+using fdn::warp_max;
+using fdn::warp_sum;
+constexpr int kRowsPerWarp = BM / kWarps;  // epilogue rows of one warp
 
 __host__ __device__ constexpr size_t smem_bytes(int k) {
   return static_cast<size_t>(BM) * k + kStages * fdn::kWStageBytes +
          sizeof(int) * BM * fdn::kLdc + 2 * sizeof(float) * BM;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ void store_p(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_p(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-constexpr int kWarps = fdn::kThreads / 32;
-constexpr int kRowsPerWarp = BM / kWarps;  // epilogue rows of one warp
-constexpr int kColsPerLane = fdn::kBN / 32;
-
-// This lane's mask bytes of the tile at n0: raw[i][j] is row warp + kWarps i,
-// column n0 + lane + 32 j, exactly the logits the lane handles in the
-// epilogue.  The loads are independent (each warp reads 32 consecutive bytes
-// per load) and nothing reads them until the next tile, so issued one tile
-// ahead they land while this tile's products run.
-__device__ __forceinline__ void load_mask(uint8_t (&raw)[kRowsPerWarp][kColsPerLane],
-                                          const uint8_t* __restrict__ mask, int N, int m0, int n0,
-                                          int warp, int lane) {
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const uint8_t* row = mask + static_cast<size_t>(m0 + warp + kWarps * i) * N + n0 + lane;
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) raw[i][j] = row[32 * j];
-  }
-}
-
-// raw bytes -> one word, bit kColsPerLane * i + j set for an active senone
-__device__ __forceinline__ uint32_t mask_word(const uint8_t (&raw)[kRowsPerWarp][kColsPerLane]) {
-  uint32_t word = 0;
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j)
-      word |= static_cast<uint32_t>(raw[i][j] != 0) << (kColsPerLane * i + j);
-  return word;
-}
 
 // MASKED: the mask (u8 [B, N]) is read, otherwise it is never touched.
 // `logits` holds the raw f32 logits between the two sweeps; for f32
@@ -157,12 +116,12 @@ __global__ void __launch_bounds__(fdn::kThreads)
   const float fill = semantics == kReference ? 0.0f : kNegCap;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint8_t raw[kRowsPerWarp][kColsPerLane] = {};
-  if constexpr (MASKED) load_mask(raw, mask, N, m0, 0, warp, lane);
+  if constexpr (MASKED) fdn::load_mask(raw, mask, N, m0, 0, warp, lane);
   for (int n0 = 0; n0 < N; n0 += fdn::kBN) {
     uint32_t word = ~0u;
     if constexpr (MASKED) {
-      word = mask_word(raw);
-      if (n0 + fdn::kBN < N) load_mask(raw, mask, N, m0, n0 + fdn::kBN, warp, lane);
+      word = fdn::mask_word(raw);
+      if (n0 + fdn::kBN < N) fdn::load_mask(raw, mask, N, m0, n0 + fdn::kBN, warp, lane);
     }
     bool active = true;
     // the tile is skipped when no lane of any warp holds a set bit

@@ -10,7 +10,7 @@ import dataclasses
 import torch
 
 from ..ops import kernels
-from ..ops.matmul import matmul_f32
+from ..ops.matmul import matmul_f32, normalize_stats
 from ..quant.quantize import QuantizedNet
 
 
@@ -66,10 +66,50 @@ def output_posteriors_resident(acts_i8, w_t, colsum128_i32, inv_scale: float, bi
 
 
 def output_posteriors_block_sparse(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32,
-                                   masks, *, out_dim: int, semantics: str = "reference"):
-    """Masked output + softmax skipping all-inactive tiles, one K6 launch
-    -> f32 [B, out_dim] (no `fast` variant: the gain is skipped work)."""
-    return kernels.resident_softmax_block_sparse(
-        acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, out_dim=out_dim,
-        semantics=semantics,
+                                   masks, *, out_dim: int, semantics: str = "reference",
+                                   resident: bool = True):
+    """Masked output + softmax skipping all-inactive tiles -> f32
+    [B, out_dim] (no `fast` variant: the gain is skipped work): one K6
+    launch, or with resident=False (an output layer too wide for K6) one
+    skipping K8 launch and the normalize in tensor ops."""
+    if resident:
+        return kernels.resident_softmax_block_sparse(
+            acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, out_dim=out_dim,
+            semantics=semantics,
+        )
+    z, m, s = output_flash_stats_block_sparse(
+        acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, valid_count=out_dim,
+        semantics=semantics, capped_fill=False,
+    )
+    return normalize_stats(z, m, s, out_dim=out_dim)
+
+
+def output_posteriors(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32, masks=None, *,
+                      out_dim: int, semantics: str = "reference", fast: bool = False):
+    """Output layer + (optionally masked) softmax through the stats, for an
+    output layer too wide for K4: one K8 launch, then exp(z - m) / s in
+    tensor ops -> [B, out_dim], f32 or (fast) bf16."""
+    stats = kernels.flash_stats(acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks,
+                                valid_count=out_dim, semantics=semantics, fast=fast)
+    return normalize_stats(*stats[:3], out_dim=out_dim, tile_max=stats[3] if fast else None)
+
+
+def output_flash_stats(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32, masks=None, *,
+                       valid_count: int, semantics: str = "reference"):
+    """Local logits and unnormalized softmax stats (z, m, s) in one K8
+    launch: a tensor-parallel shard's half of the fused softmax
+    (`valid_count` is the shard's real senone count)."""
+    return kernels.flash_stats(acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks,
+                               valid_count=valid_count, semantics=semantics)
+
+
+def output_flash_stats_block_sparse(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32,
+                                    masks, *, valid_count: int, semantics: str = "reference",
+                                    capped_fill: bool = True):
+    """output_flash_stats skipping all-inactive tiles, one K8 launch.  The
+    tensor-parallel shards keep their full padded width, so skipped tiles
+    store -1e30 beyond `valid_count` (capped_fill) by default."""
+    return kernels.flash_stats_block_sparse(
+        acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, valid_count=valid_count,
+        semantics=semantics, capped_fill=capped_fill,
     )

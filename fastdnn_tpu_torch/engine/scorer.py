@@ -11,16 +11,23 @@ The counterpart of fastdnn_tpu/engine/scorer.py on one device:
 
 The pass has three stages: the float input layer (a library matmul, then the
 K1 quantized-sigmoid kernel), the hidden trunk (one K3 launch for batches of
-at most `stack_hidden_max_frames`, else one K2 launch per layer; an int4
-trunk packed under `config.int4_packed` runs one K7 launch per layer) and
-the output layer.  With `fused_softmax` (the default) the output layer and its
-softmax are one K4 launch, masked under the lazy semantics for
-`score_masked`, or one K6 launch (tile skipping) for
-lazy_mode="block_sparse"; without it they are a K5 logits launch and a
-library softmax.  LazyContext scores each frame with K5 and the masked
-softmax in plain tensor ops, as the JAX package did in XLA, and
-lazy_mode="gathered" runs engine.lazy's library product.  With backend
-"torch" every kernel's plain PyTorch version (ops/matmul.py) runs instead.
+at most `stack_hidden_max_frames` when the layers are at most
+HIDDEN_STACK_MAX_H wide, else one K2 launch per layer; an int4 trunk packed
+under `config.int4_packed` runs one K7 launch per layer) and the output
+layer.  With `fused_softmax` (the default) the output layer and its softmax
+are one K4 launch, masked under the lazy semantics for `score_masked`, or
+one K6 launch (tile skipping) for lazy_mode="block_sparse"; an output layer
+wider than K4 takes (uses_resident_output) runs one K8 stats launch, plain
+or skipping, and the normalize in tensor ops.  Without `fused_softmax` they
+are a K5 logits launch and a library softmax.  LazyContext scores each
+frame with K5 and the masked softmax in plain tensor ops, as the JAX
+package did in XLA, and lazy_mode="gathered" runs engine.lazy's library
+product.  With backend "torch" every kernel's plain PyTorch version
+(ops/matmul.py) runs instead, through the same routes.
+
+`Scorer(mesh=...)` (parallel.mesh.make_mesh) splits frames over the mesh's
+data ranks and the output layer's columns over its model ranks
+(parallel.sharded).
 
 Frame counts are bucketed (padded up to `config.frame_bucket`), which also
 makes them multiples of every kernel's frame tile.
@@ -45,14 +52,18 @@ from . import lazy as _lazy
 def build_hidden_stack(net: QuantizedNet):
     """Stack the equal-width hidden layers for the one-launch trunk
     (ops.kernels.hidden_stack): (w [L, H, H], colsum [L, H], inv_scales [L],
-    bias [L, H]) on the net's device.  None for a packed int4 trunk and when
+    bias [L, H]) on the net's device.  None for a packed int4 trunk, when
     the topology has fewer than 2 hidden layers or unequal or non-square
-    widths."""
+    widths, and when H exceeds ops.kernels.HIDDEN_STACK_MAX_H, the widest
+    layer the stack kernel holds in shared memory (such a trunk runs one
+    layer kernel per layer)."""
     hw = net.weights[:-1]
     if net.packed_int4 or len(hw) < 2:
         return None
     shape = hw[0].shape
     if shape[0] != shape[1] or any(w.shape != shape for w in hw):
+        return None
+    if shape[0] > kernels.HIDDEN_STACK_MAX_H:
         return None
     device = hw[0].device
     return (
@@ -100,17 +111,49 @@ def output_logits(net: QuantizedNet, acts: torch.Tensor, backend: str) -> torch.
     return steps.output_logits(acts, *_output_args(net))
 
 
+def _output_input_width(net: QuantizedNet) -> int:
+    """K of the output layer, read from the previous layer's bias (the
+    same in either weight layout, packed or not)."""
+    return (net.biases[-2] if len(net.biases) > 1 else net.input_b).shape[0]
+
+
+def uses_resident_output(net: QuantizedNet, *, block_sparse: bool = False) -> bool:
+    """True when the fused output layer runs the resident softmax kernel
+    (K4; K6 with block_sparse), False when it falls back to the stats kernel
+    (K8) and a normalize pass, as the JAX package's gate of that name does.
+
+    The JAX gate sizes the whole [K, N] weight and two working sets against
+    the TPU's VMEM (48 MB, and a 100 MB clamp).  Those numbers are the
+    TPU's: K4 never holds the weight, it keeps a 64-frame block of
+    activations (64 K bytes) in shared memory beside its weight ring, so N
+    does not enter and the limit is K <= ops.kernels.RESIDENT_SOFTMAX_MAX_K.
+    K6 holds the same, so `block_sparse` does not change the answer."""
+    return _output_input_width(net) <= kernels.RESIDENT_SOFTMAX_MAX_K
+
+
 def _fused_posteriors(net, acts, masks, *, backend, out_dim, semantics, fast, block_sparse=False):
-    """Output layer + softmax in one launch: K4 (masks optional, bf16 with
-    `fast`), or K6 for masked block-sparse calls (f32 only).  The plain
-    versions of the same kernels on backend "torch"."""
+    """Output layer + softmax: K4 (masks optional, bf16 with `fast`), or K6
+    for masked block-sparse calls (f32 only), when the output layer fits
+    them (uses_resident_output); otherwise one K8 launch (skipping for
+    block-sparse) and the normalize in tensor ops.  The plain versions of
+    the same routes on backend "torch".  Unlike the JAX package, no batch is
+    cut into 8192-row chunks: that bounded a VMEM scratch of the TPU kernel,
+    and K8 keeps its row stats in registers."""
     args = (acts, *_output_args(net))
+    resident = uses_resident_output(net, block_sparse=block_sparse)
+    plain = backend == "torch"
     if block_sparse and masks is not None:
-        steps = xops if backend == "torch" else cuda_backend
-        return steps.output_posteriors_block_sparse(
-            *args, masks, out_dim=out_dim, semantics=semantics
+        if plain:
+            fn = (xops.output_posteriors_block_sparse if resident
+                  else xops.output_posteriors_block_sparse_stats)
+            return fn(*args, masks, out_dim=out_dim, semantics=semantics)
+        return cuda_backend.output_posteriors_block_sparse(
+            *args, masks, out_dim=out_dim, semantics=semantics, resident=resident
         )
-    fn = xops.output_posteriors if backend == "torch" else cuda_backend.output_posteriors_resident
+    if plain:
+        fn = xops.output_posteriors if resident else xops.output_posteriors_stats
+    else:
+        fn = cuda_backend.output_posteriors_resident if resident else cuda_backend.output_posteriors
     return fn(*args, masks, out_dim=out_dim, semantics=semantics, fast=fast)
 
 
@@ -178,6 +221,19 @@ def score_masked_fn(
     return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
 
 
+def masked_posteriors_from_acts(net, acts, masks, *, backend, semantics, out_dim):
+    """Masked posteriors for a few rows of last-hidden activations: the
+    logits (K5) and the masked softmax in plain tensor ops.  The kernel
+    takes whole 64-frame tiles, so the rows are padded for it and cut back
+    after."""
+    n = acts.shape[0]
+    if backend == "cuda" and n % kernels.OUTPUT_LOGITS_FRAMES:
+        pad = kernels.OUTPUT_LOGITS_FRAMES - n % kernels.OUTPUT_LOGITS_FRAMES
+        acts = torch.nn.functional.pad(acts, (0, 0, 0, pad))
+    logits = output_logits(net, acts, backend)[:n, :out_dim]
+    return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
+
+
 class Scorer:
     """User-facing engine around one QuantizedNet on one device.
 
@@ -190,6 +246,16 @@ class Scorer:
     read one.  With `config.int4_packed` an int4 trunk is packed after the
     padding and before the layout change.  The gathered lazy path reads the
     mask union on the host, as the JAX package does.
+
+    `mesh` (a ("data", "model") DeviceMesh, parallel.mesh.make_mesh) makes
+    the same API tensor-parallel across the ranks of a process group: every
+    rank constructs the Scorer and makes the same calls with the same host
+    inputs, scores its share of the frame rows (data axis) and of the output
+    layer's columns (model axis; the output is padded to 128 x model
+    columns) on `device`, and every public method (score, score_masked,
+    score_utterances, LazyContext) returns on every rank the same
+    posteriors one device would (parallel.sharded.make_mesh_programs).  The
+    gathered lazy path is single-device only; lazy_mode="auto" stays dense.
     """
 
     def __init__(
@@ -197,9 +263,11 @@ class Scorer:
         net: QuantizedNet,
         config: Optional[EngineConfig] = None,
         device="cuda",
+        mesh=None,
     ):
         self.config = config or EngineConfig()
         self.device = torch.device(device)
+        self.mesh = mesh
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Scorer(device='cuda'): CUDA is not available; pass device='cpu' "
@@ -214,22 +282,43 @@ class Scorer:
                 "device) with fused_softmax=True: the tile skipping lives inside the "
                 "masked kernel"
             )
+        self._data_size, model_size = 1, 1
+        if mesh is not None:
+            from ..parallel.mesh import mesh_shape
+
+            if self.config.lazy_mode == "gathered":
+                raise ValueError(
+                    "lazy_mode='gathered' is single-device only; use 'dense', "
+                    "'block_sparse' or 'auto' with a mesh"
+                )
+            self._data_size, model_size = mesh_shape(mesh)
         if self._backend == "cuda":
             tile = max(kernels.HIDDEN_LAYER_FRAMES, kernels.HIDDEN_STACK_FRAMES,
-                       kernels.RESIDENT_SOFTMAX_FRAMES, kernels.OUTPUT_LOGITS_FRAMES)
+                       kernels.RESIDENT_SOFTMAX_FRAMES, kernels.OUTPUT_LOGITS_FRAMES,
+                       kernels.FLASH_STATS_FRAMES)
             if self.config.frame_bucket % tile:
                 raise ValueError(
                     f"frame_bucket={self.config.frame_bucket} must be a multiple of "
                     f"the kernels' frame tile {tile}"
                 )
-            net = pad_qnet(net, lanes=kernels.TILE_N, out_lanes=kernels.TILE_N)
+            # the output splits into 128-column shards, one per model rank
+            net = pad_qnet(net, lanes=kernels.TILE_N, out_lanes=kernels.TILE_N * model_size)
+        elif model_size > 1:
+            net = pad_qnet(net, lanes=1, out_lanes=kernels.TILE_N * model_size)
         if self.config.int4_packed:
             net = pack_int4_trunk(net)  # after padding: the halves split at the padded K
         self._output_dim = net.output_dim
         self._input_dim = net.input_dim
+        self._padded_output_dim = net.padded_output_dim
+        if mesh is not None:
+            from ..parallel.mesh import shard_qnet
+
+            net = shard_qnet(net, mesh)
         self.net = net.to(self.device)
         if self._backend == "cuda":
             self.net = cuda_backend.prepare(self.net)
+        # under a mesh too: a rank holds the whole trunk, so the stack
+        # kernel serves it as on one device
         self._hstack = (
             build_hidden_stack(self.net) if self.config.stack_hidden_max_frames > 0 else None
         )
@@ -241,23 +330,18 @@ class Scorer:
             hstack=self._hstack,
             stack_max_frames=self.config.stack_hidden_max_frames,
         )
+        self._programs = None
+        if mesh is not None:
+            from ..parallel.sharded import make_mesh_programs
+
+            self._programs = make_mesh_programs(
+                mesh, semantics=self.config.lazy_semantics,
+                block_sparse=self.config.lazy_mode == "block_sparse", **self._kw,
+            )
         self._gather_capacity = min(
             aligned_size(max(int(self._output_dim * self.config.lazy_capacity), 1), 128),
             self._output_dim,
         )
-
-    @staticmethod
-    def _masked_from_acts_fn(net, acts, masks, *, backend, semantics, out_dim):
-        """Masked posteriors for a few rows of last-hidden activations: the
-        logits (K5) and the masked softmax in plain tensor ops.  The kernel
-        takes whole 64-frame tiles, so the rows are padded for it and cut
-        back after."""
-        n = acts.shape[0]
-        if backend == "cuda" and n % kernels.OUTPUT_LOGITS_FRAMES:
-            pad = kernels.OUTPUT_LOGITS_FRAMES - n % kernels.OUTPUT_LOGITS_FRAMES
-            acts = torch.nn.functional.pad(acts, (0, 0, 0, pad))
-        logits = output_logits(net, acts, backend)[:n, :out_dim]
-        return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
 
     # -- helpers ------------------------------------------------------------
 
@@ -276,7 +360,8 @@ class Scorer:
 
     def _prepare(self, frames: np.ndarray) -> tuple[torch.Tensor, int]:
         """Validate dims, zero-pad the feature dim and bucket the frame
-        count.  Returns (padded frames on the device, true count)."""
+        count (under a mesh, so that every data rank gets whole buckets).
+        Returns (padded frames on the device, true count)."""
         if frames.ndim != 2:
             raise ValueError(f"frames must be [n, dim], got shape {frames.shape}")
         n, dim = frames.shape
@@ -284,7 +369,7 @@ class Scorer:
             raise ValueError(
                 f"input vector size {dim} must be <= network input size {self.input_dim}"
             )
-        bucket = aligned_size(max(n, 1), self.config.frame_bucket)
+        bucket = aligned_size(max(n, 1), self.config.frame_bucket * self._data_size)
         if (bucket, dim) != (n, self.input_dim):
             padded = np.zeros((bucket, self.input_dim), np.float32)
             padded[:n, :dim] = frames
@@ -296,26 +381,54 @@ class Scorer:
 
     def _pad_masks(self, masks: np.ndarray, pad_n: int) -> np.ndarray:
         """[n, output_dim] host masks -> u8 [pad_n, output_dim], rows past n
-        inactive (the masked program pads the width itself)."""
-        out = np.zeros((pad_n, self._output_dim), dtype=np.uint8)
+        inactive (the masked program pads the width itself); under a mesh
+        the padded output width, whose columns split over the model axis."""
+        width = self._padded_output_dim if self.mesh is not None else self._output_dim
+        out = np.zeros((pad_n, width), dtype=np.uint8)
         out[: masks.shape[0], : self._output_dim] = masks != 0
         return out
 
+    def _local(self, x: torch.Tensor, cols: bool = False) -> torch.Tensor:
+        """This rank's rows (and, for masks, columns) of a batch; the batch
+        itself on one device."""
+        if self.mesh is None:
+            return x
+        from ..parallel.mesh import local_cols, local_rows
+
+        x = local_rows(x, self.mesh)
+        return local_cols(x, self.mesh) if cols else x
+
     def _finish(self, out: torch.Tensor, n: int) -> np.ndarray:
-        """Device posteriors -> host [n, output_dim] f32 (bf16 widened)."""
+        """Device posteriors -> host [n, output_dim] f32 (bf16 widened);
+        under a mesh, every rank's block gathered first."""
+        if self.mesh is not None:
+            from ..parallel.mesh import gather_blocks
+
+            out = gather_blocks(out, self.mesh)[:, : self._output_dim]
         return out[:n].float().cpu().numpy()
 
     def _run(self, frames: torch.Tensor) -> torch.Tensor:
+        """Posteriors of this rank's block of a padded batch."""
+        if self._programs is not None:
+            return self._programs[0](self.net, self._local(frames))
         return score_fn(self.net, frames, **self._kw)
 
     def _run_masked(self, frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        if self._programs is not None:
+            return self._programs[1](self.net, self._local(frames), self._local(masks, cols=True))
         return score_masked_fn(
             self.net, frames, masks, semantics=self.config.lazy_semantics,
             block_sparse=self.config.lazy_mode == "block_sparse", **self._kw,
         )
 
     def _hidden(self, frames: torch.Tensor) -> torch.Tensor:
-        """Input layer + hidden trunk -> last-hidden s8 activations."""
+        """Input layer + hidden trunk -> last-hidden s8 activations of the
+        whole batch (under a mesh, each data rank's rows gathered)."""
+        if self._programs is not None:
+            from ..parallel.mesh import gather_rows
+
+            acts = self._programs[2](self.net, self._local(frames))
+            return gather_rows(acts, self.mesh).to(self.device)
         return hidden_forward(
             self.net, frames, self._backend, self._hstack, self.config.stack_hidden_max_frames
         )
@@ -341,7 +454,16 @@ class Scorer:
         """Device-resident variant: f32 [B, input_dim] on the scorer's
         device -> [B, output_dim] on it, with no host transfer and no
         padding (on the CUDA backend B must be a multiple of the kernels'
-        frame tile, as the bucketed counts are)."""
+        frame tile, as the bucketed counts are).
+
+        Under a mesh every rank passes the whole batch (B divisible by the
+        data axis) and gets back its own block, with no gather: rows
+        [d B / data, (d + 1) B / data) and, with model > 1, the rank's
+        n_local columns of the padded output width (padding columns 0);
+        with model = 1, [B / data, output_dim].  The JAX package's mesh
+        variant returns the padded-width global array instead, sharded
+        over the devices of its one program; here nothing spans ranks
+        without a collective, so each rank keeps what it computed."""
         if frames.device.type != self.device.type or frames.dtype != torch.float32:
             raise ValueError(
                 f"score_device wants f32 frames on {self.device}, got "
@@ -375,7 +497,7 @@ class Scorer:
     def _use_gathered(self, masks: np.ndarray) -> bool:
         if self.config.lazy_mode != "gathered":
             # "auto" resolves to dense, as in the JAX package; gathered runs
-            # only on explicit request
+            # only on explicit request (and never under a mesh)
             return False
         union = int(masks.any(axis=0).sum())
         if union > self._gather_capacity:
@@ -409,14 +531,21 @@ class Scorer:
         return list(splits)
 
     def _score_masked_from_acts(self, acts: torch.Tensor, masks: np.ndarray) -> np.ndarray:
-        """Posteriors for a few rows of stored last-hidden activations."""
+        """Posteriors for a few rows of stored last-hidden activations
+        (under a mesh, rows padded to split over the data axis)."""
         b = acts.shape[0]
-        masks_p = self._pad_masks(np.asarray(masks), b)
+        rows = aligned_size(b, self._data_size)
+        if rows != b:
+            acts = torch.nn.functional.pad(acts, (0, 0, 0, rows - b))
+        masks_p = self._to_device(self._pad_masks(np.asarray(masks), rows))
         with torch.inference_mode():
-            out = self._masked_from_acts_fn(
-                self.net, acts, self._to_device(masks_p), backend=self._backend,
-                semantics=self.config.lazy_semantics, out_dim=self._output_dim,
-            )
+            if self._programs is not None:
+                out = self._programs[3](self.net, self._local(acts), self._local(masks_p, True))
+            else:
+                out = masked_posteriors_from_acts(
+                    self.net, acts, masks_p, backend=self._backend,
+                    semantics=self.config.lazy_semantics, out_dim=self._output_dim,
+                )
             return self._finish(out, b)
 
     def new_lazy_context(self, input_vector_count: int) -> "LazyContext":

@@ -77,6 +77,11 @@ _SIGNATURES = {
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, _P],
     ),
+    "fdn_flash_stats": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, ctypes.c_float, _P, *[ctypes.c_int] * 5, _P, _P, _P, _P,
+         *[ctypes.c_int] * 4, _P],
+    ),
 }
 
 _lock = threading.Lock()

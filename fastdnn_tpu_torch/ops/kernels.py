@@ -23,6 +23,9 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
                                       (64-frame x 128-senone) tiles
     K7 hidden_layer_packed            K2 for an int4 layer stored two nibbles
                                       per byte (quant.quantize.pack_int4_trunk)
+    K8 flash_stats                    int8 output layer -> logits + softmax row
+                                      stats (max, sum-exp), masked or not, any K
+       flash_stats_block_sparse       K8 skipping all-inactive tiles
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 """
@@ -42,12 +45,21 @@ HIDDEN_LAYER_FRAMES = 64
 HIDDEN_STACK_FRAMES = 64
 RESIDENT_SOFTMAX_FRAMES = 64
 OUTPUT_LOGITS_FRAMES = 64
+FLASH_STATS_FRAMES = 64
 #: K-stage depth and output-column tile of the shared tile engine
 #: (kBK, kBN in csrc/common.cuh); pad_qnet pads node dims to TILE_N
 TILE_K = 128
 TILE_N = 128
 #: Hopper's opt-in shared-memory limit per block, where torch does not say
 HOPPER_BLOCK_SMEM = 232448
+#: the widest output-layer input K4 and K6 take: their 64-frame activation
+#: block (64 K bytes) sits in shared memory beside a 4-stage weight ring
+#: (fdn_resident_softmax_smem_bytes(2048) = 231,936 bytes, one 128-deep
+#: step more exceeds HOPPER_BLOCK_SMEM); wider goes to K8
+RESIDENT_SOFTMAX_MAX_K = 2048
+#: the widest hidden layer K3 takes, for the same reason with 3 stages
+#: (fdn_hidden_stack_smem_bytes(2304) = 231,424 bytes); wider runs K2 per layer
+HIDDEN_STACK_MAX_H = 2304
 
 
 @dataclass(frozen=True)
@@ -81,6 +93,14 @@ KERNELS = {
     ),
     "hidden_layer_packed": Kernel(
         "fastdnn_tpu_torch/csrc/hidden_layer_packed.cu", "fastdnn_tpu/ops/pallas_kernels.py:87"
+    ),
+    "flash_stats": Kernel(
+        "fastdnn_tpu_torch/csrc/flash_stats.cu",
+        "fastdnn_tpu/ops/pallas_kernels.py:536, :671",
+    ),
+    "flash_stats_block_sparse": Kernel(
+        "fastdnn_tpu_torch/csrc/flash_stats.cu",
+        "fastdnn_tpu/ops/pallas_kernels.py:814, :853",
     ),
 }
 
@@ -349,3 +369,76 @@ def output_logits(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), out.data_ptr(), b, k, n)
     return out
+
+
+def _stats_args(name, acts, w_t, colsum, bias, masks, valid_count, semantics):
+    """Shared checks of the flash-stats wrappers -> (device, semantics code)."""
+    device = _output_layer_shapes(name, acts, w_t, colsum, bias, masks, FLASH_STATS_FRAMES)
+    n = w_t.shape[0]
+    if not 0 <= valid_count <= n:
+        raise ValueError(f"{name}: valid_count={valid_count} must be in [0, {n}]")
+    if semantics not in _SEMANTICS:
+        raise ValueError(f"{name}: unknown lazy semantics {semantics!r}")
+    return device, _SEMANTICS[semantics]
+
+
+def _stats_outputs(b, n, device, fast):
+    """Fresh (z, m, s, tile_max) for a flash-stats launch; tile_max only
+    with `fast`."""
+    z = torch.empty((b, n), dtype=torch.bfloat16 if fast else torch.float32, device=device)
+    m = torch.empty((b, 1), dtype=torch.float32, device=device)
+    s = torch.empty((b, 1), dtype=torch.float32, device=device)
+    tile_max = torch.empty((b, n // TILE_N), dtype=torch.float32, device=device) if fast else None
+    return z, m, s, tile_max
+
+
+def flash_stats(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, valid_count: int,
+                semantics: str = "reference", fast: bool = False):
+    """K8: output logits and their softmax row stats, s8 [B, K] x s8 [K, N]
+    -> (z f32 [B, N], m f32 [B, 1], s f32 [B, 1]), the weight given as
+    w_t = kernel_layout(w), [N, K].  masks: None or u8 [B, N] under
+    `semantics`; columns at or beyond `valid_count` are capped at -1e30.
+    `fast` -> (z_rel bf16 [B, N], m, s, tile_max f32 [B, N / 128]).  No limit
+    on K.  Plain version: ops.matmul.flash_stats."""
+    if acts.device.type == "cpu":
+        return plain.flash_stats(acts, w_t.t(), colsum, inv_scale, bias, masks,
+                                 valid_count=valid_count, semantics=semantics, fast=fast)
+    device, code = _stats_args("flash_stats", acts, w_t, colsum, bias, masks, valid_count,
+                               semantics)
+    b, k = acts.shape
+    n = w_t.shape[0]
+    z, m, s, tile_max = _stats_outputs(b, n, device, fast)
+    if b:
+        lib = _build.load()
+        _launch("flash_stats", device, lib.fdn_flash_stats,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), None if masks is None else masks.data_ptr(), code,
+                int(valid_count), 0, 0, int(fast), z.data_ptr(), m.data_ptr(), s.data_ptr(),
+                None if tile_max is None else tile_max.data_ptr(), b, k, n)
+    return (z, m, s, tile_max) if fast else (z, m, s)
+
+
+def flash_stats_block_sparse(acts, w_t, colsum, inv_scale: float, bias, masks, *,
+                             valid_count: int, semantics: str = "reference",
+                             capped_fill: bool = False):
+    """K8 masked, skipping the weight loads and products of every
+    (64-frame x 128-column) tile whose mask is all zero -> (z f32 [B, N],
+    m, s f32 [B, 1]).  A skipped tile stores the fill logit (with
+    `capped_fill`, -1e30 at or beyond `valid_count`).  Plain version:
+    ops.matmul.block_sparse_stats."""
+    if acts.device.type == "cpu":
+        return plain.block_sparse_stats(acts, w_t.t(), colsum, inv_scale, bias, masks,
+                                        valid_count=valid_count, semantics=semantics,
+                                        capped_fill=capped_fill)
+    device, code = _stats_args("flash_stats_block_sparse", acts, w_t, colsum, bias, masks,
+                               valid_count, semantics)
+    b, k = acts.shape
+    n = w_t.shape[0]
+    z, m, s, _ = _stats_outputs(b, n, device, False)
+    if b:
+        lib = _build.load()
+        _launch("flash_stats_block_sparse", device, lib.fdn_flash_stats,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), masks.data_ptr(), code, int(valid_count), 1,
+                int(capped_fill), 0, z.data_ptr(), m.data_ptr(), s.data_ptr(), None, b, k, n)
+    return z, m, s

@@ -194,3 +194,136 @@ def output_posteriors_block_sparse(
         acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, out_dim=out_dim,
         semantics=semantics,
     )
+
+
+# -- the stats output layer (flash_stats kernel) -----------------------------
+
+#: a logit kept out of the softmax (padding, beyond the valid count, inactive
+#: under active_only); a row max at or below EMPTY_ROW_MAX had no active senone
+NEG_CAP = -1e30
+EMPTY_ROW_MAX = -1e29
+#: the stats kernel's (frames x columns) tile: its skip granularity and, with
+#: `fast`, the span of each stored tile max
+STATS_TILE_FRAMES = 64
+STATS_TILE_N = 128
+
+
+def _fill(semantics: str) -> float:
+    """The logit of an inactive senone under `semantics`."""
+    if semantics == "reference":
+        return 0.0
+    if semantics == "active_only":
+        return NEG_CAP
+    raise ValueError(f"unknown lazy semantics {semantics!r}")
+
+
+def _capped_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, valid_count,
+                   semantics):
+    """Output logits, masked under `semantics` (masks nonzero = active), with
+    every column at or beyond `valid_count` at NEG_CAP."""
+    z = output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32)
+    if masks is not None:
+        z = torch.where(masks != 0, z, _fill(semantics))
+    col = torch.arange(z.shape[1], device=z.device)
+    return torch.where(col < valid_count, z, NEG_CAP)
+
+
+def flash_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks=None, *,
+                valid_count: int, semantics: str = "reference", fast: bool = False):
+    """Output logits z f32 [B, N] and their unnormalized softmax stats, the
+    row max m and sum exp(z - m), f32 [B, 1]: the plain version of the
+    flash-stats kernel (fastdnn_tpu/ops/pallas_kernels.py:
+    output_layer_flash_stats, and the stats half of output_layer_posteriors).
+
+    masks: None or [B, N], nonzero = active, applied under `semantics`;
+    columns at or beyond `valid_count` are NEG_CAP and add exp(NEG_CAP - m)
+    (0 unless the whole row is capped).  `fast` returns (z_rel, m, s,
+    tile_max): z_rel bf16 [B, N] is z minus the max of its 128-column tile,
+    rounded once, and tile_max f32 [B, N / 128] holds those maxes; m and s
+    come from the f32 z."""
+    z = _capped_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, valid_count,
+                       semantics)
+    m = z.amax(dim=1, keepdim=True)
+    s = torch.exp(z - m).sum(dim=1, keepdim=True)
+    if not fast:
+        return z, m, s
+    b, n = z.shape
+    if n % STATS_TILE_N:
+        raise ValueError(f"fast stats need N a multiple of {STATS_TILE_N}, got {n}")
+    tiles = z.view(b, n // STATS_TILE_N, STATS_TILE_N)
+    tile_max = tiles.amax(dim=2)
+    z_rel = (tiles - tile_max[:, :, None]).view(b, n).to(torch.bfloat16)
+    return z_rel, m, s, tile_max
+
+
+def tile_activity(masks) -> torch.Tensor:
+    """bool [B / 64, N / 128]: whether each (64-frame x 128-column) tile of
+    masks [B, N] holds an active senone; the tiles the stats kernel runs."""
+    b, n = masks.shape
+    tiles = masks.reshape(b // STATS_TILE_FRAMES, STATS_TILE_FRAMES, n // STATS_TILE_N,
+                          STATS_TILE_N)
+    return (tiles != 0).any(dim=3).any(dim=1)
+
+
+def block_sparse_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, *,
+                       valid_count: int, semantics: str = "reference",
+                       capped_fill: bool = False):
+    """flash_stats, masked, with every all-inactive (64 x 128) tile skipped:
+    the plain version of the flash-stats kernel's skipping variant
+    (pallas_kernels.py:output_flash_stats_block_sparse, and the stats half of
+    output_layer_posteriors_block_sparse).
+
+    A skipped tile holds the fill logit (0 under reference, NEG_CAP under
+    active_only; with `capped_fill`, NEG_CAP at or beyond `valid_count` too).
+    In the stats, its valid columns count as logit 0 under reference and it
+    adds nothing under active_only, as the TPU kernel's (m = 0, s = nskip)
+    start does.  B and N must be tile multiples."""
+    fill = _fill(semantics)
+    z = _capped_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, valid_count,
+                       semantics)
+    active = tile_activity(masks)
+    active = active.repeat_interleave(STATS_TILE_FRAMES, 0).repeat_interleave(STATS_TILE_N, 1)
+    valid = torch.arange(z.shape[1], device=z.device) < valid_count
+    skipped_stat = torch.where(valid & (semantics == "reference"), 0.0, float("-inf"))
+    z_stats = torch.where(active, z, skipped_stat)
+    m = z_stats.amax(dim=1, keepdim=True).clamp(min=NEG_CAP)
+    s = torch.exp(z_stats - m).sum(dim=1, keepdim=True)
+    stored_fill = torch.where(valid, fill, NEG_CAP) if capped_fill else fill
+    return torch.where(active, z, stored_fill), m, s
+
+
+def normalize_stats(z, m, s, *, out_dim=None, tile_max=None):
+    """exp(z - m) / s over the first `out_dim` columns (all when None), with
+    the rows whose max stayed at the cap (no active senone) as zeros: the
+    normalize the JAX package ran in XLA after its stats kernels
+    (pallas_kernels.py:571-584, 842-846; parallel/sharded.py:181-186).
+    `tile_max` (fast stats) restores z from z_rel and returns bf16."""
+    if out_dim is None:
+        out_dim = z.shape[1]
+    zc = z[:, :out_dim]
+    if tile_max is not None:
+        zc = zc.float() + tile_max.repeat_interleave(STATS_TILE_N, dim=1)[:, :out_dim]
+    p = torch.exp(zc - m) / torch.clamp(s, min=torch.finfo(torch.float32).tiny)
+    p = torch.where(m > EMPTY_ROW_MAX, p, 0.0)
+    return p.to(torch.bfloat16) if tile_max is not None else p
+
+
+def output_posteriors_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks=None, *,
+                            out_dim: int, semantics: str = "reference", fast: bool = False):
+    """Output layer + softmax through the stats -> [B, out_dim], f32 or
+    (fast) bf16: the plain version of pallas_kernels.py:
+    output_layer_posteriors, the route for an output layer too wide for the
+    resident softmax kernel."""
+    stats = flash_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks,
+                        valid_count=out_dim, semantics=semantics, fast=fast)
+    return normalize_stats(*stats[:3], out_dim=out_dim, tile_max=stats[3] if fast else None)
+
+
+def output_posteriors_block_sparse_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32,
+                                         masks, *, out_dim: int, semantics: str = "reference"):
+    """Masked output + softmax through the tile-skipping stats -> f32
+    [B, out_dim]: the plain version of pallas_kernels.py:
+    output_layer_posteriors_block_sparse."""
+    z, m, s = block_sparse_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks,
+                                 valid_count=out_dim, semantics=semantics)
+    return normalize_stats(z, m, s, out_dim=out_dim)

@@ -38,7 +38,7 @@ from fastdnn_tpu_torch.cli import score as tcli
 from fastdnn_tpu_torch.engine import cluster as tcluster
 from fastdnn_tpu_torch.engine import cuda_backend
 from fastdnn_tpu_torch.engine import lazy as tlazy
-from fastdnn_tpu_torch.engine.scorer import score_masked_fn
+from fastdnn_tpu_torch.engine.scorer import masked_posteriors_from_acts, score_masked_fn
 from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
 
@@ -406,7 +406,7 @@ class TestScorer:
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=SOFTMAX_ATOL)
         unfused = score_masked_fn(prepared, frames, masks, backend="cuda", semantics=semantics)
         np.testing.assert_allclose(unfused.numpy(), want.numpy(), rtol=0, atol=SOFTMAX_ATOL)
-        rows = fdt.Scorer._masked_from_acts_fn(
+        rows = masked_posteriors_from_acts(
             prepared, fdt.hidden_forward(prepared, frames[:3], "cuda"), masks[:3],
             backend="cuda", semantics=semantics, out_dim=t_q.output_dim)
         np.testing.assert_allclose(rows.numpy(), want[:3].numpy(), rtol=0, atol=SOFTMAX_ATOL)
