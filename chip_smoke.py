@@ -17,7 +17,10 @@ softmax and the stack kernels (scored through the stats kernel), and the
 tensor-parallel `Scorer(mesh=...)` on the flagship net with two ranks on the
 one card (gloo); shows through the launch counters that each run went
 through the kernels it should, and times kernels and paths beside their
-plain versions.  Any failed check raises and the script exits non-zero.
+plain versions: K3 and K4 on their wgmma and mma.sync loops in turns, with
+each kernel's bound and, as a yardstick, `torch._int_mm` at its product
+shape (the product alone; the port never calls it).  Any failed check
+raises and the script exits non-zero.
 The last line of standard output is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -50,6 +53,9 @@ CLI_FRAMES = 1000
 WIDE_HIDDEN, WIDE_DEPTH = 3072, 2  # wider than K4's K and K3's H
 TP_RANKS = 2  # tensor-parallel ranks on the one card
 TP_TIMEOUT_S = 300  # per-rank join timeout of phase 16
+# published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
 SMOKE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_cli"
 
 
@@ -93,6 +99,34 @@ def host_ms(torch, fn, reps: int = TIMED_REPS) -> float:
         if i >= 2:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for work of `ops` int8
+    operations moving `nbytes` bytes (each input read once, each output
+    written once), and which of the two bounds it."""
+    ops_ms, bytes_ms = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def in_turns(torch, fns: dict) -> dict:
+    """Time each of `fns` (name -> callable) twice, in the order a, b, c, c,
+    b, a -> name -> [first, second] ms."""
+    order = list(fns) + list(fns)[::-1]
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(time_ms(torch, fns[name]))
+    return times
+
+
+def random_stack(rng, layers: int, h: int):
+    """A seeded int8 hidden stack in the plain layout: w [L, H, H] ([K, N]
+    per layer), colsum128 [L, H], inv_scales [L], bias [L, H], as numpy."""
+    w = rng.integers(-24, 25, (layers, h, h), dtype=np.int8)
+    colsum = 128 * w.astype(np.int32).sum(axis=1, dtype=np.int32)
+    inv = (1.0 / (rng.integers(20, 60, layers) * 255.0)).astype(np.float32)
+    bias = (rng.standard_normal((layers, h)) * 0.5).astype(np.float32)
+    return w, colsum, inv, bias
 
 
 def band_masks(rng, frames: int, block: int = 64, width: int = SENONES // 10) -> np.ndarray:
@@ -216,6 +250,7 @@ def main() -> int:
         random_lexicon,
         random_net,
     )
+    from fastdnn_tpu_torch.engine import cuda_backend
     from fastdnn_tpu_torch.ops import _build, kernels
     from fastdnn_tpu_torch.ops import matmul as plain
     from fastdnn_tpu_torch.ops.sigmoid import reference_lut_lookup
@@ -238,8 +273,14 @@ def main() -> int:
     _build.load()
     print(f"  {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line or "setmaxnreg" in line:
             print(f"  ptxas: {line.strip()}")
+    lib = _build.load()
+    seats = [lib.fdn_hidden_stack_wgmma_max_clusters(HIDDEN, c, 0) for c in (1, 2)]
+    print(f"  K3 wgmma loop, H = {HIDDEN}: clusters of 1 / 2 blocks seated at once: "
+          f"{seats[0]} / {seats[1]} (B = 8192 needs 128 / 64)")
+    print(f"  K4 wgmma loop, K = {HIDDEN}: clusters of 2 blocks seated at once: "
+          f"{lib.fdn_resident_softmax_wgmma_max_clusters(HIDDEN, 0)} (B = 8192 has 128)")
 
     report = {name: {"max_abs_err": None, "ms": None, "plain_ms": None} for name in kernels.KERNELS}
     path_launches = dict.fromkeys(kernels.KERNELS, 0)
@@ -308,6 +349,19 @@ def main() -> int:
     p3 = plain.hidden_stack_step(acts[:8192], plain_hstack)
     d3 = int((k3.int() - p3.int()).abs().max())
     check(d3 == 0, f"K3 hidden_stack B=8192 L={hstack[0].shape[0]} H={HIDDEN} bitwise (max |d| = {d3})")
+    check(torch.equal(kernels.hidden_stack(acts[:8192], *hstack, loop="mma_sync"), p3),
+          "K3 mma_sync loop: bitwise")
+    # 127 blocks of 64 frames: clusters of 1
+    check(torch.equal(kernels.hidden_stack(acts[:8128], *hstack), p3[:8128]),
+          "K3 B=8128 (clusters of 1): bitwise")
+    # the widest stack the gate lets through, seeded apart from the net
+    wide_rng = np.random.default_rng(SEED + 4)
+    h_max = kernels.HIDDEN_STACK_MAX_H
+    stack_max = [torch.from_numpy(a).to(dev) for a in random_stack(wide_rng, DEPTH - 1, h_max)]
+    acts_max = torch.from_numpy(wide_rng.integers(-128, 128, (8192, h_max), dtype=np.int8)).to(dev)
+    k3_max = kernels.hidden_stack(acts_max, kernels.kernel_layout(stack_max[0]), *stack_max[1:])
+    p3_max = plain.hidden_stack_step(acts_max, tuple(stack_max))
+    check(torch.equal(k3_max, p3_max), f"K3 hidden_stack B=8192 L={DEPTH - 1} H={h_max} bitwise")
     report["hidden_stack"]["max_abs_err"] = float(d3)
 
     out = (q.weights[-1], q.colsum128[-1], q.inv_scales[-1], q.biases[-1])
@@ -319,6 +373,16 @@ def main() -> int:
     check(d4 <= 3e-5, f"K4 resident_softmax B=8192 K={HIDDEN} N={out[0].shape[0]} max |d| = {d4:.3g} <= 3e-5")
     check(float((sums - 1).abs().max()) <= 1e-5, "K4 row sums are 1 +- 1e-5")
     check(torch.equal(k4.argmax(1), p4.argmax(1)), "K4 argmax equals the plain version's")
+    k4_64 = kernels.resident_softmax(p3[:64], *out, out_dim=SENONES)
+    d4_64 = float((k4_64 - plain.output_posteriors(p3[:64], *plain_out, out_dim=SENONES)).abs().max())
+    check(d4_64 <= 3e-5, f"K4 B=64 (one cluster) max |d| = {d4_64:.3g} <= 3e-5")
+    d4 = max(d4, d4_64)
+    d = float((kernels.resident_softmax(p3, *out, out_dim=SENONES, loop="mma_sync") - p4).abs().max())
+    check(d <= 3e-5, f"K4 mma_sync loop B=8192 max |d| = {d:.3g} <= 3e-5")
+    d4 = max(d4, d)
+    d = float((kernels.resident_softmax(p3[:8128], *out, out_dim=SENONES) - p4[:8128]).abs().max())
+    check(d <= 3e-5, f"K4 B=8128 (127 clusters) max |d| = {d:.3g} <= 3e-5")
+    d4 = max(d4, d)
     report["resident_softmax"]["max_abs_err"] = d4
 
     phase("5. main path: Scorer.score on the 432-7x2048-8000 net")
@@ -347,28 +411,78 @@ def main() -> int:
 
     phase(f"6. times (median of {TIMED_REPS} CUDA-event-timed calls; card: {smi})")
     batch = frames_dev[:8192].contiguous()
-    path_ms = time_ms(torch, lambda: scorer.score_device(batch))
-    plain_path_ms = time_ms(torch, lambda: reference.score_device(batch))
     audio_s = 8192 / FRAMES_PER_AUDIO_SECOND
-    print(f"  score_device B=8192 kernels: {path_ms:.4f} ms/batch, {audio_s / path_ms * 1e3:.1f} audio-s/s  [{smi}]")
-    print(f"  score_device B=8192 plain:   {plain_path_ms:.4f} ms/batch, {audio_s / plain_path_ms * 1e3:.1f} audio-s/s  [{smi}]")
+    a3 = acts[:8192]
+
+    def path_mma_sync():
+        """score_device's four device calls with K3 and K4 on their mma.sync loops."""
+        a = cuda_backend.input_layer_step(batch, q.input_w, q.input_b)
+        return kernels.resident_softmax(kernels.hidden_stack(a, *hstack, loop="mma_sync"), *out,
+                                        out_dim=SENONES, loop="mma_sync")
+
+    d_path = float((path_mma_sync() - scorer.score_device(batch)).abs().max())
+    check(d_path <= 3e-5, f"score_device with the mma_sync loops within {d_path:.3g} <= 3e-5 of the wgmma loops")
+    # in turns: plain, mma_sync loop, wgmma loop, wgmma loop, mma_sync loop, plain
+    turn_cases = {
+        "score_device": {"plain": lambda: reference.score_device(batch), "mma_sync": path_mma_sync,
+                         "wgmma": lambda: scorer.score_device(batch)},
+        "hidden_stack": {"plain": lambda: plain.hidden_stack_step(a3, plain_hstack),
+                         "mma_sync": lambda: kernels.hidden_stack(a3, *hstack, loop="mma_sync"),
+                         "wgmma": lambda: kernels.hidden_stack(a3, *hstack)},
+        "resident_softmax": {
+            "plain": lambda: plain.output_posteriors(p3, *plain_out, out_dim=SENONES),
+            "mma_sync": lambda: kernels.resident_softmax(p3, *out, out_dim=SENONES, loop="mma_sync"),
+            "wgmma": lambda: kernels.resident_softmax(p3, *out, out_dim=SENONES)},
+    }
+    turn_ms = {}
+    for what, fns in turn_cases.items():
+        times = in_turns(torch, fns)
+        turn_ms[what] = {name: sum(t) / len(t) for name, t in times.items()}
+        print(f"  {what:16s} in turns: " + ", ".join(
+            f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in times.items()) + f" ms  [{smi}]")
+    for name in ("hidden_stack", "resident_softmax"):
+        report[name]["ms"], report[name]["plain_ms"] = turn_ms[name]["wgmma"], turn_ms[name]["plain"]
+    for name, ms in turn_ms["score_device"].items():
+        print(f"  score_device B=8192 {name:8s} {ms:.4f} ms/batch, {audio_s / ms * 1e3:.1f} audio-s/s"
+              f"  [{smi}]")
     cases = {
         "bias_sigmoid_i8": (lambda: kernels.bias_sigmoid_i8(lin, r.input_b),
                             lambda: plain.bias_sigmoid_i8(lin, r.input_b), "[8192, 2048]"),
         "hidden_layer": (lambda: kernels.hidden_layer(acts, *layer),
                          lambda: plain.hidden_layer_step(acts, *plain_layer), "B=8320 K=N=2048"),
-        "hidden_stack": (lambda: kernels.hidden_stack(acts[:8192], *hstack),
-                         lambda: plain.hidden_stack_step(acts[:8192], plain_hstack),
-                         "B=8192 L=6 H=2048"),
-        "resident_softmax": (lambda: kernels.resident_softmax(p3, *out, out_dim=SENONES),
-                             lambda: plain.output_posteriors(p3, *plain_out, out_dim=SENONES),
-                             "B=8192 K=2048 N=8064"),
     }
     for name, (kernel_fn, plain_fn, shape) in cases.items():
         report[name]["ms"] = time_ms(torch, kernel_fn)
         report[name]["plain_ms"] = time_ms(torch, plain_fn)
         print(f"  {name:17s} {shape:18s} kernel {report[name]['ms']:.4f} ms, "
               f"plain {report[name]['plain_ms']:.4f} ms  [{smi}]")
+    input_ms = time_ms(torch, lambda: plain.matmul_f32(batch, q.input_w))
+    print(f"  input layer product (f64, rounded to f32) [8192, {INPUT_DIM}] x [{INPUT_DIM}, "
+          f"{HIDDEN}] {input_ms:.4f} ms  [{smi}]")
+    # where score_device's device time goes, and how much of a window of
+    # back-to-back calls the device is busy (torch.profiler, CUPTI)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 10
+    scorer.score_device(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            scorer.score_device(batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(device_ms.values()) * calls / window_ms
+    if device_ms:
+        print(f"  score_device B=8192 under torch.profiler ({calls} calls, host window "
+              f"{window_ms / calls:.4f} ms/call): device busy {busy:.1%}, idle {1 - busy:.1%}  [{smi}]")
+        for name, ms in sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"    {ms:.4f} ms/call  {name[:100]}")
+    else:
+        print("  score_device under torch.profiler: no device time recorded; idle share not measured")
 
     phase("7. K4 masked and bf16, K5, K6 against their plain versions at the flagship shapes")
     n_pad = out[0].shape[0]
@@ -385,24 +499,28 @@ def main() -> int:
           f"K6 skip share {skip40:.4f}); bands (density {float(bands.float().mean()):.4f}, "
           f"K6 skip share {skip_bands:.4f})")
     for sem in ("reference", "active_only"):
-        k4m = kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES, semantics=sem)
         p4m = plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES, semantics=sem)
-        d = float((k4m - p4m).abs().max())
-        check(d <= 3e-5, f"K4 masked {sem} B=8192 N={n_pad} max |d| = {d:.3g} <= 3e-5")
-        check(torch.equal(k4m.argmax(1), p4m.argmax(1)), f"K4 masked {sem}: argmax equal")
-        if sem == "active_only":
-            check(bool((k4m[7] == 0).all()) and bool((k4m[masks40[:, :SENONES] == 0] == 0).all()),
-                  "K4 active_only: inactive senones and the fully masked row are exactly 0")
-        else:
-            check(float((k4m[7] - 1.0 / SENONES).abs().max()) <= 1e-9,
-                  "K4 reference: the fully masked row is uniform")
-        report["resident_softmax"]["max_abs_err"] = max(report["resident_softmax"]["max_abs_err"], d)
+        for loop in kernels.LOOPS:
+            k4m = kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES, semantics=sem,
+                                           loop=loop)
+            d = float((k4m - p4m).abs().max())
+            check(d <= 3e-5, f"K4 {loop} masked {sem} B=8192 N={n_pad} max |d| = {d:.3g} <= 3e-5")
+            check(torch.equal(k4m.argmax(1), p4m.argmax(1)), f"K4 {loop} masked {sem}: argmax equal")
+            if sem == "active_only":
+                check(bool((k4m[7] == 0).all()) and bool((k4m[masks40[:, :SENONES] == 0] == 0).all()),
+                      f"K4 {loop} active_only: inactive senones and the fully masked row are exactly 0")
+            else:
+                check(float((k4m[7] - 1.0 / SENONES).abs().max()) <= 1e-9,
+                      f"K4 {loop} reference: the fully masked row is uniform")
+            report["resident_softmax"]["max_abs_err"] = max(report["resident_softmax"]["max_abs_err"], d)
     for m, what in ((None, "unmasked"), (masks40, "masked reference")):
-        k4f = kernels.resident_softmax(p3, *out, m, out_dim=SENONES, fast=True)
         p4 = plain.output_posteriors(p3, *plain_out, m, out_dim=SENONES)
-        df = float((k4f.float() - p4).abs().max())
-        check(k4f.dtype == torch.bfloat16 and bool(torch.allclose(k4f.float(), p4, rtol=BF16_RTOL, atol=BF16_ATOL)),
-              f"K4 fast {what}: bf16 within rtol {BF16_RTOL}, atol {BF16_ATOL} of the plain f32 (max |d| = {df:.3g})")
+        for loop in kernels.LOOPS:
+            k4f = kernels.resident_softmax(p3, *out, m, out_dim=SENONES, fast=True, loop=loop)
+            df = float((k4f.float() - p4).abs().max())
+            check(k4f.dtype == torch.bfloat16 and bool(torch.allclose(k4f.float(), p4, rtol=BF16_RTOL, atol=BF16_ATOL)),
+                  f"K4 {loop} fast {what}: bf16 within rtol {BF16_RTOL}, atol {BF16_ATOL} of the plain f32 "
+                  f"(max |d| = {df:.3g})")
     # K5 writes the padded width: its plain version takes the same padded
     # operands, the weight back in the plain layout
     plain_out_padded = (out[0].t(), *out[1:])
@@ -495,13 +613,16 @@ def main() -> int:
         per_frame = (time.perf_counter() - t0) * 1e3 / DECODE_FRAMES
         print(f"  LazyContext.calculate_for_output_nodes {what}: {per_frame:.4f} ms/frame "
               f"(host clock, numpy in and out)  [{smi}]")
+    # K4's masked and bf16 variants on both loops, in turns
+    for title, kw in (("masked reference", {}), ("masked active_only", {"semantics": "active_only"}),
+                      ("fast masked reference", {"fast": True})):
+        times = in_turns(torch, {
+            "plain": lambda kw=kw: plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES, **kw),
+            **{loop: (lambda kw=kw, loop=loop: kernels.resident_softmax(
+                p3, *out, masks40, out_dim=SENONES, loop=loop, **kw)) for loop in kernels.LOOPS}})
+        print(f"  K4 {title:22s} in turns: " + ", ".join(
+            f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in times.items()) + f" ms  [{smi}]")
     lazy_cases = {
-        "K4 masked reference": ("resident_softmax", lambda: kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES),
-                                lambda: plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES)),
-        "K4 masked active_only": ("resident_softmax", lambda: kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES, semantics="active_only"),
-                                  lambda: plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES, semantics="active_only")),
-        "K4 fast masked ref.": ("resident_softmax", lambda: kernels.resident_softmax(p3, *out, masks40, out_dim=SENONES, fast=True),
-                                lambda: plain.output_posteriors(p3, *plain_out, masks40, out_dim=SENONES, fast=True)),
         "K5 B=8192": ("output_logits", lambda: kernels.output_logits(p3, *out),
                       lambda: plain.output_logits(p3, *plain_out_padded)),
         "K6 40% masks": ("resident_softmax_block_sparse", lambda: kernels.resident_softmax_block_sparse(p3, *out, masks40, out_dim=SENONES),
@@ -515,8 +636,7 @@ def main() -> int:
     }
     for title, (name, kernel_fn, plain_fn) in lazy_cases.items():
         ms, plain_ms = time_ms(torch, kernel_fn), time_ms(torch, plain_fn)
-        if name != "resident_softmax":  # K4's row keeps the unmasked main-path time
-            report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
+        report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
         print(f"  {title:22s} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{smi}]")
 
     phase("10. K7 packed int4 hidden layer against its plain version and against K2")
@@ -629,8 +749,6 @@ def main() -> int:
               f"{audio_s / mean * 1e3:.1f} audio-s/s  [{smi}]")
 
     phase("14. K8 flash stats against its plain version at the flagship shapes")
-    from fastdnn_tpu_torch.engine import cuda_backend
-
     def stats_check(title, got, want, fast=False):
         """K8's (z, m, s[, tile_max]) against the plain version's: z, m and
         the tile maxes bitwise, s within rtol 1e-5 -> the posteriors' max |d|
@@ -698,11 +816,12 @@ def main() -> int:
                         report["flash_stats_block_sparse"]["max_abs_err"], d8, d86)
 
     phase(f"15. a net too wide for K4 and K3: 432-{WIDE_DEPTH}x{WIDE_HIDDEN}-{SENONES} through K8")
-    lib = _build.load()
     limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
                     kernels.HOPPER_BLOCK_SMEM)
     for fn, widest in ((lib.fdn_resident_softmax_smem_bytes, kernels.RESIDENT_SOFTMAX_MAX_K),
-                       (lib.fdn_hidden_stack_smem_bytes, kernels.HIDDEN_STACK_MAX_H)):
+                       (lib.fdn_resident_softmax_wgmma_smem_bytes, kernels.RESIDENT_SOFTMAX_MAX_K),
+                       (lib.fdn_hidden_stack_smem_bytes, kernels.HIDDEN_STACK_MAX_H),
+                       (lib.fdn_hidden_stack_wgmma_smem_bytes, kernels.HIDDEN_STACK_MAX_H)):
         check(fn(widest) <= limit < fn(widest + kernels.TILE_K),
               f"{fn.__name__}: {widest} fits the card's {limit} bytes "
               f"({fn(widest)}), {widest + kernels.TILE_K} does not ({fn(widest + kernels.TILE_K)})")
@@ -810,7 +929,8 @@ def main() -> int:
     k4_ms = time_ms(torch, lambda: kernels.resident_softmax(p3, *out, out_dim=SENONES))
     k6_ms = time_ms(torch, lambda: kernels.resident_softmax_block_sparse(p3, *out, bands,
                                                                          out_dim=SENONES))
-    print(f"  K4 on the same inputs {k4_ms:.4f} ms; K6 on the band masks {k6_ms:.4f} ms  [{smi}]")
+    print(f"  K4 (wgmma loop) on the same inputs {k4_ms:.4f} ms; K6 on the band masks {k6_ms:.4f} ms"
+          f"  [{smi}]")
     wide_plain = Scorer(q_wide, EngineConfig(backend="torch"), device="cuda")
     wide_ms = time_ms(torch, lambda: wide.score_device(batch))
     wide_plain_ms = time_ms(torch, lambda: wide_plain.score_device(batch))
@@ -823,6 +943,53 @@ def main() -> int:
           f"{one_ms:.4f} ms.  Both ranks share one card, so this shows the cost of the split "
           f"and the collectives, not scaling  [{smi}]")
 
+    phase(f"18. bounds and product-only yardsticks (torch._int_mm, median of {TIMED_REPS} calls; "
+          f"card: {smi})")
+    # each row's work at the shape its time was taken at (phases 6, 9, 13, 17): int8
+    # operations of its products (the skipping kernels: only the tiles these band
+    # masks leave active) and bytes with each input read once, each output written
+    # once; the yardstick is torch._int_mm at the same product shape, the product
+    # alone (no epilogue, no softmax), which the port never calls
+    k_dim, b_dim, l_dim = HIDDEN, 8192, hstack[0].shape[0]
+    w_out = out[0].t().contiguous()  # [K, N] int8, padded
+    w_layer, w_int4 = r.weights[0], k2_args[0].t().contiguous()
+    out_ops = 2 * b_dim * k_dim * n_pad
+    vec_bytes = n_pad * 8  # colsum and bias of the output layer
+    layer_bytes = 8320 * k_dim * 2 + k_dim * 8
+    work = {
+        "bias_sigmoid_i8": (0, b_dim * k_dim * 4 + k_dim * 4 + b_dim * k_dim, None),
+        "hidden_layer": (2 * 8320 * k_dim * k_dim, layer_bytes + k_dim * k_dim,
+                         lambda: torch._int_mm(acts, w_layer)),
+        "hidden_stack": (2 * b_dim * k_dim * k_dim * l_dim,
+                         2 * b_dim * k_dim + l_dim * (k_dim * k_dim + k_dim * 8 + 4),
+                         lambda: [torch._int_mm(a3, w) for w in plain_hstack[0]]),
+        "resident_softmax": (out_ops, b_dim * k_dim + n_pad * k_dim + vec_bytes + b_dim * SENONES * 4,
+                             lambda: torch._int_mm(p3, w_out)),
+        "output_logits": (2 * 64 * k_dim * n_pad, 64 * k_dim + n_pad * k_dim + vec_bytes + 64 * n_pad * 4,
+                          lambda: torch._int_mm(p3[:64], w_out)),
+        "resident_softmax_block_sparse": (
+            (1 - skip_bands) * out_ops,
+            b_dim * k_dim + n_pad * k_dim + vec_bytes + b_dim * n_pad + b_dim * SENONES * 4,
+            lambda: torch._int_mm(p3, w_out)),
+        "hidden_layer_packed": (2 * 8320 * k_dim * k_dim, layer_bytes + k_dim * k_dim // 2,
+                                lambda: torch._int_mm(acts4, w_int4)),
+        "flash_stats": (out_ops, b_dim * k_dim + n_pad * k_dim + vec_bytes + b_dim * (n_pad * 4 + 8),
+                        lambda: torch._int_mm(p3, w_out)),
+        "flash_stats_block_sparse": (
+            (1 - skip_bands) * out_ops,
+            b_dim * k_dim + n_pad * k_dim + vec_bytes + b_dim * n_pad + b_dim * (n_pad * 4 + 8),
+            lambda: torch._int_mm(p3, w_out)),
+    }
+    for name, (ops, nbytes, product) in work.items():
+        report[name]["bound_ms"], report[name]["bound_by"] = bound(ops, nbytes)
+        report[name]["product_ms"] = None if product is None else time_ms(torch, product)
+        share = report[name]["bound_ms"] / report[name]["ms"]
+        product_text = ("no product" if product is None
+                        else f"product alone (torch._int_mm) {report[name]['product_ms']:.4f} ms")
+        print(f"  {name:29s} {report[name]['ms']:.4f} ms, bound {report[name]['bound_ms']:.4f} ms "
+              f"({report[name]['bound_by']}, {ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB), "
+              f"{share:.1%} of it; {product_text}  [{smi}]")
+
     rows = [
         {
             "name": name,
@@ -833,6 +1000,12 @@ def main() -> int:
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
+            "bound_ms": report[name]["bound_ms"],
+            "bound_by": report[name]["bound_by"],
+            "product_ms": report[name]["product_ms"],
+            # no single PyTorch call computes any of these functions: each fuses a
+            # quantized sigmoid or a softmax into an int8 product
+            "library_ms": None,
         }
         for name, k in kernels.KERNELS.items()
     ]

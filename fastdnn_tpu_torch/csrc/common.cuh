@@ -34,12 +34,40 @@ constexpr float kSigmoidResolution = 100.0f;
 constexpr float kHalfScale = 127.5f;                                  // 255 / 2
 constexpr float kHalfInvResolution = static_cast<float>(0.5 / 100.0);  // as XLA rounds it
 
-__device__ __forceinline__ int8_t quantized_sigmoid_shifted(float lin) {
-  const float k = truncf(__fadd_rn(__fmul_rn(lin, kSigmoidResolution), copysignf(0.5f, lin)));
+// the integer step k of lin
+__device__ __forceinline__ float sigmoid_step(float lin) {
+  return truncf(__fadd_rn(__fmul_rn(lin, kSigmoidResolution), copysignf(0.5f, lin)));
+}
+
+// s of an integer step k
+__device__ __forceinline__ int8_t sigmoid_of_step(float k) {
   float s = floorf(__fmul_rn(kHalfScale, tanhf(__fmul_rn(k, kHalfInvResolution))));
   if (k == 513.0f) s = 126.0f;
   if (k == -513.0f) s = -127.0f;
   return static_cast<int8_t>(s);
+}
+
+__device__ __forceinline__ int8_t quantized_sigmoid_shifted(float lin) {
+  return sigmoid_of_step(sigmoid_step(lin));
+}
+
+// The same function through a table.  It depends on lin only through k, and
+// for |k| >= kSigmoidTableHalf it is 127 or -128 (127.5 tanh(k / 200) lies in
+// [127.08, 127.5] there), so a block that fills `table` with
+// fill_sigmoid_table (kSigmoidTableBytes in shared memory) turns each value
+// into one rounding and one lookup, bitwise equal to the call.
+constexpr int kSigmoidTableHalf = 641;
+constexpr int kSigmoidTableBytes = 2 * kSigmoidTableHalf + 1;
+
+__device__ __forceinline__ void fill_sigmoid_table(int8_t* table, int tid, int count) {
+  for (int i = tid; i < kSigmoidTableBytes; i += count)
+    table[i] = sigmoid_of_step(static_cast<float>(i - kSigmoidTableHalf));
+}
+
+__device__ __forceinline__ int8_t sigmoid_from_table(const int8_t* table, float lin) {
+  const float half = static_cast<float>(kSigmoidTableHalf);
+  const float k = fminf(fmaxf(sigmoid_step(lin), -half), half);
+  return table[static_cast<int>(k) + kSigmoidTableHalf];
 }
 
 // (acc + colsum128) * inv_scale + bias, rounded after the multiply and after

@@ -5,20 +5,40 @@
 // _stack_kernel_factory (:211-318).  On the TPU a sequential grid axis over
 // layers carried the activations in a VMEM scratch; blocks here run in
 // parallel and in no order, so the layer axis becomes a loop inside the block:
-// each block owns BM = 64 frames, keeps their activations in shared memory
+// each block owns 64 frames, keeps their activations in shared memory
 // (64 * H bytes = 128 KB at H = 2048) and walks layer after layer, 128 output
-// columns at a time, with K2's product and epilogue.  A layer's output goes
-// to the block's own rows of `out` (they stay in L2) and is read back into
-// shared memory before the next layer; after the last layer it is already
-// in place.  No other block touches those rows, so no grid-wide sync is
-// needed.
+// columns at a time.  A layer's output goes to the block's own rows of `out`
+// (they stay in L2) and is read back into shared memory before the next
+// layer; after the last layer it is already in place.  No other block touches
+// those rows, so no grid-wide sync is needed.
 //
-// Bound: 6 layers at B = 8192, H = 2048 are 412 G int8 ops, but the loop is
-// bound by the rate weight bytes reach each SM: every block re-reads the
-// whole 25 MB weight stack from L2 (it fits in the 50 MB L2).  One output
-// buffer in device memory instead of a shared-memory ping-pong is what lets
-// a block hold 64 frames instead of 32, halving the weight bytes per product.
+// Bound: 6 layers at B = 8192, H = 2048 are 412 G int8 ops (0.208 ms at the
+// H100's 1979 TOP/s); the bytes in and out are 59 MB (0.018 ms).  What bounds
+// a block in practice is the rate the weight bytes reach its SM: every block
+// needs the whole 25 MB weight stack from L2 (it fits in the 50 MB L2).
+//
+// Two loops:
+//  * the wgmma loop, the main path, on csrc/hopper.cuh's warp-specialised
+//    shape.  A producer warp streams the weight stages by TMA through an
+//    mbarrier ring that never drains, running ahead across tiles and into
+//    the next layer's weights, which do not depend on the activations; only
+//    the consumers wait for the activation reload at a layer boundary.  Each
+//    stage is released with one block-scope arrival (a cluster-scope release
+//    per stage cost about 40% of the loop; PERF.md).
+//    hidden_stack_wgmma_kernel: blocks of 64 frames, in clusters of 2 (1 for
+//    an odd number of blocks) sharing each stage by multicast, so L2 serves
+//    each stage once per pair of SMs.  Its two consumer warpgroups take the
+//    tiles in turn, one's epilogue beside the other's products.  The
+//    quantized sigmoid goes through a per-block table of its 1283 distinct
+//    steps (common.cuh: sigmoid_from_table): with the accurate tanhf per
+//    value, the epilogue of a warpgroup's 8192 values outlasted the other
+//    warpgroup's products.
+//  * the mma.sync loop (hidden_stack_kernel): ldmatrix + mma.sync m16n8k32
+//    on common.cuh's tile engine, a cp.async ring refilled from empty for
+//    every tile and an epilogue between two __syncthreads; kept callable, off
+//    every path, so the two can be timed in turns on one card.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,6 +110,126 @@ __global__ void __launch_bounds__(fdn::kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the wgmma loop
+// ---------------------------------------------------------------------------
+namespace hp = fdn::hopper;
+
+// five stages keep the widest H that fits at 2304
+constexpr int kWgStages = 5;
+
+__host__ __device__ constexpr size_t wgmma_smem_bytes(int h) {
+  return hp::kAlign + static_cast<size_t>(hp::kFrames) * h + kWgStages * hp::kStageBytes +
+         hp::Ring<kWgStages, 1>::kBytes + fdn::kSigmoidTableBytes;
+}
+
+// One consumer warpgroup's tile of a layer's output: int8 columns
+// [n0, n0 + 128) of the block's 64 rows of `out`, from its accumulators,
+// the quantized sigmoid through the block's table.
+__device__ __forceinline__ void stack_epilogue(const int (&d)[64], int8_t* out, int H, int m0,
+                                               int n0, const int* cs, const float* bl, float inv,
+                                               const int8_t* table, int thread_in_wg) {
+  const int warp = thread_in_wg / 32, lane = thread_in_wg % 32;
+  const int col = n0 + 2 * (lane % 4);
+  int8_t* o = out + static_cast<size_t>(m0 + warp * 16 + lane / 4) * H + col;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int n = col + 8 * q;
+    const int2 c = *reinterpret_cast<const int2*>(cs + n);
+    const float2 b = *reinterpret_cast<const float2*>(bl + n);
+    char2 top, bottom;  // rows r and r + 8
+    top.x = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q], c.x, inv, b.x));
+    top.y = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q + 1], c.y, inv, b.y));
+    bottom.x = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q + 2], c.x, inv, b.x));
+    bottom.y = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q + 3], c.y, inv, b.y));
+    *reinterpret_cast<char2*>(o + 8 * q) = top;
+    *reinterpret_cast<char2*>(o + 8 * static_cast<size_t>(H) + 8 * q) = bottom;
+  }
+}
+
+// Tiles are numbered over the whole stack: tile g is layer g / tiles,
+// columns (g % tiles) * 128; consumer warpgroup w takes g = w, w + 2, ...
+// The weight map views Wt as [L * H, H].
+template <int CS>
+__global__ void __launch_bounds__(hp::kThreads, 1)
+    hidden_stack_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                              const int8_t* __restrict__ x, const int* __restrict__ colsum,
+                              const float* __restrict__ inv_scales,
+                              const float* __restrict__ bias, int8_t* out, int H, int L) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = hp::align_smem(smem_raw);
+  int8_t* acts = reinterpret_cast<int8_t*>(smem);
+  int8_t* stages = acts + hp::kFrames * H;
+  hp::Ring<kWgStages, CS> ring{
+      reinterpret_cast<uint64_t*>(stages + kWgStages * hp::kStageBytes)};
+  int8_t* table = stages + kWgStages * hp::kStageBytes + hp::Ring<kWgStages, CS>::kBytes;
+
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x * hp::kFrames;
+  const int tiles = H / hp::kTileN;
+  const int steps = H / hp::kStageK;
+  if (threadIdx.x == 0) ring.init();
+  hp::cluster_sync();
+
+  if (wg == hp::kConsumers) {
+    hp::reg_dealloc<hp::kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      const unsigned rank = hp::cluster_rank();
+      for (int g = 0; g < L * tiles; ++g)
+        for (int t = 0; t < steps; ++t)
+          ring.produce(stages, &w_map, g * steps + t, t * hp::kStageK,
+                       (g / tiles) * H + (g % tiles) * hp::kTileN, rank);
+    }
+    hp::cluster_sync();
+  } else {
+    hp::reg_alloc<hp::kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int tw = tid % 128;
+    hp::load_frames(acts, x, m0, H, tid, hp::kConsumerThreads);
+    fdn::fill_sigmoid_table(table, tid, hp::kConsumerThreads);
+    hp::fence_proxy_async();
+    hp::consumer_sync();
+    int d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0;
+    // a layer boundary: both consumer warpgroups have stored their tiles of
+    // the layer (and their products, which read `acts`, are complete), so
+    // the layer's output replaces the activations
+    int layer = 0;
+    auto next_layer = [&] {
+      __threadfence_block();
+      hp::consumer_sync();
+      hp::load_frames(acts, out, m0, H, tid, hp::kConsumerThreads);
+      hp::fence_proxy_async();
+      hp::consumer_sync();
+      ++layer;
+    };
+    for (int g = wg, n = 0; g < L * tiles; g += hp::kConsumers, ++n) {
+      const int l = g / tiles;
+      while (layer < l) next_layer();
+      hp::tile_products(d, ring, stages, acts, H, g * steps, wg, n, tw);
+      stack_epilogue(d, out, H, m0, (g % tiles) * hp::kTileN, colsum + static_cast<size_t>(l) * H,
+                     bias + static_cast<size_t>(l) * H, inv_scales[l], table, tw);
+    }
+    while (layer < L - 1) next_layer();  // the boundaries after this warpgroup's last tile
+    hp::cluster_sync();
+  }
+}
+
+template <int CS>
+int launch_wgmma(const void* x, const void* wt, const void* colsum, const void* inv_scales,
+                 const void* bias, void* out, int b, int h, int l, void* stream) {
+  CUtensorMap map;
+  cudaError_t err = hp::weight_map(&map, wt, static_cast<uint64_t>(l) * h, h, hp::kTileN / CS);
+  if (err == cudaSuccess)
+    err = hp::launch_clustered(hidden_stack_wgmma_kernel<CS>, b / hp::kFrames, CS,
+                               wgmma_smem_bytes(h), stream, map, static_cast<const int8_t*>(x),
+                               static_cast<const int*>(colsum),
+                               static_cast<const float*>(inv_scales),
+                               static_cast<const float*>(bias), static_cast<int8_t*>(out), h, l);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // Requires B % 64 == 0, H % 128 == 0 and fdn_hidden_stack_smem_bytes(H) within
@@ -110,4 +250,36 @@ extern "C" int fdn_hidden_stack(const void* x, const void* wt, const void* colsu
 
 extern "C" long long fdn_hidden_stack_smem_bytes(int h) {
   return static_cast<long long>(smem_bytes(h));
+}
+
+// The wgmma loop, in clusters of `cluster` (1 or 2) blocks along frames
+// sharing weight stages by multicast.  Requires B % (64 * cluster) == 0,
+// H % 128 == 0, a 16-byte aligned wt and fdn_hidden_stack_wgmma_smem_bytes(H)
+// within the block limit (checked by the wrapper).  `out` must not alias `x`.
+extern "C" int fdn_hidden_stack_wgmma(const void* x, const void* wt, const void* colsum,
+                                      const void* inv_scales, const void* bias, void* out, int b,
+                                      int h, int l, int cluster, int device, void* stream) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (cluster) {
+    case 1: return launch_wgmma<1>(x, wt, colsum, inv_scales, bias, out, b, h, l, stream);
+    case 2: return launch_wgmma<2>(x, wt, colsum, inv_scales, bias, out, b, h, l, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" long long fdn_hidden_stack_wgmma_smem_bytes(int h) {
+  return static_cast<long long>(wgmma_smem_bytes(h));
+}
+
+// Clusters of `cluster` blocks of the wgmma loop at width h that the card
+// seats at once (-1 if it cannot tell).
+extern "C" int fdn_hidden_stack_wgmma_max_clusters(int h, int cluster, int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  const size_t bytes = wgmma_smem_bytes(h);
+  switch (cluster) {
+    case 1: return hp::max_active_clusters(hidden_stack_wgmma_kernel<1>, 1, bytes);
+    case 2: return hp::max_active_clusters(hidden_stack_wgmma_kernel<2>, 2, bytes);
+    default: return -1;
+  }
 }

@@ -1,0 +1,457 @@
+// Hopper (sm_90a) building blocks of the port's warp-specialised kernels, the
+// wgmma K3 (csrc/hidden_stack.cu) and K4 (csrc/resident_softmax.cu):
+// mbarriers, TMA tensor copies (multicast across a thread-block cluster),
+// int8 wgmma from shared-memory descriptors, register reallocation, and the
+// host side of a launch (tensor maps, cluster launches).
+//
+// Shape of both kernels.  A block is three warpgroups and owns kFrames = 64
+// frames, whose int8 activations sit whole in shared memory as the wgmma A
+// operand.  Warpgroup 2 is the producer: one thread keeps a ring of kStageBytes
+// weight stages (kTileN output columns x kStageK of K) full with TMA copies, in
+// the order the tiles are consumed, across tiles and (K3) layers, never
+// draining.  Warpgroups 0 and 1 are consumers and take the output tiles in
+// turn (ping-pong): while one runs a tile's products the other runs the
+// previous tile's epilogue.  K3's blocks of a cluster (along frames) share
+// each weight stage: every block copies 1 / cluster of it and multicasts that
+// part to all, so L2 serves each stage once per cluster; each SM still
+// receives every byte of it.  K4's blocks of a cluster share their frames
+// instead and split the tiles, each streaming its own (a ring of CS = 1).
+//
+// Layout: both operands K-major in the 128-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1): a [rows x 128-byte] block
+// keeps row r at r * 128 bytes with its 16-byte chunk c at chunk c ^ (r % 8),
+// 8-row groups 1024 bytes apart; a 32-deep wgmma step is a 32-byte offset
+// into the row.  The activations ([64 x K]) are K / 128 such blocks, written
+// by the consumers themselves.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: the library links no libcuda
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+#include <utility>
+#include <vector>
+
+#include "common.cuh"
+
+namespace fdn {
+namespace hopper {
+
+constexpr int kFrames = 64;          // rows of the block, one wgmma m64
+constexpr int kConsumers = 2;        // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kTileN = 128;          // output columns per tile: wgmma n128
+constexpr int kStageK = 128;         // K bytes per stage: one swizzle row
+constexpr int kStageBytes = kTileN * kStageK;
+constexpr int kActBlockBytes = kFrames * kStageK;
+constexpr int kAlign = 1024;         // the 128-byte swizzle repeats every 8 rows
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kConsumerBarrier = 1;  // named barrier of the consumer warpgroups
+
+// ---------------------------------------------------------------------------
+// device side
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  const unsigned a = smem_addr(p);
+  return p + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
+}
+
+// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled block
+__device__ __forceinline__ int swizzle128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// rows [m0, m0 + kFrames) of a row-major int8 [*, K] matrix -> the swizzled
+// A operand (K / 128 blocks of [kFrames x 128 bytes]), by `count` threads
+__device__ __forceinline__ void load_frames(int8_t* acts, const int8_t* src, int m0, int K,
+                                            int tid, int count) {
+  const int chunks = K / 16;
+  for (int i = tid; i < kFrames * chunks; i += count) {
+    const int r = i / chunks, c = i % chunks;
+    const int4 v = *reinterpret_cast<const int4*>(src + static_cast<size_t>(m0 + r) * K + c * 16);
+    *reinterpret_cast<int4*>(acts + (c >> 3) * kActBlockBytes + swizzle128(r, c & 7)) = v;
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned addr, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait until the phase of parity `parity` has completed.  A wait of more
+// than kWaitLimitNs (the legitimate ones last microseconds) means a broken
+// protocol: trap, so the launch fails instead of holding the card.
+constexpr uint64_t kWaitLimitNs = 10'000'000'000ull;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const uint64_t start = global_ns();
+  while (!mbar_try_wait(addr, parity)) {
+    if (global_ns() - start > kWaitLimitNs) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at the same offset in block `cta` of the cluster,
+// releasing at block scope (as CUTLASS's cluster barriers do): enough to
+// hand back a stage this thread's warpgroup has finished reading.  A
+// cluster-scope release (.release.cluster) is a fence, and one per stage
+// cost about 40% of the loop (PERF.md)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, unsigned cta) {
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(bar)), "r"(cta));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// every thread of every block of the cluster; not .aligned, so warps that
+// diverged (the producer's idle lanes) may call it from their own branch
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// generic-proxy shared-memory writes -> visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kConsumerBarrier), "n"(kConsumerThreads) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// TMA: box (c0 = K byte, c1 = row) of `map` -> dst, completion on `bar`;
+// with a mask, the same bytes land at the same offset in every block of the
+// mask and complete on each one's barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                   int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled operand at
+// p: start >> 4, leading offset 1 (unused when swizzled), stride 1024 bytes
+// between 8-row groups, layout type 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 128 s32, the warpgroup's accumulators) += A (64 x 32 s8) * B^T
+// (B: 128 x 32 s8, K-major), or = with accumulate == false.  Thread t of the
+// warpgroup holds, for q = 0..15, d[4q + e] at row 16 (t / 32) + (t % 32) / 4
+// (+ 8 for e >= 2), column 8 q + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b, bool accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(static_cast<int>(accumulate)));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One weight stage ring, shared by a cluster, and the turn order of the two
+// consumer warpgroups.  Stage i (counted over the whole launch) sits in slot
+// i % S; full[slot] completes when its bytes have landed, empty[slot] when
+// the consumer warpgroup of every block of the cluster has released it (a
+// multicast stage is refilled in all blocks at once).  A barrier's phase is
+// waited for by parity, so a waiter must never be more than one phase
+// ahead: a warpgroup starts waiting for tile g's stages only once every
+// stage of tile g - 1 has landed (turn[w], passed by the other warpgroup
+// after its last full-wait), or, a whole tile ahead, it would take an older
+// phase of a slot for its own.  The products of the two still overlap: a
+// warpgroup's last stage and epilogue run beside the next tile's products.
+template <int S, int CS>
+struct Ring {
+  uint64_t* bars;  // full[S], empty[S], turn[kConsumers]
+
+  static constexpr size_t kBytes = (2 * S + kConsumers) * sizeof(uint64_t);
+  __device__ __forceinline__ uint64_t* full(int slot) { return bars + slot; }
+  __device__ __forceinline__ uint64_t* empty(int slot) { return bars + S + slot; }
+  __device__ __forceinline__ uint64_t* turn(int w) { return bars + 2 * S + w; }
+
+  __device__ __forceinline__ void init() {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CS);
+    }
+    for (int w = 0; w < kConsumers; ++w) mbar_init(turn(w), 1);
+    fence_barrier_init();
+  }
+
+  // producer thread: wait for slot i % S to be free everywhere, then copy
+  // this block's 1 / CS of stage i (rows row0 + [rank, rank + 1) * 128 / CS,
+  // bytes k0 .. k0 + 127 of `map`) into it in every block of the cluster
+  __device__ __forceinline__ void produce(int8_t* stages, const CUtensorMap* map, int i, int k0,
+                                          int row0, unsigned rank) {
+    constexpr int kRows = kTileN / CS;
+    const int slot = i % S;
+    mbar_wait(empty(slot), ((i / S) & 1) ^ 1);
+    mbar_arrive_expect_tx(full(slot), kStageBytes);
+    int8_t* dst = stages + slot * kStageBytes + rank * kRows * kStageK;
+    if constexpr (CS == 1) {
+      tma_load(dst, map, full(slot), k0, row0);
+    } else {
+      tma_load_multicast(dst, map, full(slot), k0, row0 + rank * kRows,
+                         static_cast<uint16_t>((1u << CS) - 1));
+    }
+  }
+
+  // consumer warpgroup: stage i has landed
+  __device__ __forceinline__ const int8_t* wait_full(const int8_t* stages, int i) {
+    const int slot = i % S;
+    mbar_wait(full(slot), (i / S) & 1);
+    return stages + slot * kStageBytes;
+  }
+
+  // consumer warpgroup, after its products on stage i are complete: one
+  // arrival on slot i % S's empty barrier in each block of the cluster
+  __device__ __forceinline__ void release(int i, int thread_in_wg) {
+    if constexpr (CS == 1) {
+      if (thread_in_wg == 0) mbar_arrive(empty(i % S));
+    } else {
+      if (thread_in_wg < CS) mbar_arrive_cluster(empty(i % S), thread_in_wg);
+    }
+  }
+
+  // warpgroup w before its n-th tile (tile w + kConsumers n): the previous
+  // tile's stages have all landed
+  __device__ __forceinline__ void wait_turn(int w, int n) {
+    if (w == 0 && n == 0) return;
+    mbar_wait(turn(w), (w == 0 ? n - 1 : n) & 1);
+  }
+  __device__ __forceinline__ void pass_turn(int w) { mbar_arrive(turn((w + 1) % kConsumers)); }
+};
+
+// Consumer warpgroup w's products for its n-th tile: d = A [64 x K] *
+// W[tile]^T over K / 128 stages, stage first_stage + t for the t-th 128
+// bytes of K.  Keeps one wgmma group in flight and releases each stage as
+// soon as the products that read it are done.
+template <int S, int CS>
+__device__ __forceinline__ void tile_products(int (&d)[64], Ring<S, CS>& ring,
+                                              const int8_t* stages, const int8_t* acts, int K,
+                                              int first_stage, int w, int n, int thread_in_wg) {
+  const int steps = K / kStageK;
+  ring.wait_turn(w, n);
+  fence_acc(d);
+  for (int t = 0; t < steps; ++t) {
+    const int8_t* b = ring.wait_full(stages, first_stage + t);
+    if (t == steps - 1 && thread_in_wg == 0) ring.pass_turn(w);
+    const int8_t* a = acts + t * kActBlockBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kStageK / 32; ++ks)
+      wgmma_s8(d, desc_sw128(a + ks * 32), desc_sw128(b + ks * 32), t > 0 || ks > 0);
+    wgmma_commit();
+    if (t > 0) {
+      wgmma_wait<1>();
+      ring.release(first_stage + t - 1, thread_in_wg);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  ring.release(first_stage + steps - 1, thread_in_wg);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (the library
+// links no libcuda)
+__host__ inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static std::once_flag once;
+  static EncodeTiled found = nullptr;
+  static cudaError_t status = cudaSuccess;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult query;
+#if CUDART_VERSION >= 12050
+    status = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                              cudaEnableDefault, &query);
+#else
+    status = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &query);
+#endif
+    if (status == cudaSuccess && (query != cudaDriverEntryPointSuccess || p == nullptr))
+      status = cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  });
+  *fn = found;
+  return status;
+}
+
+// The tensor map of a row-major int8 [rows, cols] matrix at ptr, boxes of
+// 128 bytes x box_rows rows, 128-byte swizzle.  A map is a pure function of
+// (ptr, rows, cols, box_rows), so a cached one is always right: each weight
+// is encoded once, not at every launch.
+__host__ inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
+                                       uint64_t cols, uint32_t box_rows) {
+  struct Entry {
+    const void* ptr;
+    uint64_t rows, cols;
+    uint32_t box_rows;
+    CUtensorMap map;
+  };
+  static std::mutex lock;
+  static std::vector<Entry> cache;
+  std::lock_guard<std::mutex> guard(lock);
+  for (const Entry& e : cache) {
+    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+      *map = e.map;
+      return cudaSuccess;
+    }
+  }
+  EncodeTiled encode;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStageK), box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  if (cache.size() >= 64) cache.clear();
+  cache.push_back(Entry{ptr, rows, cols, box_rows, *map});
+  return cudaSuccess;
+}
+
+// Launch `kernel` on `blocks` blocks of kThreads threads in clusters of
+// `cluster` along x.
+template <typename... Params, typename... Args>
+__host__ inline cudaError_t launch_clustered(void (*kernel)(Params...), int blocks, int cluster,
+                                             size_t smem, void* stream, Args&&... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of `kernel` the card seats at once.
+template <typename... Params>
+__host__ inline int max_active_clusters(void (*kernel)(Params...), int cluster, size_t smem) {
+  if (allow_smem(kernel, smem) != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * 64);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
+  return n;
+}
+
+}  // namespace hopper
+}  // namespace fdn

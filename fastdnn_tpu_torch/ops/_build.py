@@ -61,6 +61,12 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     ),
     "fdn_hidden_stack_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_hidden_stack_wgmma": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, *[ctypes.c_int] * 5, _P],
+    ),
+    "fdn_hidden_stack_wgmma_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_hidden_stack_wgmma_max_clusters": (ctypes.c_int, [ctypes.c_int] * 3),
     "fdn_resident_softmax": (
         ctypes.c_int,
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -72,6 +78,12 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     ),
     "fdn_resident_softmax_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_resident_softmax_wgmma": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, *[ctypes.c_int] * 6, _P],
+    ),
+    "fdn_resident_softmax_wgmma_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_resident_softmax_wgmma_max_clusters": (ctypes.c_int, [ctypes.c_int] * 2),
     "fdn_output_logits": (
         ctypes.c_int,
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -16,8 +16,10 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
     K1 bias_sigmoid_i8                the quantized-sigmoid epilogue as its own kernel
     K2 hidden_layer                   one int8 hidden layer with the fused epilogue
     K3 hidden_stack                   all equal-width hidden layers in one launch
+                                      (wgmma loop; the mma.sync loop on request)
     K4 resident_softmax               int8 output layer + full row softmax, optionally
                                       masked (both lazy semantics) and bf16
+                                      (wgmma loop; the mma.sync loop on request)
     K5 output_logits                  int8 output layer -> f32 logits, no softmax
     K6 resident_softmax_block_sparse  K4 masked, skipping all-inactive
                                       (64-frame x 128-senone) tiles
@@ -28,6 +30,14 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
        flash_stats_block_sparse       K8 skipping all-inactive tiles
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
+
+K3 and K4 have two loops (`loop=`): "wgmma", Hopper's warp-specialised
+shape (csrc/hopper.cuh: TMA weight stages, wgmma products), and
+"mma_sync", the ldmatrix + mma.sync tile engine the other kernels share.
+Both compute the same function; the wrapper picks "wgmma" wherever it has
+the variant.  K3's wgmma loop runs blocks of 64 frames in clusters of
+wgmma_cluster(B) blocks that share weight stages by multicast; K4's runs
+clusters of 2 blocks that share 64 frames and split the output columns.
 """
 
 from __future__ import annotations
@@ -55,11 +65,19 @@ HOPPER_BLOCK_SMEM = 232448
 #: the widest output-layer input K4 and K6 take: their 64-frame activation
 #: block (64 K bytes) sits in shared memory beside a 4-stage weight ring
 #: (fdn_resident_softmax_smem_bytes(2048) = 231,936 bytes, one 128-deep
-#: step more exceeds HOPPER_BLOCK_SMEM); wider goes to K8
+#: step more exceeds HOPPER_BLOCK_SMEM; K4's wgmma loop: 6 stages,
+#: 231,536 bytes); wider goes to K8
 RESIDENT_SOFTMAX_MAX_K = 2048
 #: the widest hidden layer K3 takes, for the same reason with 3 stages
-#: (fdn_hidden_stack_smem_bytes(2304) = 231,424 bytes); wider runs K2 per layer
+#: (fdn_hidden_stack_smem_bytes(2304) = 231,424 bytes; the wgmma loop: 5
+#: stages and the sigmoid table, 231,779 bytes); wider runs K2 per layer
 HIDDEN_STACK_MAX_H = 2304
+#: K3's and K4's loops: the Hopper one and the shared mma.sync tile engine
+LOOPS = ("wgmma", "mma_sync")
+#: blocks per thread-block cluster of K3's wgmma loop: each weight stage
+#: leaves L2 once per cluster and is multicast to its blocks.  On the H100
+#: clusters of 2 beat 1, and clusters of 4 lost to both (PERF.md)
+WGMMA_CLUSTER = 2
 
 
 @dataclass(frozen=True)
@@ -175,6 +193,23 @@ def _require_smem(name: str, device: torch.device, need: int) -> None:
         )
 
 
+def wgmma_cluster(frames: int) -> int:
+    """Blocks per cluster of a wgmma launch over `frames` rows: WGMMA_CLUSTER,
+    or 1 when the batch has an odd number of 64-frame blocks."""
+    return WGMMA_CLUSTER if (frames // HIDDEN_STACK_FRAMES) % WGMMA_CLUSTER == 0 else 1
+
+
+def _check_loop(name: str, loop: str) -> None:
+    if loop not in LOOPS:
+        raise ValueError(f"{name}: unknown loop {loop!r}; expected one of {LOOPS}")
+
+
+def _check_tma_weight(name: str, w_t: torch.Tensor) -> None:
+    """The wgmma loops read the weight by TMA, from a 16-byte boundary."""
+    if w_t.data_ptr() % 16:
+        raise ValueError(f"{name}: the weight must start on a 16-byte boundary")
+
+
 def bias_sigmoid_i8(lin: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """K1: quantized_sigmoid_shifted_i8(lin + bias), f32 [B, N], [N] -> s8 [B, N].
     Plain version: ops.matmul.bias_sigmoid_i8."""
@@ -239,11 +274,12 @@ def hidden_layer_packed(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tens
     return out
 
 
-def hidden_stack(acts, w_t, colsum, inv_scales, bias) -> torch.Tensor:
+def hidden_stack(acts, w_t, colsum, inv_scales, bias, *, loop: str = "wgmma") -> torch.Tensor:
     """K3: L square hidden layers in one launch, s8 [B, H] -> s8 [B, H].
     w_t s8 [L, H, H] (each layer in kernel_layout), colsum i32 [L, H],
-    inv_scales f32 [L], bias f32 [L, H].  Plain version:
-    ops.matmul.hidden_stack_step."""
+    inv_scales f32 [L], bias f32 [L, H].  `loop` "wgmma" or "mma_sync".
+    Plain version: ops.matmul.hidden_stack_step."""
+    _check_loop("hidden_stack", loop)
     if acts.device.type == "cpu":
         return plain.hidden_stack_step(acts, (w_t.transpose(1, 2), colsum, inv_scales, bias))
     b, h = acts.shape
@@ -257,10 +293,15 @@ def hidden_stack(acts, w_t, colsum, inv_scales, bias) -> torch.Tensor:
     out = torch.empty((b, h), dtype=torch.int8, device=device)
     if b:
         lib = _build.load()
-        _require_smem("hidden_stack", device, lib.fdn_hidden_stack_smem_bytes(h))
-        _launch("hidden_stack", device, lib.fdn_hidden_stack,
-                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), inv_scales.data_ptr(),
+        args = (acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), inv_scales.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), b, h, layers)
+        if loop == "wgmma":
+            _check_tma_weight("hidden_stack", w_t)
+            _require_smem("hidden_stack", device, lib.fdn_hidden_stack_wgmma_smem_bytes(h))
+            _launch("hidden_stack", device, lib.fdn_hidden_stack_wgmma, *args, wgmma_cluster(b))
+        else:
+            _require_smem("hidden_stack", device, lib.fdn_hidden_stack_smem_bytes(h))
+            _launch("hidden_stack", device, lib.fdn_hidden_stack, *args)
     return out
 
 
@@ -295,12 +336,14 @@ def _resident_args(name, acts, w_t, colsum, bias, masks, out_dim, semantics):
 
 
 def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, out_dim: int,
-                     semantics: str = "reference", fast: bool = False) -> torch.Tensor:
+                     semantics: str = "reference", fast: bool = False,
+                     loop: str = "wgmma") -> torch.Tensor:
     """K4: output layer + row softmax over the first `out_dim` columns,
     s8 [B, K] x s8 [K, N] -> [B, out_dim], f32 or (fast) bf16; the weight
     given as w_t = kernel_layout(w), [N, K].  masks: None or u8 [B, N],
-    softmax under `semantics` ("reference" or "active_only").  Plain
-    version: ops.matmul.output_posteriors."""
+    softmax under `semantics` ("reference" or "active_only").  `loop`
+    "wgmma" or "mma_sync".  Plain version: ops.matmul.output_posteriors."""
+    _check_loop("resident_softmax", loop)
     if acts.device.type == "cpu":
         return plain.output_posteriors(acts, w_t.t(), colsum, inv_scale, bias, masks,
                                        out_dim=out_dim, semantics=semantics, fast=fast)
@@ -313,11 +356,16 @@ def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, o
     logits = torch.empty((b, out_dim), dtype=torch.float32, device=device) if fast else out
     if b:
         lib = _build.load()
-        _require_smem("resident_softmax", device, lib.fdn_resident_softmax_smem_bytes(k))
-        _launch("resident_softmax", device, lib.fdn_resident_softmax,
-                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+        args = (acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), None if masks is None else masks.data_ptr(), code,
                 logits.data_ptr(), out.data_ptr(), int(fast), b, k, w_t.shape[0], out_dim)
+        if loop == "wgmma":
+            _check_tma_weight("resident_softmax", w_t)
+            _require_smem("resident_softmax", device, lib.fdn_resident_softmax_wgmma_smem_bytes(k))
+            _launch("resident_softmax", device, lib.fdn_resident_softmax_wgmma, *args)
+        else:
+            _require_smem("resident_softmax", device, lib.fdn_resident_softmax_smem_bytes(k))
+            _launch("resident_softmax", device, lib.fdn_resident_softmax, *args)
     return out
 
 

@@ -51,13 +51,14 @@ def init_multihost(init_method: Optional[str] = None, *, world_size: Optional[in
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, *,
-              device_type: Optional[str] = None) -> DeviceMesh:
+              device_type: str = "cuda") -> DeviceMesh:
     """A ("data", "model") mesh over every rank of the process group.
 
     With `data=None` the data axis takes all ranks the model axis leaves.
-    `device_type` defaults to "cuda" where CUDA is available, else "cpu";
-    it is the mesh's label only: each rank scores on the device its Scorer
-    is given."""
+    `device_type` is "cuda" unless the caller asks for "cpu"; without a
+    CUDA device a "cuda" mesh raises rather than turn into a CPU one.  It
+    is the mesh's label only: each rank scores on the device its Scorer is
+    given."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: join the process group first (init_multihost)")
     world = dist.get_world_size()
@@ -67,8 +68,11 @@ def make_mesh(data: Optional[int] = None, model: int = 1, *,
         data = world // model
     if data * model != world:
         raise ValueError(f"mesh {data}x{model} != {world} ranks")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh(device_type='cuda'): CUDA is not available; pass device_type='cpu' "
+            "for a mesh of CPU ranks"
+        )
     return init_device_mesh(device_type, (data, model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 

@@ -213,3 +213,25 @@ def test_refusals(ranks):
     the fused softmax (Scorer and make_mesh_programs)."""
     _, _, results = ranks
     assert results[0]["refuses"].tolist() == [True, True, True, True]
+
+
+def test_make_mesh_needs_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """Without a CUDA device, make_mesh() raises rather than label the mesh
+    "cpu"; device_type="cpu" builds it.  One gloo rank in this process,
+    its group destroyed after."""
+    import torch.distributed as dist
+
+    from fastdnn_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mesh.make_mesh()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mesh.make_mesh(1, 1, device_type="cuda")
+        assert mesh.mesh_shape(mesh.make_mesh(device_type="cpu")) == (1, 1)
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
