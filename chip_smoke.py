@@ -17,10 +17,12 @@ softmax and the stack kernels (scored through the stats kernel), and the
 tensor-parallel `Scorer(mesh=...)` on the flagship net with two ranks on the
 one card (gloo); shows through the launch counters that each run went
 through the kernels it should, and times kernels and paths beside their
-plain versions: K3 and K4 on their wgmma and mma.sync loops in turns, with
-each kernel's bound and, as a yardstick, `torch._int_mm` at its product
-shape (the product alone; the port never calls it).  Any failed check
-raises and the script exits non-zero.
+plain versions: the input kernel (K9) against the f64 product + K1 route it
+replaced, K3 and K4 on their wgmma and mma.sync loops, K3 against six K2
+launches, all in turns, with each kernel's bound and, as a yardstick, the
+product alone at its shape (`torch._int_mm`; for K9 the f64 and the f32
+`torch.matmul`), which the port never calls.  Any failed check raises and
+the script exits non-zero.
 The last line of standard output is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -32,6 +34,7 @@ fails before printing any result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -54,8 +57,9 @@ WIDE_HIDDEN, WIDE_DEPTH = 3072, 2  # wider than K4's K and K3's H
 TP_RANKS = 2  # tensor-parallel ranks on the one card
 TP_TIMEOUT_S = 300  # per-rank join timeout of phase 16
 # published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
-INT8_OPS_PER_S = 1979e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "tf32": 494.7e12}
 HBM_BYTES_PER_S = 3.35e12
+COUNT_FLIP_RATE = 1e-4  # the input layer's gate: <= 1 count on <= 1e-4 of the entries
 SMOKE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_cli"
 
 
@@ -101,11 +105,12 @@ def host_ms(torch, fn, reps: int = TIMED_REPS) -> float:
     return statistics.median(times)
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """The least time (ms) the card could take for work of `ops` int8
-    operations moving `nbytes` bytes (each input read once, each output
-    written once), and which of the two bounds it."""
-    ops_ms, bytes_ms = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound(ops: float, kind: str, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for work of `ops` operations
+    on tensor-core type `kind` ("int8" or "tf32") moving `nbytes` bytes
+    (each input read once, each output written once), and which of the two
+    bounds it."""
+    ops_ms, bytes_ms = ops / PEAK_OPS_PER_S[kind] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -117,6 +122,27 @@ def in_turns(torch, fns: dict) -> dict:
     for name in order:
         times[name].append(time_ms(torch, fns[name]))
     return times
+
+
+def count_gate(got, want, what: str) -> float:
+    """s8 counts `got` within 1 of `want` on at most COUNT_FLIP_RATE of the
+    entries -> the share that differ."""
+    d = (got.int() - want.int()).abs()
+    share = float((d > 0).float().mean())
+    check(got.shape == want.shape and int(d.max()) <= 1 and share <= COUNT_FLIP_RATE,
+          f"{what}: max |d| = {int(d.max())} <= 1, {int((d > 0).sum())} of {d.numel()} differ "
+          f"(share {share:.3g} <= {COUNT_FLIP_RATE:g})")
+    return share
+
+
+def random_layer(rng, k: int, n: int):
+    """A seeded int8 hidden layer in the plain layout: w [K, N], colsum128
+    [N], inv_scale (a float), bias [N], as numpy."""
+    w = rng.integers(-24, 25, (k, n), dtype=np.int8)
+    colsum = 128 * w.astype(np.int32).sum(axis=0, dtype=np.int32)
+    inv = float(np.float32(1.0 / (rng.integers(20, 60) * 255.0)))
+    bias = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    return w, colsum, inv, bias
 
 
 def random_stack(rng, layers: int, h: int):
@@ -335,14 +361,43 @@ def main() -> int:
           f"K1 bias_sigmoid_i8 [8192, {r.input_w.shape[1]}] bitwise")
     report["bias_sigmoid_i8"]["max_abs_err"] = 0.0
 
+    # K9 against its plain version (the f64 product rounded once to f32):
+    # the flagship input layer, K_in = 429 (frames padded to 432 for TMA) and
+    # H = 3072, seeded apart from the net
+    k9 = kernels.input_layer(frames_dev[:8192], q.input_w, q.input_operand, q.input_b)
+    p9 = plain.input_layer_step(frames_dev[:8192], r.input_w, r.input_b)
+    shares = [count_gate(k9, p9, f"K9 input_layer [8192, {INPUT_DIM}] x [{INPUT_DIM}, {HIDDEN}]")]
+    in_rng = np.random.default_rng(SEED + 9)
+    for k_in, h in ((429, HIDDEN), (INPUT_DIM, 3072)):
+        w_in = torch.from_numpy(in_rng.standard_normal((k_in, h), dtype=np.float32)
+                                * np.float32(k_in ** -0.5)).to(dev)
+        b_in = torch.from_numpy((in_rng.standard_normal(h) * 0.1).astype(np.float32)).to(dev)
+        x_in = torch.from_numpy(in_rng.standard_normal((8192, k_in), dtype=np.float32)).to(dev)
+        got = kernels.input_layer(x_in, w_in, kernels.input_layer_operand(w_in), b_in)
+        shares.append(count_gate(got, plain.input_layer_step(x_in, w_in, b_in),
+                                 f"K9 input_layer [8192, {k_in}] x [{k_in}, {h}]"))
+    report["input_layer"]["max_abs_err"] = 1.0 if max(shares) > 0 else 0.0
+
     acts = plain.input_layer_step(frames_dev, r.input_w, r.input_b)
     layer = (q.weights[0], q.colsum128[0], q.inv_scales[0], q.biases[0])
     plain_layer = (r.weights[0], r.colsum128[0], r.inv_scales[0], r.biases[0])
-    k2 = kernels.hidden_layer(acts, *layer)
-    p2 = plain.hidden_layer_step(acts, *plain_layer)
-    d2 = int((k2.int() - p2.int()).abs().max())
-    check(d2 == 0, f"K2 hidden_layer B=8320 K=N={HIDDEN} bitwise (max |d| = {d2})")
-    report["hidden_layer"]["max_abs_err"] = float(d2)
+    # K2 bitwise: the flagship layer, a non-square one and the wide net's
+    # 3072 x 3072; 64 frames, 129 blocks of 64 (clusters of 1) and 130
+    # (clusters of 2)
+    layer_rng = np.random.default_rng(SEED + 2)
+    k2_cases = [(HIDDEN, HIDDEN, acts, layer, plain_layer)]
+    for k_dim, n_dim in ((384, 640), (WIDE_HIDDEN, WIDE_HIDDEN)):
+        w, colsum, inv, bias = random_layer(layer_rng, k_dim, n_dim)
+        w_dev, colsum_dev, bias_dev = (torch.from_numpy(a).to(dev) for a in (w, colsum, bias))
+        a = torch.from_numpy(layer_rng.integers(-128, 128, (8320, k_dim), dtype=np.int8)).to(dev)
+        k2_cases.append((k_dim, n_dim, a, (kernels.kernel_layout(w_dev), colsum_dev, inv, bias_dev),
+                         (w_dev, colsum_dev, inv, bias_dev)))
+    for k_dim, n_dim, a, args, plain_args in k2_cases:
+        for b in (64, 8256, 8320):
+            check(torch.equal(kernels.hidden_layer(a[:b], *args),
+                              plain.hidden_layer_step(a[:b], *plain_args)),
+                  f"K2 hidden_layer B={b} K={k_dim} N={n_dim}: bitwise")
+    report["hidden_layer"]["max_abs_err"] = 0.0
 
     hstack, plain_hstack = scorer._hstack, reference._hstack
     k3 = kernels.hidden_stack(acts[:8192], *hstack)
@@ -388,7 +443,7 @@ def main() -> int:
     phase("5. main path: Scorer.score on the 432-7x2048-8000 net")
     sizes = (1000, 8192, 8300)  # 8300 buckets to 8320 > 8192: per-layer trunk
     want_p = {n: reference.score(frames[:n]) for n in sizes}
-    dense_expect = {"bias_sigmoid_i8": 3, "hidden_stack": 2, "hidden_layer": DEPTH - 1,
+    dense_expect = {"input_layer": 3, "hidden_stack": 2, "hidden_layer": DEPTH - 1,
                     "resident_softmax": 3}
     got_p = drive("the main-path run", dense_expect,
                   lambda: {n: scorer.score(frames[:n]) for n in sizes})
@@ -416,14 +471,21 @@ def main() -> int:
 
     def path_mma_sync():
         """score_device's four device calls with K3 and K4 on their mma.sync loops."""
-        a = cuda_backend.input_layer_step(batch, q.input_w, q.input_b)
+        a = cuda_backend.input_layer_step(batch, q.input_w, q.input_b, q.input_operand)
         return kernels.resident_softmax(kernels.hidden_stack(a, *hstack, loop="mma_sync"), *out,
                                         out_dim=SENONES, loop="mma_sync")
 
     d_path = float((path_mma_sync() - scorer.score_device(batch)).abs().max())
     check(d_path <= 3e-5, f"score_device with the mma_sync loops within {d_path:.3g} <= 3e-5 of the wgmma loops")
     # in turns: plain, mma_sync loop, wgmma loop, wgmma loop, mma_sync loop, plain
+    route = {  # the input layer before K9: the f64 product, then K1
+        "plain": lambda: plain.input_layer_step(batch, r.input_w, r.input_b),
+        "f64 product + K1": lambda: kernels.bias_sigmoid_i8(plain.matmul_f32(batch, q.input_w),
+                                                            q.input_b),
+        "K9": lambda: kernels.input_layer(batch, q.input_w, q.input_operand, q.input_b),
+    }
     turn_cases = {
+        "input_layer": route,
         "score_device": {"plain": lambda: reference.score_device(batch), "mma_sync": path_mma_sync,
                          "wgmma": lambda: scorer.score_device(batch)},
         "hidden_stack": {"plain": lambda: plain.hidden_stack_step(a3, plain_hstack),
@@ -442,47 +504,76 @@ def main() -> int:
             f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in times.items()) + f" ms  [{smi}]")
     for name in ("hidden_stack", "resident_softmax"):
         report[name]["ms"], report[name]["plain_ms"] = turn_ms[name]["wgmma"], turn_ms[name]["plain"]
+    report["input_layer"]["ms"] = turn_ms["input_layer"]["K9"]
+    report["input_layer"]["plain_ms"] = turn_ms["input_layer"]["plain"]
+    # the trunk above 8192 frames: K2 at B = 8320, and score_device there
+    # against B = 8192 (the stack)
+    k2_times = in_turns(torch, {"plain": lambda: plain.hidden_layer_step(acts, *plain_layer),
+                                "K2": lambda: kernels.hidden_layer(acts, *layer)})
+    print(f"  hidden_layer B=8320 K=N={HIDDEN} in turns: " + ", ".join(
+        f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in k2_times.items()) + f" ms  [{smi}]")
+    report["hidden_layer"]["ms"] = sum(k2_times["K2"]) / 2
+    report["hidden_layer"]["plain_ms"] = sum(k2_times["plain"]) / 2
+    times = in_turns(torch, {"B=8192": lambda: scorer.score_device(batch),
+                             "B=8320": lambda: scorer.score_device(frames_dev)})
+    print("  score_device in turns: " + ", ".join(
+        f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in times.items())
+        + f" ms (B=8320 runs the per-layer trunk)  [{smi}]")
+    # K3 against the six K2 launches it replaces, over B (the stack threshold)
+    six_layers = [(hstack[0][i], hstack[1][i], float(hstack[2][i]), hstack[3][i])
+                  for i in range(hstack[0].shape[0])]
+
+    def per_layer(x):
+        for args in six_layers:
+            x = kernels.hidden_layer(x, *args)
+        return x
+
+    check(torch.equal(per_layer(acts[:1024]), kernels.hidden_stack(acts[:1024], *hstack)),
+          "six K2 launches equal one K3 launch (B=1024)")
+    for b in (1024, 4096, 8192):
+        times = in_turns(torch, {"K3": lambda b=b: kernels.hidden_stack(acts[:b], *hstack),
+                                 "6 x K2": lambda b=b: per_layer(acts[:b])})
+        print(f"  trunk B={b:4d} in turns: " + ", ".join(
+            f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in times.items()) + f" ms  [{smi}]")
     for name, ms in turn_ms["score_device"].items():
         print(f"  score_device B=8192 {name:8s} {ms:.4f} ms/batch, {audio_s / ms * 1e3:.1f} audio-s/s"
               f"  [{smi}]")
-    cases = {
-        "bias_sigmoid_i8": (lambda: kernels.bias_sigmoid_i8(lin, r.input_b),
-                            lambda: plain.bias_sigmoid_i8(lin, r.input_b), "[8192, 2048]"),
-        "hidden_layer": (lambda: kernels.hidden_layer(acts, *layer),
-                         lambda: plain.hidden_layer_step(acts, *plain_layer), "B=8320 K=N=2048"),
-    }
-    for name, (kernel_fn, plain_fn, shape) in cases.items():
-        report[name]["ms"] = time_ms(torch, kernel_fn)
-        report[name]["plain_ms"] = time_ms(torch, plain_fn)
-        print(f"  {name:17s} {shape:18s} kernel {report[name]['ms']:.4f} ms, "
-              f"plain {report[name]['plain_ms']:.4f} ms  [{smi}]")
-    input_ms = time_ms(torch, lambda: plain.matmul_f32(batch, q.input_w))
-    print(f"  input layer product (f64, rounded to f32) [8192, {INPUT_DIM}] x [{INPUT_DIM}, "
-          f"{HIDDEN}] {input_ms:.4f} ms  [{smi}]")
+    report["bias_sigmoid_i8"]["ms"] = time_ms(torch, lambda: kernels.bias_sigmoid_i8(lin, r.input_b))
+    report["bias_sigmoid_i8"]["plain_ms"] = time_ms(torch, lambda: plain.bias_sigmoid_i8(lin, r.input_b))
+    print(f"  bias_sigmoid_i8 [8192, 2048] kernel {report['bias_sigmoid_i8']['ms']:.4f} ms, "
+          f"plain {report['bias_sigmoid_i8']['plain_ms']:.4f} ms  [{smi}]")
     # where score_device's device time goes, and how much of a window of
-    # back-to-back calls the device is busy (torch.profiler, CUPTI)
+    # back-to-back calls the device is busy (torch.profiler, CUPTI): at B =
+    # 8192 (the stack trunk) and 8320 (six K2 launches)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     calls = 10
-    scorer.score_device(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            scorer.score_device(batch)
+    for frames_in in (batch, frames_dev):
+        b = frames_in.shape[0]
+        scorer.score_device(frames_in)
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    device_ms = {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-    busy = sum(device_ms.values()) * calls / window_ms
-    if device_ms:
-        print(f"  score_device B=8192 under torch.profiler ({calls} calls, host window "
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                scorer.score_device(frames_in)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        device = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if not device:
+            print(f"  score_device B={b} under torch.profiler: no device time recorded; idle share "
+                  "not measured")
+            continue
+        busy = sum(ms for _, ms, _ in device) * calls / window_ms
+        print(f"  score_device B={b} under torch.profiler ({calls} calls, host window "
               f"{window_ms / calls:.4f} ms/call): device busy {busy:.1%}, idle {1 - busy:.1%}  [{smi}]")
-        for name, ms in sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"    {ms:.4f} ms/call  {name[:100]}")
-    else:
-        print("  score_device under torch.profiler: no device time recorded; idle share not measured")
+        for name, ms, count in sorted(device, key=lambda row: -row[1]):
+            print(f"    {ms:.4f} ms/call in {count} launch(es)  {name[:100]}")
+        library = [name for name, _, _ in device if re.search("gemm|copy|cast|convert", name, re.I)]
+        check(not library, f"score_device B={b} runs no library product and no cast kernel on the "
+                           f"device ({len(device)} kernels)")
 
     phase("7. K4 masked and bf16, K5, K6 against their plain versions at the flagship shapes")
     n_pad = out[0].shape[0]
@@ -561,7 +652,7 @@ def main() -> int:
     sparse_sizes = (1000, 8192)
     want_b = {n: reference.score_masked(frames[:n], bands_host[:n]) for n in sparse_sizes}
     got_b = drive("score_masked block_sparse",
-                  {"bias_sigmoid_i8": 2, "hidden_stack": 2, "resident_softmax_block_sparse": 2},
+                  {"input_layer": 2, "hidden_stack": 2, "resident_softmax_block_sparse": 2},
                   lambda: {n: sparse.score_masked(frames[:n], bands_host[:n]) for n in sparse_sizes})
     for n in sparse_sizes:
         close(got_b[n], want_b[n], f"score_masked block_sparse n={n} (band masks)")
@@ -570,7 +661,7 @@ def main() -> int:
     subset = rng.choice(SENONES, SENONES * 3 // 8, replace=False)  # a union the capacity admits
     masks_g = np.zeros((1000, SENONES), np.uint8)
     masks_g[:, subset] = masks_host[:1000, subset]
-    got_g = drive("score_masked gathered", {"bias_sigmoid_i8": 1, "hidden_stack": 1},
+    got_g = drive("score_masked gathered", {"input_layer": 1, "hidden_stack": 1},
                   lambda: gathered.score_masked(frames[:1000], masks_g))
     close(got_g, reference.score_masked(frames[:1000], masks_g), "score_masked gathered n=1000")
 
@@ -579,7 +670,7 @@ def main() -> int:
     utterance = frames[:DECODE_FRAMES]
     lazy_dec, dense_dec = drive(
         "LazyContext beam decode + dense decode",
-        {"bias_sigmoid_i8": 2, "hidden_stack": 2, "output_logits": DECODE_FRAMES, "resident_softmax": 1},
+        {"input_layer": 2, "hidden_stack": 2, "output_logits": DECODE_FRAMES, "resident_softmax": 1},
         lambda: (decoder.decode_lazy(scorer, utterance), decoder.decode_dense(scorer, utterance)),
     )
     check(lazy_dec.words == dense_dec.words,
@@ -680,7 +771,7 @@ def main() -> int:
     for n in sizes:
         check(np.array_equal(want4[n], want4p[n]), f"n={n}: plain packed and unpacked int4 equal")
     got4 = drive("int4 unpacked", dense_expect, lambda: {n: int4.score(frames[:n]) for n in sizes})
-    got4p = drive("int4 packed", {"bias_sigmoid_i8": 3, "hidden_layer_packed": 3 * (DEPTH - 1),
+    got4p = drive("int4 packed", {"input_layer": 3, "hidden_layer_packed": 3 * (DEPTH - 1),
                                   "resident_softmax": 3},
                   lambda: {n: packed4.score(frames[:n]) for n in sizes})
     for n in sizes:
@@ -718,7 +809,7 @@ def main() -> int:
         check(convert_cli.main(["features", f("feats.txt"), f("feats.bin")]) == 0, "convert features")
         cli_depth = CLI_DEPTH - 1  # hidden-to-hidden layers of the extended net
         drive("score --device cuda --int4-packed (warm-up call + scoring call)",
-              {"bias_sigmoid_i8": 2, "hidden_layer_packed": 2 * cli_depth, "resident_softmax": 2},
+              {"input_layer": 2, "hidden_layer_packed": 2 * cli_depth, "resident_softmax": 2},
               lambda: check(score_cli.main([f("q4.npz"), f("feats.bin"), f("post.bin"), "BIN",
                                             "--device", "cuda", "--int4-packed"]) == 0,
                             "score --device cuda --int4-packed"))
@@ -818,18 +909,22 @@ def main() -> int:
     phase(f"15. a net too wide for K4 and K3: 432-{WIDE_DEPTH}x{WIDE_HIDDEN}-{SENONES} through K8")
     limit = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
                     kernels.HOPPER_BLOCK_SMEM)
-    for fn, widest in ((lib.fdn_resident_softmax_smem_bytes, kernels.RESIDENT_SOFTMAX_MAX_K),
-                       (lib.fdn_resident_softmax_wgmma_smem_bytes, kernels.RESIDENT_SOFTMAX_MAX_K),
-                       (lib.fdn_hidden_stack_smem_bytes, kernels.HIDDEN_STACK_MAX_H),
-                       (lib.fdn_hidden_stack_wgmma_smem_bytes, kernels.HIDDEN_STACK_MAX_H)):
+    for name, fn, widest in (
+            ("K4 mma.sync", lib.fdn_resident_softmax_smem_bytes, kernels.RESIDENT_SOFTMAX_MAX_K),
+            ("K4 wgmma", lib.fdn_resident_softmax_wgmma_smem_bytes, kernels.RESIDENT_SOFTMAX_MAX_K),
+            ("K3 mma.sync", lib.fdn_hidden_stack_smem_bytes, kernels.HIDDEN_STACK_MAX_H),
+            ("K3 wgmma", lib.fdn_hidden_stack_wgmma_smem_bytes, kernels.HIDDEN_STACK_MAX_H)):
         check(fn(widest) <= limit < fn(widest + kernels.TILE_K),
-              f"{fn.__name__}: {widest} fits the card's {limit} bytes "
+              f"{name}: {widest} fits the card's {limit} bytes "
               f"({fn(widest)}), {widest + kernels.TILE_K} does not ({fn(widest + kernels.TILE_K)})")
+    check(lib.fdn_hidden_layer_smem_bytes() <= limit and lib.fdn_input_layer_smem_bytes() <= limit,
+          f"K2 ({lib.fdn_hidden_layer_smem_bytes()}, any K) and K9 "
+          f"({lib.fdn_input_layer_smem_bytes()}) fit the card's {limit} bytes")
     q_wide = quantize_net(random_net(rng, INPUT_DIM, [WIDE_HIDDEN] * WIDE_DEPTH, SENONES))
     wide = Scorer(q_wide, EngineConfig(), device="cuda")
     wide_cpu = Scorer(q_wide, device="cpu")
     check(wide._hstack is None, f"the wide net has no hidden stack (H = {WIDE_HIDDEN})")
-    one_call = {"bias_sigmoid_i8": 1, "hidden_layer": WIDE_DEPTH - 1, "flash_stats": 1}
+    one_call = {"input_layer": 1, "hidden_layer": WIDE_DEPTH - 1, "flash_stats": 1}
     for n in sizes:
         want = wide_cpu.score(frames[:n])
         close(drive(f"wide score n={n}", one_call, lambda: wide.score(frames[:n])), want,
@@ -846,7 +941,7 @@ def main() -> int:
                         lambda: wide_masked[sem].score_masked(frames[:1000], m)),
                   want, f"wide score_masked {sem} {what} n=1000")
             close(drive(f"wide block_sparse {sem} {what}",
-                        {"bias_sigmoid_i8": 1, "hidden_layer": WIDE_DEPTH - 1,
+                        {"input_layer": 1, "hidden_layer": WIDE_DEPTH - 1,
                          "flash_stats_block_sparse": 1},
                         lambda: wide_sparse[sem].score_masked(frames[:1000], m)),
                   want, f"wide block_sparse {sem} {what} n=1000")
@@ -889,7 +984,7 @@ def main() -> int:
               f"rank {rank}: score_device block [8192, {n_local}], valid count {valid}")
         for title, run in rep["runs"].items():
             kernel = "flash_stats_block_sparse" if "block_sparse" in title else "flash_stats"
-            expect = {"bias_sigmoid_i8": 1, "hidden_stack": 1, kernel: 1}
+            expect = {"input_layer": 1, "hidden_stack": 1, kernel: 1}
             print(f"  rank {rank} launch counts of {title}: {run['counts']}")
             for name, count in run["counts"].items():
                 check(count == expect.get(name, 0),
@@ -943,21 +1038,25 @@ def main() -> int:
           f"{one_ms:.4f} ms.  Both ranks share one card, so this shows the cost of the split "
           f"and the collectives, not scaling  [{smi}]")
 
-    phase(f"18. bounds and product-only yardsticks (torch._int_mm, median of {TIMED_REPS} calls; "
-          f"card: {smi})")
-    # each row's work at the shape its time was taken at (phases 6, 9, 13, 17): int8
-    # operations of its products (the skipping kernels: only the tiles these band
-    # masks leave active) and bytes with each input read once, each output written
-    # once; the yardstick is torch._int_mm at the same product shape, the product
-    # alone (no epilogue, no softmax), which the port never calls
+    phase(f"18. bounds and product-only yardsticks (median of {TIMED_REPS} calls; card: {smi})")
+    # each row's work at the shape its time was taken at (phases 6, 9, 13, 17): the
+    # operations of its products (int8; K9's three TF32 products; the skipping
+    # kernels: only the tiles these band masks leave active) and bytes with each
+    # input read once, each output written once; the yardstick is the product
+    # alone at the same shape (no epilogue, no softmax), which the port never
+    # calls: torch._int_mm, and for K9 the f64 product it replaced
+    # (ops.matmul.matmul_f32), with torch.matmul in f32 (TF32 off) printed beside
     k_dim, b_dim, l_dim = HIDDEN, 8192, hstack[0].shape[0]
     w_out = out[0].t().contiguous()  # [K, N] int8, padded
     w_layer, w_int4 = r.weights[0], k2_args[0].t().contiguous()
     out_ops = 2 * b_dim * k_dim * n_pad
     vec_bytes = n_pad * 8  # colsum and bias of the output layer
     layer_bytes = 8320 * k_dim * 2 + k_dim * 8
+    input_bytes = b_dim * INPUT_DIM * 4 + 2 * k_dim * INPUT_DIM * 4 + k_dim * 4 + b_dim * k_dim
     work = {
         "bias_sigmoid_i8": (0, b_dim * k_dim * 4 + k_dim * 4 + b_dim * k_dim, None),
+        "input_layer": (3 * 2 * b_dim * INPUT_DIM * k_dim, input_bytes,
+                        lambda: plain.matmul_f32(batch, r.input_w)),
         "hidden_layer": (2 * 8320 * k_dim * k_dim, layer_bytes + k_dim * k_dim,
                          lambda: torch._int_mm(acts, w_layer)),
         "hidden_stack": (2 * b_dim * k_dim * k_dim * l_dim,
@@ -981,14 +1080,24 @@ def main() -> int:
             lambda: torch._int_mm(p3, w_out)),
     }
     for name, (ops, nbytes, product) in work.items():
-        report[name]["bound_ms"], report[name]["bound_by"] = bound(ops, nbytes)
+        peak = "tf32" if name == "input_layer" else "int8"
+        report[name]["bound_ms"], report[name]["bound_by"] = bound(ops, peak, nbytes)
         report[name]["product_ms"] = None if product is None else time_ms(torch, product)
         share = report[name]["bound_ms"] / report[name]["ms"]
         product_text = ("no product" if product is None
-                        else f"product alone (torch._int_mm) {report[name]['product_ms']:.4f} ms")
+                        else f"product alone ({'f64 matmul' if peak == 'tf32' else 'torch._int_mm'}) "
+                             f"{report[name]['product_ms']:.4f} ms")
         print(f"  {name:29s} {report[name]['ms']:.4f} ms, bound {report[name]['bound_ms']:.4f} ms "
               f"({report[name]['bound_by']}, {ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB), "
               f"{share:.1%} of it; {product_text}  [{smi}]")
+    tf32_switch = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32_ms = time_ms(torch, lambda: torch.matmul(batch, r.input_w))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_switch
+    print(f"  input_layer yardstick: torch.matmul f32 (TF32 off) [8192, {INPUT_DIM}] x "
+          f"[{INPUT_DIM}, {k_dim}] {f32_ms:.4f} ms  [{smi}]")
 
     rows = [
         {

@@ -1,9 +1,10 @@
 // Device code shared by the port's Hopper kernels: the quantized-sigmoid
 // epilogue (K1), the dequantization step, and an int8 tensor-core tile engine that
-// K2 (hidden layer), K3 (hidden stack), K4 (resident softmax), K5 (output
-// logits), K6 (block-sparse resident softmax) and K8 (flash stats) run their
-// products through; K7 (packed int4 hidden layer) runs its own stage loop on
-// the same pieces.  Also the row-softmax epilogue pieces of K4, K6 and K8.
+// K5 (output logits), K6 (block-sparse resident softmax), K8 (flash stats)
+// and the first loops of K3 (hidden stack) and K4 (resident softmax) run
+// their products through; K7 (packed int4 hidden layer) runs its own stage
+// loop on the same pieces.  Also the row-softmax epilogue pieces of K4, K6
+// and K8.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false, never
 // --use_fast_math, one nvcc per source (fastdnn_tpu_torch/ops/_build.py).
@@ -86,8 +87,9 @@ __device__ __forceinline__ float dequantize(int acc, int colsum, float inv_scale
 // kernel_layout), and streams through shared memory in kBK-deep stages, a
 // ring of STAGES buffers filled by cp.async, so the next STAGES - 1 stages
 // load while one multiplies.
-// A either streams beside W (a hidden layer) or already sits whole in shared
-// memory (the stack's activations, the output layer's frame block).
+// A either streams beside W (the logits and stats kernels) or already sits
+// whole in shared memory (the stack's activations, the output layer's frame
+// block).
 //
 // Both operands are K-contiguous, so every fragment is one ldmatrix: the
 // 16-bit 8x8 matrices it moves are 8 rows x 16 int8 along K, which is

@@ -6,68 +6,130 @@
 // x inv_scale, + bias, then the K1 sigmoid, all before anything leaves the
 // block, so device memory sees int8 in, int8 weights, int8 out.
 //
-// Bound: at the flagship shape (B = 8320, K = N = 2048) the layer is 70 G
-// int8 ops against ~21 MB of device-memory traffic, far above the card's
-// ops-per-byte ridge on paper.  The TPU grid ran frames fastest so one VMEM
-// weight block served every frame block; here blocks run in parallel, each
-// owning a 64 x 128 output tile, and re-read their weight and activation
-// tiles from the 50 MB L2 (~0.8 GB per layer).  Measured on an H100, that
-// L2 traffic, not the tensor cores, bounds the loop; it feeds mma.sync
-// (m16n8k32) from ldmatrix through a 3-stage cp.async ring, not wgmma/TMA.
+// Bound: at the main path's shape (B = 8320, K = N = 2048) the layer is 70 G
+// int8 ops (0.035 ms at 1979 TOP/s) against ~21 MB of device-memory traffic.
+// The TPU grid ran frames fastest so one VMEM weight block served every frame
+// block; here blocks run in parallel, and what bounds them is the rate at
+// which stages reach each SM from L2 (as for K3, PERF.md).
+//
+// K3's loop (csrc/hidden_stack.cu) for one layer of any K x N, on
+// csrc/hopper.cuh's warp-specialised shape: a block owns 64 frames and a
+// range of 128-column tiles; a producer warp streams 128 x 128-byte weight
+// stages by TMA through an mbarrier ring, its two consumer warpgroups take
+// the tiles in turn (wgmma m64n128k32 s8, one's epilogue beside the other's
+// products), and blocks in clusters of 2 along frames share each weight
+// stage by multicast.  The quantized sigmoid goes through the block's table
+// (common.cuh: sigmoid_from_table).  Unlike K3, the block's activations do
+// not sit in shared memory: a 64 x 128-byte tile of them comes with each
+// weight stage, through the same ring and barrier, so K has no limit and the
+// ring holds 8 stages of 24 KB.  On the H100 this was faster at every B than
+// holding the [64 x K] activations beside a 5-stage ring (PERF.md), though
+// it reads them from L2 once per tile.  When the frame blocks are fewer than
+// the SMs, the column tiles split over floor(SMs / frame blocks) blocks per
+// frame block (no split at B = 8320: 130 blocks; 8 at B = 1024).
+#include <algorithm>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int kStages = 3;  // 107 KB: two blocks per SM
-constexpr size_t kSmemBytes =
-    kStages * (BM * fdn::kBK + fdn::kWStageBytes) + sizeof(int) * BM * fdn::kLdc;
+namespace hp = fdn::hopper;
 
-__global__ void __launch_bounds__(fdn::kThreads)
-    hidden_layer_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
+constexpr int kStages = 8;
+
+constexpr size_t kSmemBytes = hp::kAlign +
+                              static_cast<size_t>(kStages) * (hp::kStageBytes + hp::kActBlockBytes) +
+                              hp::Ring<kStages, 1>::kBytes + fdn::kSigmoidTableBytes;
+
+// Block b is frame block b % frame_blocks of column split b / frame_blocks;
+// a cluster's blocks are consecutive frame blocks of one split.  The split
+// takes tiles [split * tiles / splits, (split + 1) * tiles / splits).  The
+// weight map views Wt as [N, K], the activation map x as [B, K].
+template <int CS>
+__global__ void __launch_bounds__(hp::kThreads, 1)
+    hidden_layer_kernel(const __grid_constant__ CUtensorMap w_map,
+                        const __grid_constant__ CUtensorMap x_map,
                         const int* __restrict__ colsum, const float* __restrict__ bias,
-                        float inv_scale, int8_t* __restrict__ out, int K, int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* a_stage = reinterpret_cast<int8_t*>(smem);
-  int8_t* w_stage = a_stage + kStages * BM * fdn::kBK;
-  int* c_tile = reinterpret_cast<int*>(w_stage + kStages * fdn::kWStageBytes);
+                        float inv_scale, int8_t* __restrict__ out, int K, int N,
+                        int frame_blocks, int splits) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = hp::align_smem(smem_raw);
+  int8_t* stages = reinterpret_cast<int8_t*>(smem);
+  int8_t* acts = stages + kStages * hp::kStageBytes;  // one activation tile per stage
+  hp::Ring<kStages, CS> ring{reinterpret_cast<uint64_t*>(acts + kStages * hp::kActBlockBytes)};
+  int8_t* table = reinterpret_cast<int8_t*>(ring.bars) + hp::Ring<kStages, CS>::kBytes;
 
-  const int n0 = blockIdx.x * fdn::kBN;
-  const int m0 = blockIdx.y * BM;
-  fdn::Acc<BM> acc;
-  fdn::mma_tile<BM, false, kStages>(acc, x, K, m0, nullptr, wt, K, n0, K, a_stage, w_stage);
-  fdn::store_acc<BM>(acc, c_tile);
-  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x % frame_blocks * hp::kFrames;
+  const int split = blockIdx.x / frame_blocks;
+  const int tiles = N / hp::kTileN;
+  const int first_tile = split * tiles / splits;
+  const int my_tiles = (split + 1) * tiles / splits - first_tile;
+  const int steps = K / hp::kStageK;
+  if (threadIdx.x == 0) ring.init();
+  hp::cluster_sync();
 
-  // epilogue: 16 consecutive columns of one row per step -> one 16-byte store
-  constexpr int kChunks = fdn::kBN / 16;
-  for (int i = threadIdx.x; i < BM * kChunks; i += fdn::kThreads) {
-    const int r = i / kChunks, c0 = (i % kChunks) * 16;
-    alignas(16) int8_t v[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int n = n0 + c0 + j;
-      v[j] = fdn::quantized_sigmoid_shifted(
-          fdn::dequantize(c_tile[r * fdn::kLdc + c0 + j], colsum[n], inv_scale, bias[n]));
+  if (wg == hp::kConsumers) {
+    hp::reg_dealloc<hp::kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      const unsigned rank = hp::cluster_rank();
+      for (int g = 0; g < my_tiles; ++g)
+        for (int t = 0; t < steps; ++t)
+          ring.produce(stages, &w_map, g * steps + t, t * hp::kStageK,
+                       (first_tile + g) * hp::kTileN, rank, acts, &x_map, m0);
     }
-    *reinterpret_cast<int4*>(out + static_cast<size_t>(m0 + r) * N + n0 + c0) =
-        *reinterpret_cast<const int4*>(v);
+    hp::cluster_sync();
+  } else {
+    hp::reg_alloc<hp::kConsumerRegs>();
+    const int tw = threadIdx.x % 128;
+    fdn::fill_sigmoid_table(table, threadIdx.x, hp::kConsumerThreads);
+    hp::consumer_sync();
+    int d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0;
+    for (int g = wg, n = 0; g < my_tiles; g += hp::kConsumers, ++n) {
+      hp::tile_products<kStages, CS, true>(d, ring, stages, acts, K, g * steps, wg, n, tw);
+      hp::layer_epilogue(d, out, N, m0, (first_tile + g) * hp::kTileN, colsum, bias, inv_scale,
+                         table, tw);
+    }
+    hp::cluster_sync();
   }
+}
+
+template <int CS>
+cudaError_t launch(const void* x, const void* wt, const void* colsum, const void* bias,
+                   float inv_scale, void* out, int b, int k, int n, int sms, void* stream) {
+  CUtensorMap w_map, x_map;
+  cudaError_t err = hp::weight_map(&w_map, wt, n, k, hp::kTileN / CS);
+  if (err == cudaSuccess) err = hp::weight_map(&x_map, x, b, k, hp::kFrames);
+  if (err != cudaSuccess) return err;
+  const int frame_blocks = b / hp::kFrames;
+  const int tiles = n / hp::kTileN;
+  const int splits = frame_blocks >= sms ? 1 : std::min(tiles, sms / frame_blocks);
+  return hp::launch_clustered(hidden_layer_kernel<CS>, frame_blocks * splits, CS, kSmemBytes,
+                              stream, w_map, x_map, static_cast<const int*>(colsum),
+                              static_cast<const float*>(bias), inv_scale,
+                              static_cast<int8_t*>(out), k, n, frame_blocks, splits);
 }
 
 }  // namespace
 
-// Requires B % 64 == 0, K % 128 == 0, N % 128 == 0 (checked by the wrapper).
+// Requires B % (64 * cluster) == 0 (cluster 1 or 2), K % 128 == 0,
+// N % 128 == 0, 16-byte aligned x and wt, and fdn_hidden_layer_smem_bytes()
+// within the block limit (checked by the wrapper).
 extern "C" int fdn_hidden_layer(const void* x, const void* wt, const void* colsum,
                                 const void* bias, float inv_scale, void* out, int b, int k, int n,
-                                int device, void* stream) {
+                                int cluster, int device, void* stream) {
+  int sms = 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = fdn::allow_smem(hidden_layer_kernel, kSmemBytes);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n / fdn::kBN, b / BM);
-  hidden_layer_kernel<<<grid, fdn::kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
-      static_cast<int8_t*>(out), k, n);
-  return static_cast<int>(cudaGetLastError());
+  switch (cluster) {
+    case 1: return launch<1>(x, wt, colsum, bias, inv_scale, out, b, k, n, sms, stream);
+    case 2: return launch<2>(x, wt, colsum, bias, inv_scale, out, b, k, n, sms, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
+
+extern "C" long long fdn_hidden_layer_smem_bytes() { return static_cast<long long>(kSmemBytes); }

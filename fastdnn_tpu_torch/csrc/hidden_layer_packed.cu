@@ -11,8 +11,9 @@
 // sums are exact, so the result is bitwise K2's on the same int4 values held
 // unpacked.
 //
-// Bound: as K2 (hidden_layer.cu), the weight and activation tiles every
-// block re-reads from L2, not the tensor cores.  The design halves the
+// Bound: as for the first K2 (an mma.sync loop, since moved to wgmma), the
+// weight and activation tiles every block re-reads from L2, not the tensor
+// cores.  The design halves the
 // weight part: each stage brings 128 columns x 64 packed bytes (128 logical
 // K) of the weight, beside the two 64-byte activation slices those bytes
 // multiply, x[:, k0 : k0+64] and x[:, K/2+k0 : K/2+k0+64].  The packed tile
@@ -146,7 +147,7 @@ __global__ void __launch_bounds__(fdn::kThreads)
   fdn::store_acc<BM>(acc, c_tile);
   __syncthreads();
 
-  // epilogue, as K2: 16 consecutive columns of one row per step -> one 16-byte store
+  // epilogue: 16 consecutive columns of one row per step -> one 16-byte store
   constexpr int kChunks = fdn::kBN / 16;
   for (int i = tid; i < BM * kChunks; i += fdn::kThreads) {
     const int r = i / kChunks, c0 = (i % kChunks) * 16;

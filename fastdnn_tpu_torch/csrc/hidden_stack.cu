@@ -123,30 +123,6 @@ __host__ __device__ constexpr size_t wgmma_smem_bytes(int h) {
          hp::Ring<kWgStages, 1>::kBytes + fdn::kSigmoidTableBytes;
 }
 
-// One consumer warpgroup's tile of a layer's output: int8 columns
-// [n0, n0 + 128) of the block's 64 rows of `out`, from its accumulators,
-// the quantized sigmoid through the block's table.
-__device__ __forceinline__ void stack_epilogue(const int (&d)[64], int8_t* out, int H, int m0,
-                                               int n0, const int* cs, const float* bl, float inv,
-                                               const int8_t* table, int thread_in_wg) {
-  const int warp = thread_in_wg / 32, lane = thread_in_wg % 32;
-  const int col = n0 + 2 * (lane % 4);
-  int8_t* o = out + static_cast<size_t>(m0 + warp * 16 + lane / 4) * H + col;
-#pragma unroll
-  for (int q = 0; q < 16; ++q) {
-    const int n = col + 8 * q;
-    const int2 c = *reinterpret_cast<const int2*>(cs + n);
-    const float2 b = *reinterpret_cast<const float2*>(bl + n);
-    char2 top, bottom;  // rows r and r + 8
-    top.x = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q], c.x, inv, b.x));
-    top.y = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q + 1], c.y, inv, b.y));
-    bottom.x = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q + 2], c.x, inv, b.x));
-    bottom.y = fdn::sigmoid_from_table(table, fdn::dequantize(d[4 * q + 3], c.y, inv, b.y));
-    *reinterpret_cast<char2*>(o + 8 * q) = top;
-    *reinterpret_cast<char2*>(o + 8 * static_cast<size_t>(H) + 8 * q) = bottom;
-  }
-}
-
 // Tiles are numbered over the whole stack: tile g is layer g / tiles,
 // columns (g % tiles) * 128; consumer warpgroup w takes g = w, w + 2, ...
 // The weight map views Wt as [L * H, H].
@@ -208,8 +184,9 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
       const int l = g / tiles;
       while (layer < l) next_layer();
       hp::tile_products(d, ring, stages, acts, H, g * steps, wg, n, tw);
-      stack_epilogue(d, out, H, m0, (g % tiles) * hp::kTileN, colsum + static_cast<size_t>(l) * H,
-                     bias + static_cast<size_t>(l) * H, inv_scales[l], table, tw);
+      hp::layer_epilogue(d, out, H, m0, (g % tiles) * hp::kTileN,
+                         colsum + static_cast<size_t>(l) * H, bias + static_cast<size_t>(l) * H,
+                         inv_scales[l], table, tw);
     }
     while (layer < L - 1) next_layer();  // the boundaries after this warpgroup's last tile
     hp::cluster_sync();

@@ -1,28 +1,34 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels, the
-// wgmma K3 (csrc/hidden_stack.cu) and K4 (csrc/resident_softmax.cu):
-// mbarriers, TMA tensor copies (multicast across a thread-block cluster),
-// int8 wgmma from shared-memory descriptors, register reallocation, and the
-// host side of a launch (tensor maps, cluster launches).
+// wgmma K2 (csrc/hidden_layer.cu), K3 (csrc/hidden_stack.cu), K4
+// (csrc/resident_softmax.cu) and K9 (csrc/input_layer.cu): mbarriers, TMA
+// tensor copies (multicast across a thread-block cluster), int8 wgmma from
+// shared-memory descriptors and TF32 wgmma with A from registers, register
+// reallocation, the quantized-sigmoid epilogue of a hidden layer's tile, and
+// the host side of a launch (tensor maps, cluster launches).
 //
-// Shape of both kernels.  A block is three warpgroups and owns kFrames = 64
-// frames, whose int8 activations sit whole in shared memory as the wgmma A
-// operand.  Warpgroup 2 is the producer: one thread keeps a ring of kStageBytes
-// weight stages (kTileN output columns x kStageK of K) full with TMA copies, in
-// the order the tiles are consumed, across tiles and (K3) layers, never
-// draining.  Warpgroups 0 and 1 are consumers and take the output tiles in
-// turn (ping-pong): while one runs a tile's products the other runs the
-// previous tile's epilogue.  K3's blocks of a cluster (along frames) share
-// each weight stage: every block copies 1 / cluster of it and multicasts that
-// part to all, so L2 serves each stage once per cluster; each SM still
-// receives every byte of it.  K4's blocks of a cluster share their frames
-// instead and split the tiles, each streaming its own (a ring of CS = 1).
+// Shape of the int8 kernels (K2, K3, K4).  A block is three warpgroups and
+// owns kFrames = 64 frames, whose int8 activations sit whole in shared memory
+// as the wgmma A operand (K2: a 64 x 128-byte tile of them comes with each
+// weight stage instead).  Warpgroup 2 is the producer: one
+// thread keeps a ring of kStageBytes weight stages (kTileN output columns x
+// kStageK of K) full with TMA copies, in the order the tiles are consumed,
+// across tiles and (K3) layers, never draining.  Warpgroups 0 and 1 are
+// consumers and take the output tiles in turn (ping-pong): while one runs a
+// tile's products the other runs the previous tile's epilogue.  K2's and
+// K3's blocks of a cluster (along frames) share each weight stage: every
+// block copies 1 / cluster of it and multicasts that part to all, so L2
+// serves each stage once per cluster; each SM still receives every byte of
+// it.  K4's blocks of a cluster share their frames instead and split the
+// tiles, each streaming its own (a ring of CS = 1).  K9 (f32 frames, TF32
+// products) keeps the three warpgroups and the barriers but runs a ring of
+// its own: both consumers read every stage, for 64 frames each.
 //
 // Layout: both operands K-major in the 128-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1): a [rows x 128-byte] block
 // keeps row r at r * 128 bytes with its 16-byte chunk c at chunk c ^ (r % 8),
-// 8-row groups 1024 bytes apart; a 32-deep wgmma step is a 32-byte offset
-// into the row.  The activations ([64 x K]) are K / 128 such blocks, written
-// by the consumers themselves.
+// 8-row groups 1024 bytes apart; a 32-deep int8 (8-deep TF32) wgmma step is
+// a 32-byte offset into the row.  The resident activations ([64 x K]) are
+// K / 128 such blocks, written by the consumers themselves.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the library links no libcuda
@@ -239,6 +245,60 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
+// d (64 x 128 f32) += A (64 x 8 tf32, registers) * B^T (B: 128 x 8 tf32,
+// K-major in shared memory), or = with accumulate == false.  a[] holds, for
+// thread t of the warpgroup, row r = 16 (t / 32) + (t % 32) / 4 and column
+// c = t % 4 of A as a[0] = (r, c), a[1] = (r + 8, c), a[2] = (r, c + 4),
+// a[3] = (r + 8, c + 4); d as in wgmma_s8.  The registers of a[] are read
+// asynchronously: they must keep their values until the wgmma_wait that
+// covers this product.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                           bool accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(accumulate)));
+}
+
+// the f32 and register-operand counterparts of fence_acc
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest, ties away from
+// zero; the 13 low bits of the result are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // One weight stage ring, shared by a cluster, and the turn order of the two
 // consumer warpgroups.  Stage i (counted over the whole launch) sits in slot
 // i % S; full[slot] completes when its bytes have landed, empty[slot] when
@@ -273,10 +333,29 @@ struct Ring {
   // bytes k0 .. k0 + 127 of `map`) into it in every block of the cluster
   __device__ __forceinline__ void produce(int8_t* stages, const CUtensorMap* map, int i, int k0,
                                           int row0, unsigned rank) {
-    constexpr int kRows = kTileN / CS;
     const int slot = i % S;
     mbar_wait(empty(slot), ((i / S) & 1) ^ 1);
     mbar_arrive_expect_tx(full(slot), kStageBytes);
+    copy_weight(stages, map, slot, k0, row0, rank);
+  }
+
+  // the same, with the block's own 64-frame activation tile of stage i
+  // (bytes k0 .. k0 + 127 of rows m0 .. m0 + 63 of `act_map`) landing in
+  // act_stages' slot beside it, on the same barrier (K2: the activations
+  // stream with the weight instead of sitting in shared memory whole)
+  __device__ __forceinline__ void produce(int8_t* stages, const CUtensorMap* map, int i, int k0,
+                                          int row0, unsigned rank, int8_t* act_stages,
+                                          const CUtensorMap* act_map, int m0) {
+    const int slot = i % S;
+    mbar_wait(empty(slot), ((i / S) & 1) ^ 1);
+    mbar_arrive_expect_tx(full(slot), kStageBytes + kActBlockBytes);
+    copy_weight(stages, map, slot, k0, row0, rank);
+    tma_load(act_stages + slot * kActBlockBytes, act_map, full(slot), k0, m0);
+  }
+
+  __device__ __forceinline__ void copy_weight(int8_t* stages, const CUtensorMap* map, int slot,
+                                              int k0, int row0, unsigned rank) {
+    constexpr int kRows = kTileN / CS;
     int8_t* dst = stages + slot * kStageBytes + rank * kRows * kStageK;
     if constexpr (CS == 1) {
       tma_load(dst, map, full(slot), k0, row0);
@@ -315,8 +394,10 @@ struct Ring {
 // Consumer warpgroup w's products for its n-th tile: d = A [64 x K] *
 // W[tile]^T over K / 128 stages, stage first_stage + t for the t-th 128
 // bytes of K.  Keeps one wgmma group in flight and releases each stage as
-// soon as the products that read it are done.
-template <int S, int CS>
+// soon as the products that read it are done.  A is `acts` whole ([64 x K]
+// as K / 128 swizzled blocks) or, STREAMED, the activation tile that came
+// with each stage (Ring::produce with act_stages = acts).
+template <int S, int CS, bool STREAMED = false>
 __device__ __forceinline__ void tile_products(int (&d)[64], Ring<S, CS>& ring,
                                               const int8_t* stages, const int8_t* acts, int K,
                                               int first_stage, int w, int n, int thread_in_wg) {
@@ -326,7 +407,8 @@ __device__ __forceinline__ void tile_products(int (&d)[64], Ring<S, CS>& ring,
   for (int t = 0; t < steps; ++t) {
     const int8_t* b = ring.wait_full(stages, first_stage + t);
     if (t == steps - 1 && thread_in_wg == 0) ring.pass_turn(w);
-    const int8_t* a = acts + t * kActBlockBytes;
+    const int8_t* a = STREAMED ? acts + (first_stage + t) % S * kActBlockBytes
+                               : acts + t * kActBlockBytes;
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < kStageK / 32; ++ks)
@@ -340,6 +422,31 @@ __device__ __forceinline__ void tile_products(int (&d)[64], Ring<S, CS>& ring,
   wgmma_wait<0>();
   fence_acc(d);
   ring.release(first_stage + steps - 1, thread_in_wg);
+}
+
+// One consumer warpgroup's tile of a quantized hidden layer's output: int8
+// columns [n0, n0 + 128) of the block's 64 rows of `out` (row stride ld),
+// from its accumulators: dequantize, then the quantized sigmoid through the
+// block's table (fill_sigmoid_table), bitwise equal to the call.
+__device__ __forceinline__ void layer_epilogue(const int (&d)[64], int8_t* out, int ld, int m0,
+                                               int n0, const int* cs, const float* bl, float inv,
+                                               const int8_t* table, int thread_in_wg) {
+  const int warp = thread_in_wg / 32, lane = thread_in_wg % 32;
+  const int col = n0 + 2 * (lane % 4);
+  int8_t* o = out + static_cast<size_t>(m0 + warp * 16 + lane / 4) * ld + col;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int n = col + 8 * q;
+    const int2 c = *reinterpret_cast<const int2*>(cs + n);
+    const float2 b = *reinterpret_cast<const float2*>(bl + n);
+    char2 top, bottom;  // rows r and r + 8
+    top.x = sigmoid_from_table(table, dequantize(d[4 * q], c.x, inv, b.x));
+    top.y = sigmoid_from_table(table, dequantize(d[4 * q + 1], c.y, inv, b.y));
+    bottom.x = sigmoid_from_table(table, dequantize(d[4 * q + 2], c.x, inv, b.x));
+    bottom.y = sigmoid_from_table(table, dequantize(d[4 * q + 3], c.y, inv, b.y));
+    *reinterpret_cast<char2*>(o + 8 * q) = top;
+    *reinterpret_cast<char2*>(o + 8 * static_cast<size_t>(ld) + 8 * q) = bottom;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -373,14 +480,17 @@ __host__ inline cudaError_t encode_tiled(EncodeTiled* fn) {
   return status;
 }
 
-// The tensor map of a row-major int8 [rows, cols] matrix at ptr, boxes of
-// 128 bytes x box_rows rows, 128-byte swizzle.  A map is a pure function of
-// (ptr, rows, cols, box_rows), so a cached one is always right: each weight
-// is encoded once, not at every launch.
-__host__ inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
-                                       uint64_t cols, uint32_t box_rows) {
+// The tensor map of a row-major [rows, cols] matrix of `type` (elements of
+// elem_bytes) at ptr, boxes of 128 bytes of a row x box_rows rows, 128-byte
+// swizzle; elements past the extents read as zero.  A map is a pure function
+// of its arguments, so a cached one is always right: each weight is encoded
+// once, not at every launch.
+__host__ inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                                       uint32_t elem_bytes, uint64_t rows, uint64_t cols,
+                                       uint32_t box_rows) {
   struct Entry {
     const void* ptr;
+    CUtensorMapDataType type;
     uint64_t rows, cols;
     uint32_t box_rows;
     CUtensorMap map;
@@ -389,7 +499,8 @@ __host__ inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, uint64
   static std::vector<Entry> cache;
   std::lock_guard<std::mutex> guard(lock);
   for (const Entry& e : cache) {
-    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+    if (e.ptr == ptr && e.type == type && e.rows == rows && e.cols == cols &&
+        e.box_rows == box_rows) {
       *map = e.map;
       return cudaSuccess;
     }
@@ -398,16 +509,23 @@ __host__ inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, uint64
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStageK), box_rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStageK / elem_bytes), box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
-             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   if (cache.size() >= 64) cache.clear();
-  cache.push_back(Entry{ptr, rows, cols, box_rows, *map});
+  cache.push_back(Entry{ptr, type, rows, cols, box_rows, *map});
   return cudaSuccess;
+}
+
+// the map of a row-major int8 [rows, cols] matrix (boxes of 128 bytes x
+// box_rows rows)
+__host__ inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, uint64_t rows,
+                                       uint64_t cols, uint32_t box_rows) {
+  return tensor_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, cols, box_rows);
 }
 
 // Launch `kernel` on `blocks` blocks of kThreads threads in clusters of

@@ -10,26 +10,30 @@ import dataclasses
 import torch
 
 from ..ops import kernels
-from ..ops.matmul import matmul_f32, normalize_stats
+from ..ops.matmul import normalize_stats
 from ..quant.quantize import QuantizedNet
 
 
 def prepare(net: QuantizedNet) -> QuantizedNet:
     """The net with its int8 weights in the kernels' layout (transposed,
     [out, in], K contiguous: ops.kernels.kernel_layout; a packed int4
-    layer [K/2, N] becomes [N, K/2]).  Done once, when a
-    Scorer loads the net; the layer steps below take weights so prepared.
-    The shape properties of the result (layer_dims, padded_output_dim)
-    no longer read as for the JAX layout."""
+    layer [K/2, N] becomes [N, K/2]) and its input weight also as the input
+    kernel's operand (ops.kernels.input_layer_operand; input_w stays as it
+    is).  Done once, when a Scorer loads the net; the layer steps below
+    take weights so prepared.  The shape properties of the result
+    (layer_dims, padded_output_dim) no longer read as for the JAX layout."""
     return dataclasses.replace(
-        net, weights=tuple(kernels.kernel_layout(w) for w in net.weights)
+        net,
+        weights=tuple(kernels.kernel_layout(w) for w in net.weights),
+        input_operand=kernels.input_layer_operand(net.input_w),
     )
 
 
-def input_layer_step(frames_f32: torch.Tensor, w_f32: torch.Tensor, b_f32: torch.Tensor):
-    """Float first layer (a library matmul, as XLA ran it for the JAX
-    package) -> K1 epilogue -> shifted int8."""
-    return kernels.bias_sigmoid_i8(matmul_f32(frames_f32, w_f32), b_f32)
+def input_layer_step(frames_f32: torch.Tensor, w_f32: torch.Tensor, b_f32: torch.Tensor,
+                     operand: torch.Tensor):
+    """Float first layer -> shifted int8, in one K9 launch; `operand` is the
+    prepared net's input_operand."""
+    return kernels.input_layer(frames_f32, w_f32, operand, b_f32)
 
 
 def hidden_layer_step(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32):

@@ -9,8 +9,8 @@ The counterpart of fastdnn_tpu/engine/scorer.py on one device:
   * `score_utterances(utts)`      many utterances in one pass
   * `LazyContext`                 frame-by-frame lazy scoring for decoders
 
-The pass has three stages: the float input layer (a library matmul, then the
-K1 quantized-sigmoid kernel), the hidden trunk (one K3 launch for batches of
+The pass has three stages: the float input layer (one K9 launch: the
+product and the quantized sigmoid), the hidden trunk (one K3 launch for batches of
 at most `stack_hidden_max_frames` when the layers are at most
 HIDDEN_STACK_MAX_H wide, else one K2 launch per layer; an int4 trunk packed
 under `config.int4_packed` runs one K7 launch per layer) and the output
@@ -83,14 +83,21 @@ def hidden_forward(
 ) -> torch.Tensor:
     """Input layer + all hidden layers -> shifted-int8 activations [B, H].
 
-    The input layer's product is `ops.matmul.matmul_f32`: float64 rounded
-    to f32, so the process-wide TF32 switches cannot lower its precision.
+    No process-wide TF32 switch reaches the input layer: its plain version
+    takes the product in float64 (`ops.matmul.matmul_f32`), its kernel (K9,
+    on a net made by cuda_backend.prepare) as three TF32 products per term
+    (3xTF32) in f32 sums.
     When `hstack` (see build_hidden_stack) is given and the frame count is
     within `stack_max_frames`, all hidden layers run as one launch.  A
     packed int4 trunk (net.packed_int4) runs the packed layer step.
     """
-    steps = xops if backend == "torch" else cuda_backend
-    acts = steps.input_layer_step(frames, net.input_w, net.input_b)
+    if backend == "torch":
+        steps = xops
+        acts = xops.input_layer_step(frames, net.input_w, net.input_b)
+    else:
+        steps = cuda_backend
+        acts = cuda_backend.input_layer_step(frames, net.input_w, net.input_b,
+                                             net.input_operand)
     if hstack is not None and frames.shape[0] <= stack_max_frames:
         return steps.hidden_stack_step(acts, hstack)
     layer_step = steps.hidden_layer_step_packed if net.packed_int4 else steps.hidden_layer_step

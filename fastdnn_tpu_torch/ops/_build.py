@@ -48,9 +48,11 @@ _SIGNATURES = {
     ),
     "fdn_hidden_layer": (
         ctypes.c_int,
-        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, _P],
+        [_P, _P, _P, _P, ctypes.c_float, _P, *[ctypes.c_int] * 5, _P],
     ),
+    "fdn_hidden_layer_smem_bytes": (ctypes.c_longlong, []),
+    "fdn_input_layer": (ctypes.c_int, [_P, _P, _P, _P, *[ctypes.c_int] * 4, _P]),
+    "fdn_input_layer_smem_bytes": (ctypes.c_longlong, []),
     "fdn_hidden_layer_packed": (
         ctypes.c_int,
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -14,7 +14,10 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
 [K, N].  A wrapper given CPU tensors transposes back for its plain version.
 
     K1 bias_sigmoid_i8                the quantized-sigmoid epilogue as its own kernel
+    K9 input_layer                    the float input layer: 3xTF32 product + K1's
+                                      epilogue, frames f32 in, s8 out
     K2 hidden_layer                   one int8 hidden layer with the fused epilogue
+                                      (wgmma loop, activations streamed: any K)
     K3 hidden_stack                   all equal-width hidden layers in one launch
                                       (wgmma loop; the mma.sync loop on request)
     K4 resident_softmax               int8 output layer + full row softmax, optionally
@@ -31,13 +34,16 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 
-K3 and K4 have two loops (`loop=`): "wgmma", Hopper's warp-specialised
-shape (csrc/hopper.cuh: TMA weight stages, wgmma products), and
-"mma_sync", the ldmatrix + mma.sync tile engine the other kernels share.
-Both compute the same function; the wrapper picks "wgmma" wherever it has
-the variant.  K3's wgmma loop runs blocks of 64 frames in clusters of
-wgmma_cluster(B) blocks that share weight stages by multicast; K4's runs
-clusters of 2 blocks that share 64 frames and split the output columns.
+K2, K3, K4 and K9 run Hopper's warp-specialised shape (csrc/hopper.cuh:
+TMA stages, wgmma products); K3 and K4 also keep their first loop
+(`loop="mma_sync"`, the ldmatrix + mma.sync tile engine the other kernels
+share), the same function, for timing in turns.  K2's and K3's wgmma loops
+run blocks of 64 frames in clusters of wgmma_cluster(B) blocks that share
+weight stages by multicast; K4's runs clusters of 2 blocks that share 64
+frames and split the output columns.  K9 takes 128 frames per block.
+
+K9 reads the input weight as `input_layer_operand(w)`: W transposed and
+split into two TF32 halves, made once (cuda_backend.prepare).
 """
 
 from __future__ import annotations
@@ -72,6 +78,9 @@ RESIDENT_SOFTMAX_MAX_K = 2048
 #: (fdn_hidden_stack_smem_bytes(2304) = 231,424 bytes; the wgmma loop: 5
 #: stages and the sigmoid table, 231,779 bytes); wider runs K2 per layer
 HIDDEN_STACK_MAX_H = 2304
+#: K9 reads frame and weight rows by TMA, whose rows start on 16-byte
+#: boundaries: the operand's K is padded to a multiple of 4 f32
+INPUT_K_MULTIPLE = 4
 #: K3's and K4's loops: the Hopper one and the shared mma.sync tile engine
 LOOPS = ("wgmma", "mma_sync")
 #: blocks per thread-block cluster of K3's wgmma loop: each weight stage
@@ -93,6 +102,10 @@ class Kernel:
 KERNELS = {
     "bias_sigmoid_i8": Kernel(
         "fastdnn_tpu_torch/csrc/bias_sigmoid.cu", "fastdnn_tpu/ops/pallas_kernels.py:50"
+    ),
+    "input_layer": Kernel(
+        "fastdnn_tpu_torch/csrc/input_layer.cu",
+        "fastdnn_tpu/ops/pallas_kernels.py:50, fastdnn_tpu/ops/matmul.py:39",
     ),
     "hidden_layer": Kernel(
         "fastdnn_tpu_torch/csrc/hidden_layer.cu", "fastdnn_tpu/ops/pallas_kernels.py:180"
@@ -144,6 +157,27 @@ def reset_launch_counts() -> None:
 def kernel_layout(w: torch.Tensor) -> torch.Tensor:
     """int8 weights [..., K, N] -> the kernels' layout [..., N, K], contiguous."""
     return w.transpose(-1, -2).contiguous()
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits, ties away
+    from zero), as f32 with its 13 low mantissa bits zero: what
+    `cvt.rna.tf32.f32` gives."""
+    bits = x.contiguous().view(torch.int32)
+    # adding half a TF32 step to the magnitude bits and cutting rounds half
+    # away from zero, carrying into the exponent where it must
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def input_layer_operand(w: torch.Tensor) -> torch.Tensor:
+    """K9's weight operand: f32 w [K, H] -> f32 [2, H, K4] with W_hi =
+    tf32_round(w) and W_lo = tf32_round(w - W_hi), each transposed (K
+    contiguous) and zero-padded to K4, K rounded up to INPUT_K_MULTIPLE."""
+    k = w.shape[0]
+    wt = w.t().to(torch.float32)
+    wt = torch.nn.functional.pad(wt, (0, -k % INPUT_K_MULTIPLE))
+    hi = tf32_round(wt)
+    return torch.stack([hi, tf32_round(wt - hi)])
 
 
 def _launch(name: str, device: torch.device, fn, *args) -> None:
@@ -204,10 +238,11 @@ def _check_loop(name: str, loop: str) -> None:
         raise ValueError(f"{name}: unknown loop {loop!r}; expected one of {LOOPS}")
 
 
-def _check_tma_weight(name: str, w_t: torch.Tensor) -> None:
-    """The wgmma loops read the weight by TMA, from a 16-byte boundary."""
+def _check_tma_weight(name: str, w_t: torch.Tensor, what: str = "the weight") -> None:
+    """The wgmma loops read the weight (K2: and the activations) by TMA,
+    from a 16-byte boundary."""
     if w_t.data_ptr() % 16:
-        raise ValueError(f"{name}: the weight must start on a 16-byte boundary")
+        raise ValueError(f"{name}: {what} must start on a 16-byte boundary")
 
 
 def bias_sigmoid_i8(lin: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -225,6 +260,38 @@ def bias_sigmoid_i8(lin: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def input_layer(frames, w, operand, bias) -> torch.Tensor:
+    """K9: quantized_sigmoid_shifted_i8(f32(frames @ w) + bias), f32 [B, K]
+    x f32 [K, H] -> shifted s8 [B, H], in one launch; the kernel reads the
+    weight as operand = input_layer_operand(w), [2, H, K4].  Frames whose K
+    is not a multiple of INPUT_K_MULTIPLE (or that start off a 16-byte
+    boundary) are copied, zero-padded, first.  Within 1 count, on at most
+    1e-4 of the entries, of its plain version, ops.matmul.input_layer_step
+    (the f64 product rounded once to f32)."""
+    if frames.device.type == "cpu":
+        return plain.input_layer_step(frames, w, bias)
+    b, k = frames.shape
+    h = w.shape[1]
+    k4 = k + -k % INPUT_K_MULTIPLE
+    device = _check(
+        "input_layer", (frames, w, operand, bias), (torch.float32,) * 4,
+        ((b, k), (k, h), (2, h, k4), (h,)),
+    )
+    _require_multiples("input_layer", H=(h, TILE_N))
+    _check_tma_weight("input_layer", operand, "the operand")
+    if k4 != k:
+        frames = torch.nn.functional.pad(frames, (0, k4 - k))
+    elif frames.data_ptr() % 16:
+        frames = frames.clone()
+    out = torch.empty((b, h), dtype=torch.int8, device=device)
+    if b:
+        lib = _build.load()
+        _require_smem("input_layer", device, lib.fdn_input_layer_smem_bytes())
+        _launch("input_layer", device, lib.fdn_input_layer,
+                frames.data_ptr(), operand.data_ptr(), bias.data_ptr(), out.data_ptr(), b, k4, h)
+    return out
+
+
 def hidden_layer(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
     """K2: one hidden layer, s8 [B, K] x s8 [K, N] -> shifted s8 [B, N];
     the weight given as w_t = kernel_layout(w), [N, K].  Plain version:
@@ -239,12 +306,15 @@ def hidden_layer(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
         ((b, k), (n, k), (n,), (n,)),
     )
     _require_multiples("hidden_layer", B=(b, HIDDEN_LAYER_FRAMES), K=(k, TILE_K), N=(n, TILE_N))
+    _check_tma_weight("hidden_layer", w_t)
+    _check_tma_weight("hidden_layer", acts, "the activations")
     out = torch.empty((b, n), dtype=torch.int8, device=device)
     if b:
         lib = _build.load()
+        _require_smem("hidden_layer", device, lib.fdn_hidden_layer_smem_bytes())
         _launch("hidden_layer", device, lib.fdn_hidden_layer,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
-                float(inv_scale), out.data_ptr(), b, k, n)
+                float(inv_scale), out.data_ptr(), b, k, n, wgmma_cluster(b))
     return out
 
 

@@ -63,6 +63,9 @@ class QuantizedNet:
     hidden_bits: 8, or 4 when the hidden layers (weights[:-1]) hold int4
         values in [-8, 7]; the output layer is int8 either way.
     packed_int4: the int4 hidden weights are stored two nibbles per byte.
+    input_operand: the input weight as the input-layer kernel reads it
+        (ops.kernels.input_layer_operand), set by engine.cuda_backend.prepare;
+        None otherwise.
     """
 
     input_w: torch.Tensor
@@ -75,6 +78,7 @@ class QuantizedNet:
     true_output_dim: Optional[int] = None
     hidden_bits: int = 8
     packed_int4: bool = False
+    input_operand: Optional[torch.Tensor] = None
 
     @property
     def input_dim(self) -> int:
@@ -115,6 +119,7 @@ class QuantizedNet:
             weights=mv(self.weights),
             colsum128=mv(self.colsum128),
             biases=mv(self.biases),
+            input_operand=None if self.input_operand is None else self.input_operand.to(device),
         )
 
 

@@ -20,6 +20,9 @@ from fastdnn_tpu_torch.ops import matmul as tops
 from fastdnn_tpu_torch.ops import sigmoid as tsig
 
 SOFTMAX_ATOL = 3e-5
+#: the input layer's count gate (ROADMAP C): s8 within 1, on at most 1e-4
+#: of the entries, of the f64 product rounded once to f32
+COUNT_FLIP_RATE = 1e-4
 
 
 def _layer(rng, b, k, n):
@@ -35,6 +38,45 @@ def _layer(rng, b, k, n):
 
 def _t(*arrays):
     return [torch.as_tensor(a) for a in arrays]
+
+
+def _input_layer(rng, b, k, h):
+    """Seeded frames f32 [b, k], a float input weight [k, h] scaled as
+    random_net scales it, and its bias, as numpy."""
+    frames = rng.standard_normal((b, k), dtype=np.float32)
+    w = (rng.standard_normal((k, h), dtype=np.float32) * np.float32(k ** -0.5)).astype(np.float32)
+    bias = (rng.standard_normal(h) * 0.1).astype(np.float32)
+    return frames, w, bias
+
+
+def _assert_counts_close(got, want):
+    """s8 counts within 1 of `want`, on at most COUNT_FLIP_RATE of the
+    entries."""
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    assert d.max() <= 1
+    assert (d > 0).mean() <= COUNT_FLIP_RATE, f"{(d > 0).sum()} of {d.size} counts differ"
+
+
+def _three_term_input_layer(frames, w, bias):
+    """A CPU model of K9's arithmetic (csrc/input_layer.cu), a test helper:
+    the frames split into TF32 halves, the weight as input_layer_operand
+    gives it, the three products a_lo W_hi + a_hi W_lo + a_hi W_hi of each
+    32-deep stage summed exactly and rounded once to f32, the stages added
+    into an f32 sum, then the bias and the quantized sigmoid."""
+    x = torch.as_tensor(frames)
+    operand = kernels.input_layer_operand(torch.as_tensor(w))
+    k4 = operand.shape[2]
+    x = torch.nn.functional.pad(x, (0, k4 - x.shape[1]))
+    x_hi = kernels.tf32_round(x)
+    x_lo = kernels.tf32_round(x - x_hi)
+    w_hi, w_lo = (t.t().double() for t in operand)
+    total = torch.zeros((x.shape[0], operand.shape[1]), dtype=torch.float32)
+    for k0 in range(0, k4, 32):
+        ks = slice(k0, k0 + 32)
+        part = (x_lo[:, ks].double() @ w_hi[ks] + x_hi[:, ks].double() @ w_lo[ks]
+                + x_hi[:, ks].double() @ w_hi[ks])
+        total = total + part.float()
+    return tsig.quantized_sigmoid_shifted_i8(total + torch.as_tensor(bias))
 
 
 class TestSigmoid:
@@ -75,8 +117,50 @@ class TestSigmoid:
         np.testing.assert_array_equal(ours, want)
 
 
+class TestInputLayer:
+    """K9's wrapper on CPU tensors (its plain version), its TF32 operand,
+    and a CPU model of its three-term product, against the JAX package's
+    jitted input layer."""
+
+    @pytest.mark.parametrize("k", [432, 429, 40])
+    @pytest.mark.parametrize("h", [128, 384])
+    def test_wrapper_on_cpu_matches_jax(self, k, h):
+        rng = np.random.default_rng(k + h)
+        frames, w, bias = _input_layer(rng, 2048, k, h)
+        want = np.asarray(jax.jit(jops.input_layer_step)(frames, w, bias))
+        w_t = torch.as_tensor(w)
+        operand = kernels.input_layer_operand(w_t)
+        assert operand.shape == (2, h, k + -k % kernels.INPUT_K_MULTIPLE)
+        got = kernels.input_layer(torch.as_tensor(frames), w_t, operand, torch.as_tensor(bias))
+        assert got.dtype == torch.int8 and got.shape == (2048, h)
+        _assert_counts_close(got.numpy(), want)
+
+    def test_tf32_operand(self):
+        rng = np.random.default_rng(12)
+        w = torch.as_tensor(rng.standard_normal((429, 256), dtype=np.float32) * 3)
+        operand = kernels.input_layer_operand(w)
+        assert operand.shape == (2, 256, 432) and operand.dtype == torch.float32
+        assert bool((operand[:, :, 429:] == 0).all())
+        for half in operand:
+            assert bool(((half.view(torch.int32) & 0x1FFF) == 0).all())
+        rebuilt = (operand[0] + operand[1])[:, :429].t().double()
+        rel = ((rebuilt - w.double()).abs() / w.double().abs().clamp(min=1e-30)).max()
+        assert float(rel) <= 2.0 ** -21
+        # ties round away from zero, as cvt.rna.tf32.f32 does
+        x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 3.0], dtype=torch.float32)
+        want = torch.tensor([1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 3.0], dtype=torch.float32)
+        assert torch.equal(kernels.tf32_round(x), want)
+
+    def test_three_term_model_matches_jax(self):
+        rng = np.random.default_rng(13)
+        frames, w, bias = _input_layer(rng, 2048, 432, 2048)
+        want = np.asarray(jax.jit(jops.input_layer_step)(frames, w, bias))
+        _assert_counts_close(_three_term_input_layer(frames, w, bias).numpy(), want)
+
+
 class TestHiddenLayer:
-    @pytest.mark.parametrize("b,k,n", [(256, 256, 256), (64, 384, 128)])
+    @pytest.mark.parametrize("b,k,n", [(256, 256, 256), (64, 384, 128), (128, 384, 640),
+                                       (64, 640, 256)])
     def test_matches_xla_and_pallas(self, b, k, n):
         rng = np.random.default_rng(b + k + n)
         x, w, colsum, inv, bias = _layer(rng, b, k, n)
@@ -176,7 +260,7 @@ class TestWrappers:
     def test_library_hash_covers_the_headers(self):
         names = {p.name for p in _build.CSRC.iterdir() if p.suffix == ".cuh"}
         assert {"common.cuh", "hopper.cuh"} <= names
-        for src in ("hidden_stack.cu", "resident_softmax.cu"):
+        for src in ("hidden_layer.cu", "hidden_stack.cu", "input_layer.cu", "resident_softmax.cu"):
             assert '#include "hopper.cuh"' in (_build.CSRC / src).read_text()
 
     def test_sources_note_what_they_replace(self):
@@ -237,9 +321,23 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
                                else a for a in _layer(rng, 256, 256, 256))
     lin = torch.as_tensor(rng.uniform(-7, 7, (256, 256)).astype(np.float32)).to(cuda_device)
     assert torch.equal(kernels.bias_sigmoid_i8(lin, bias), tops.bias_sigmoid_i8(lin, bias))
+    # K9: B = 320 (a ragged 128-frame block), K = 432 and 429 (padded), H = 384
+    for k_in in (432, 429):
+        frames, w_in, b_in = (torch.as_tensor(a).to(cuda_device)
+                              for a in _input_layer(rng, 320, k_in, 384))
+        got = kernels.input_layer(frames, w_in, kernels.input_layer_operand(w_in), b_in)
+        _assert_counts_close(got.cpu().numpy(), tops.input_layer_step(frames, w_in, b_in).cpu().numpy())
+    # K2: square and not, B = 64 and 192 (clusters of 1), 256 (clusters of 2)
     w_t = kernels.kernel_layout(w)
-    assert torch.equal(kernels.hidden_layer(x, w_t, colsum, float(inv), bias),
-                       tops.hidden_layer_step(x, w, colsum, float(inv), bias))
+    for args in ((x, w, colsum, inv, bias),
+                 tuple(torch.as_tensor(a).to(cuda_device) if isinstance(a, np.ndarray) else a
+                       for a in _layer(rng, 256, 384, 640))):
+        xl, wl, cl, il, bl = args
+        wl_t = kernels.kernel_layout(wl)
+        for b in (64, 192, 256):
+            want = tops.hidden_layer_step(xl[:b], wl, cl, float(il), bl)
+            assert torch.equal(kernels.hidden_layer(xl[:b], wl_t, cl, float(il), bl), want), (
+                tuple(wl.shape), b)
     # K3, both loops: B = 128 (a cluster of 2 blocks) and 192 (three blocks:
     # clusters of 1), L = 2, H = 256
     stack = (torch.stack([w, w]), torch.stack([colsum, colsum]),

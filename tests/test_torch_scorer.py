@@ -24,6 +24,8 @@ from fastdnn_tpu.cli import score as jcli
 from fastdnn_tpu.engine import scorer as jscorer
 from fastdnn_tpu.ops import matmul as jops
 from fastdnn_tpu_torch.cli import score as tcli
+from fastdnn_tpu_torch.engine import cuda_backend
+from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -124,6 +126,23 @@ def test_stack_and_per_layer_paths_agree(nets):
     stacked = fdt.Scorer(t_q, device="cpu").score(frames)
     per_layer = fdt.Scorer(t_q, fdt.EngineConfig(stack_hidden_max_frames=0), device="cpu")
     np.testing.assert_array_equal(per_layer.score(frames), stacked)
+
+
+def test_prepared_net_carries_the_input_operand(nets):
+    """cuda_backend.prepare adds the input kernel's TF32 operand and keeps
+    input_w; the CUDA backend's trunk, on CPU tensors (its wrappers' plain
+    versions), equals the plain backend's."""
+    _, t_q = nets
+    prepared = cuda_backend.prepare(fdt.pad_qnet(t_q))
+    assert t_q.input_operand is None
+    assert torch.equal(prepared.input_w, fdt.pad_qnet(t_q).input_w)
+    assert torch.equal(prepared.input_operand, kernels.input_layer_operand(prepared.input_w))
+    assert prepared.to("cpu").input_operand is not None
+    frames = torch.as_tensor(_frames(10, 128))
+    np.testing.assert_array_equal(
+        fdt.hidden_forward(prepared, frames, "cuda")[:, :256].numpy(),
+        fdt.hidden_forward(t_q, frames, "torch").numpy(),
+    )
 
 
 def test_score_device_and_edge_cases(nets):
@@ -240,5 +259,6 @@ def test_cuda_scorer_matches_plain_scorer_on_card(nets, cuda_device):
     scorer = fdt.Scorer(t_q, device=cuda_device)
     assert scorer.backend == "cuda"
     got = scorer.score(frames)
-    assert np.abs(got - want).max() <= SOFTMAX_ATOL
-    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    # from frames: the input kernel's counts may differ by 1, rarely
+    assert np.abs(got - want).max() <= POSTERIOR_ATOL
+    assert (got.argmax(1) == want.argmax(1)).mean() >= ARGMAX_AGREEMENT
