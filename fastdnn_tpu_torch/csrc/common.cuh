@@ -1,10 +1,8 @@
 // Device code shared by the port's Hopper kernels: the quantized-sigmoid
-// epilogue (K1), the dequantization step, and an int8 tensor-core tile engine that
-// K5 (output logits), K6 (block-sparse resident softmax), K8 (flash stats)
-// and the first loops of K3 (hidden stack) and K4 (resident softmax) run
-// their products through; K7 (packed int4 hidden layer) runs its own stage
-// loop on the same pieces.  Also the row-softmax epilogue pieces of K4, K6
-// and K8.
+// epilogue (K1), the dequantization step, an int8 tensor-core tile engine
+// (ldmatrix + mma.sync) that K5 (output logits) and K8 (flash stats) run
+// their products through, and K8's row-softmax epilogue pieces.  The wgmma
+// kernels (K2, K3, K4, K6, K7, K9) build on csrc/hopper.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false, never
 // --use_fast_math, one nvcc per source (fastdnn_tpu_torch/ops/_build.py).
@@ -112,10 +110,6 @@ constexpr int kLdc = kBN + 8;      // int32 C-tile row stride (padded)
 constexpr int kWStageBytes = kBK * kBN;
 static_assert(kWStageBytes % (16 * kThreads) == 0, "whole 16-byte W chunks per thread and stage");
 static_assert(kBN == kWarpsN * 32, "each warp owns 32 output columns");
-
-__device__ __forceinline__ int panel(int r, int k, int rows) {
-  return ((k >> 4) * rows + r) * 16 + (k & 15);
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -270,9 +264,10 @@ __device__ __forceinline__ void store_acc(Acc<BM>& acc, int* c_tile) {
 }
 
 // ---------------------------------------------------------------------------
-// Row-softmax epilogue pieces shared by K4, K6 (csrc/resident_softmax.cu) and
-// K8 (csrc/flash_stats.cu): one warp per row of a C tile, each lane holding
-// columns lane, lane + 32, ... of it, so logit stores coalesce.
+// Row-softmax epilogue pieces of K8 (csrc/flash_stats.cu), with the constants
+// K4 and K6 (csrc/resident_softmax.cu) share: one warp per row of a C tile,
+// each lane holding columns lane, lane + 32, ... of it, so logit stores
+// coalesce.
 // ---------------------------------------------------------------------------
 constexpr int kWarps = kThreads / 32;
 constexpr int kColsPerLane = kBN / 32;

@@ -32,7 +32,7 @@
 // cap: a column at or beyond `valid_count` (a runtime argument) is -1e30.  A
 // skipped tile (SKIP) issues no weight load and no product.  The TPU kernel
 // accounted for skipped tiles in the stats' initial value (m = 0, s = nskip
-// under reference); here, as in K6, each skipped tile folds in as it comes:
+// under reference); here each skipped tile folds in as it comes:
 // under reference its valid columns enter as logit 0 (m = max(m, 0), s gains
 // count * exp(-m)); under active_only it adds nothing.  Its stored z is the
 // fill (0 or -1e30), and -1e30 beyond `valid_count` under CAPPED_FILL (the

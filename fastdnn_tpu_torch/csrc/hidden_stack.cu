@@ -17,102 +17,24 @@
 // a block in practice is the rate the weight bytes reach its SM: every block
 // needs the whole 25 MB weight stack from L2 (it fits in the 50 MB L2).
 //
-// Two loops:
-//  * the wgmma loop, the main path, on csrc/hopper.cuh's warp-specialised
-//    shape.  A producer warp streams the weight stages by TMA through an
-//    mbarrier ring that never drains, running ahead across tiles and into
-//    the next layer's weights, which do not depend on the activations; only
-//    the consumers wait for the activation reload at a layer boundary.  Each
-//    stage is released with one block-scope arrival (a cluster-scope release
-//    per stage cost about 40% of the loop; PERF.md).
-//    hidden_stack_wgmma_kernel: blocks of 64 frames, in clusters of 2 (1 for
-//    an odd number of blocks) sharing each stage by multicast, so L2 serves
-//    each stage once per pair of SMs.  Its two consumer warpgroups take the
-//    tiles in turn, one's epilogue beside the other's products.  The
-//    quantized sigmoid goes through a per-block table of its 1283 distinct
-//    steps (common.cuh: sigmoid_from_table): with the accurate tanhf per
-//    value, the epilogue of a warpgroup's 8192 values outlasted the other
-//    warpgroup's products.
-//  * the mma.sync loop (hidden_stack_kernel): ldmatrix + mma.sync m16n8k32
-//    on common.cuh's tile engine, a cp.async ring refilled from empty for
-//    every tile and an epilogue between two __syncthreads; kept callable, off
-//    every path, so the two can be timed in turns on one card.
+// The loop, on csrc/hopper.cuh's warp-specialised shape.  A producer warp
+// streams the weight stages by TMA through an mbarrier ring that never
+// drains, running ahead across tiles and into the next layer's weights,
+// which do not depend on the activations; only the consumers wait for the
+// activation reload at a layer boundary.  Each stage is released with one
+// block-scope arrival (a cluster-scope release per stage cost about 40% of
+// the loop; PERF.md).  Blocks of 64 frames run in clusters of 2 (1 for an
+// odd number of blocks) sharing each stage by multicast, so L2 serves each
+// stage once per pair of SMs.  The two consumer warpgroups take the tiles in
+// turn, one's epilogue beside the other's products.  The quantized sigmoid
+// goes through a per-block table of its 1283 distinct steps (common.cuh:
+// sigmoid_from_table): with the accurate tanhf per value, the epilogue of a
+// warpgroup's 8192 values outlasted the other warpgroup's products.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-// one block per SM; three stages keep the widest H that fits at 2304
-constexpr int kStages = 3;
-
-__host__ __device__ constexpr size_t smem_bytes(int h) {
-  return static_cast<size_t>(BM) * h + kStages * fdn::kWStageBytes +
-         sizeof(int) * BM * fdn::kLdc;
-}
-
-// rows [m0, m0 + BM) of a row-major [*, H] int8 matrix -> the panelled tile
-__device__ __forceinline__ void load_rows(int8_t* tile, const int8_t* src, int m0, int H) {
-  const int chunks = H / 16;
-  for (int i = threadIdx.x; i < BM * chunks; i += fdn::kThreads) {
-    const int r = i / chunks, c = i % chunks;
-    *reinterpret_cast<int4*>(tile + (c * BM + r) * 16) =
-        *reinterpret_cast<const int4*>(src + static_cast<size_t>(m0 + r) * H + c * 16);
-  }
-}
-
-// `out` is written and read back by the same block: no __restrict__, so
-// its loads never take the read-only (non-coherent) path
-__global__ void __launch_bounds__(fdn::kThreads)
-    hidden_stack_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
-                        const int* __restrict__ colsum, const float* __restrict__ inv_scales,
-                        const float* __restrict__ bias, int8_t* out, int H, int L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* acts = reinterpret_cast<int8_t*>(smem);
-  int8_t* w_stage = acts + BM * H;
-  int* c_tile = reinterpret_cast<int*>(w_stage + kStages * fdn::kWStageBytes);
-
-  const int m0 = blockIdx.x * BM;
-  load_rows(acts, x, m0, H);
-  __syncthreads();
-
-  for (int l = 0; l < L; ++l) {
-    const int8_t* wl = wt + static_cast<size_t>(l) * H * H;
-    const int* cs = colsum + static_cast<size_t>(l) * H;
-    const float* bl = bias + static_cast<size_t>(l) * H;
-    const float inv = inv_scales[l];
-    for (int n0 = 0; n0 < H; n0 += fdn::kBN) {
-      fdn::Acc<BM> acc;
-      fdn::mma_tile<BM, true, kStages>(acc, nullptr, 0, 0, acts, wl, H, n0, H, nullptr, w_stage);
-      fdn::store_acc<BM>(acc, c_tile);
-      __syncthreads();
-      constexpr int kChunks = fdn::kBN / 16;
-      for (int i = threadIdx.x; i < BM * kChunks; i += fdn::kThreads) {
-        const int r = i / kChunks, c0 = (i % kChunks) * 16;
-        alignas(16) int8_t v[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int n = n0 + c0 + j;
-          v[j] = fdn::quantized_sigmoid_shifted(
-              fdn::dequantize(c_tile[r * fdn::kLdc + c0 + j], cs[n], inv, bl[n]));
-        }
-        *reinterpret_cast<int4*>(out + static_cast<size_t>(m0 + r) * H + n0 + c0) =
-            *reinterpret_cast<const int4*>(v);
-      }
-      __syncthreads();
-    }
-    // every product of layer l is done and its output is visible to the
-    // block (the __syncthreads above): reload it as layer l + 1's input
-    if (l + 1 < L) {
-      load_rows(acts, out, m0, H);
-      __syncthreads();
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the wgmma loop
-// ---------------------------------------------------------------------------
 namespace hp = fdn::hopper;
 
 // five stages keep the widest H that fits at 2304
@@ -209,27 +131,7 @@ int launch_wgmma(const void* x, const void* wt, const void* colsum, const void* 
 
 }  // namespace
 
-// Requires B % 64 == 0, H % 128 == 0 and fdn_hidden_stack_smem_bytes(H) within
-// the block limit (checked by the wrapper).  `out` must not alias `x`.
-extern "C" int fdn_hidden_stack(const void* x, const void* wt, const void* colsum,
-                                const void* inv_scales, const void* bias, void* out, int b, int h,
-                                int l, int device, void* stream) {
-  const size_t bytes = smem_bytes(h);
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = fdn::allow_smem(hidden_stack_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  hidden_stack_kernel<<<b / BM, fdn::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const int*>(colsum), static_cast<const float*>(inv_scales),
-      static_cast<const float*>(bias), static_cast<int8_t*>(out), h, l);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" long long fdn_hidden_stack_smem_bytes(int h) {
-  return static_cast<long long>(smem_bytes(h));
-}
-
-// The wgmma loop, in clusters of `cluster` (1 or 2) blocks along frames
+// K3 in clusters of `cluster` (1 or 2) blocks along frames
 // sharing weight stages by multicast.  Requires B % (64 * cluster) == 0,
 // H % 128 == 0, a 16-byte aligned wt and fdn_hidden_stack_wgmma_smem_bytes(H)
 // within the block limit (checked by the wrapper).  `out` must not alias `x`.

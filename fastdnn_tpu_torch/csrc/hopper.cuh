@@ -1,27 +1,31 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels, the
-// wgmma K2 (csrc/hidden_layer.cu), K3 (csrc/hidden_stack.cu), K4
-// (csrc/resident_softmax.cu) and K9 (csrc/input_layer.cu): mbarriers, TMA
-// tensor copies (multicast across a thread-block cluster), int8 wgmma from
-// shared-memory descriptors and TF32 wgmma with A from registers, register
-// reallocation, the quantized-sigmoid epilogue of a hidden layer's tile, and
-// the host side of a launch (tensor maps, cluster launches).
+// wgmma K2 (csrc/hidden_layer.cu), K3 (csrc/hidden_stack.cu), K4 and K6
+// (csrc/resident_softmax.cu), K7 (csrc/hidden_layer_packed.cu) and K9
+// (csrc/input_layer.cu): mbarriers, TMA tensor copies (multicast across a
+// thread-block cluster), int8 wgmma from shared-memory descriptors and TF32
+// wgmma with A from registers, register reallocation, the quantized-sigmoid
+// epilogue of a hidden layer's tile, and the host side of a launch (tensor
+// maps, cluster launches).
 //
-// Shape of the int8 kernels (K2, K3, K4).  A block is three warpgroups and
-// owns kFrames = 64 frames, whose int8 activations sit whole in shared memory
-// as the wgmma A operand (K2: a 64 x 128-byte tile of them comes with each
-// weight stage instead).  Warpgroup 2 is the producer: one
-// thread keeps a ring of kStageBytes weight stages (kTileN output columns x
-// kStageK of K) full with TMA copies, in the order the tiles are consumed,
-// across tiles and (K3) layers, never draining.  Warpgroups 0 and 1 are
-// consumers and take the output tiles in turn (ping-pong): while one runs a
-// tile's products the other runs the previous tile's epilogue.  K2's and
-// K3's blocks of a cluster (along frames) share each weight stage: every
-// block copies 1 / cluster of it and multicasts that part to all, so L2
-// serves each stage once per cluster; each SM still receives every byte of
-// it.  K4's blocks of a cluster share their frames instead and split the
-// tiles, each streaming its own (a ring of CS = 1).  K9 (f32 frames, TF32
-// products) keeps the three warpgroups and the barriers but runs a ring of
-// its own: both consumers read every stage, for 64 frames each.
+// Shape of the int8 kernels (K2, K3, K4, K6, K7).  A block is three
+// warpgroups and owns kFrames = 64 frames, whose int8 activations sit whole
+// in shared memory as the wgmma A operand (K2, K7: a 64 x 128-byte tile of
+// them comes with each weight stage instead).  Warpgroup 2 is the producer:
+// one thread keeps a ring of kStageBytes weight stages (kTileN output
+// columns x kStageK of K) full with TMA copies, in the order the tiles are
+// consumed, across tiles and (K3) layers, never draining.  Warpgroups 0 and
+// 1 are consumers and take the output tiles in turn (ping-pong): while one
+// runs a tile's products the other runs the previous tile's epilogue.  K2's,
+// K3's and K7's blocks of a cluster (along frames) share each weight stage:
+// every block copies 1 / cluster of it and multicasts that part to all, so
+// L2 serves each stage once per cluster; each SM still receives every byte
+// of it.  K4's blocks of a cluster share their frames instead and split the
+// tiles, each streaming its own (a ring of CS = 1); K6 streams only the
+// tiles its mask leaves active.  K7's stages are packed int4, which the
+// producer warpgroup's other three warps widen to s8 in shared memory before
+// the consumers read them.  K9 (f32 frames, TF32 products) keeps the three
+// warpgroups and the barriers but runs a ring of its own: both consumers
+// read every stage, for 64 frames each.
 //
 // Layout: both operands K-major in the 128-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1): a [rows x 128-byte] block

@@ -1,8 +1,9 @@
 // K4: output layer + full row softmax, s8[B, K] x s8[K, N] -> f32 or bf16
 // [B, out_dim], optionally masked (u8 [B, N], nonzero = active).
 // K6: the masked K4 skipping every all-inactive (64-frame x 128-senone) tile.
-// Both take the weight transposed, Wt s8[N, K] (ops/kernels.py:kernel_layout).
-// K4 runs the wgmma loop, K6 the mma.sync loop (both below).
+// Both take the weight transposed, Wt s8[N, K] (ops/kernels.py:kernel_layout),
+// and run one kernel, resident_softmax_wgmma_kernel, on csrc/hopper.cuh's
+// warp-specialised wgmma loop; K6 is its SPARSE variant.
 //
 // Replaces, as K4, fastdnn_tpu/ops/pallas_kernels.py:
 // output_layer_posteriors_resident -> _resident_softmax_kernel_factory
@@ -12,13 +13,14 @@
 // _resident_block_sparse_kernel_factory (:974-1100).
 //
 // On the TPU the whole K x N int8 weight (16.8 MB at 2048 x 8192) sat in VMEM
-// and each grid step saw complete logit rows.  No SM holds that, so here one
-// block owns BM = 64 frames (their activations stay in shared memory), walks
-// the N tiles 128 columns at a time, writes the logits of the columns below
-// out_dim to device memory and keeps a running (max, sum-exp) per row; padding
-// columns are capped at -1e30 as on the TPU (:346-348).  A second sweep of the
-// same block rescales its own rows to exp(z - m) / s.  Softmax is per row, so
-// no block needs another's result.
+// and each grid step saw complete logit rows.  No SM holds that, so here a
+// cluster of kSplit = 2 blocks owns 64 frames (their activations stay in each
+// block's shared memory) and each block walks half of the N tiles, 128
+// columns at a time: it writes the logits of the columns below out_dim to
+// device memory and keeps a running (max, sum-exp) per row; padding columns
+// are capped at -1e30 as on the TPU (:346-348).  The two blocks trade their
+// rows' stats through distributed shared memory, then a second sweep of each
+// block rescales its own columns to exp(z - m) / s.
 //
 // Masking happens before the logit is stored or joins the stats, as in the
 // TPU kernel (:340-345): under "reference" an inactive senone's logit is 0
@@ -26,63 +28,53 @@
 // it; under "active_only" it is -1e30 and adds nothing, and a row whose max
 // stayed at -1e30 (no active senone) is written as zeros (:352-354).
 //
-// The mask is read one tile ahead: before a tile's products, each lane loads
-// the 32 mask bytes of the next tile that its epilogue will need into
-// registers (load_mask), and turns them into one word of bits only when that
-// tile starts (mask_word).  K6's skip test is a __syncthreads_or over the
-// same bits, so each block reads its own mask tiles, instead of a
-// wrapper-side activity table as the TPU's scalar prefetch had
-// (:1062-1064).  A skipped
-// tile loads no weight and issues no MMA, but still counts: its valid columns
-// are stored and folded into the stats as the fill logit (0 under
-// "reference": the max becomes max(m, 0) and the sum gains count * exp(0 -
-// m); -1e30 under "active_only": nothing).  The skip granularity is this
-// kernel's 128-column tile, where the TPU's default was 512; the posteriors do
-// not depend on it.
+// Bound: the unmasked f32 K4 at B = 8192, K = 2048, N = 8064, out_dim =
+// 8000 is 271 G int8 ops, 0.137 ms; the bytes in and out 295 MB (0.088 ms);
+// the second sweep's extra round trip of the logits (the part the TPU kept
+// on chip) is 524 MB more.  The bf16 path cannot keep the logits in its
+// output, so its wrapper allocates an f32 scratch [B, out_dim] (written
+// once, read once) and the second sweep reads it and writes 2-byte
+// posteriors.  The mask adds one byte per (frame, padded column).
 //
-// Bound: 271 G int8 ops at B = 8192, K = 2048, N = 8064, but as for K2 the
-// measured bound is L2 traffic: each block re-reads the whole 16.5 MB weight.
-// The logits make one extra round trip through device memory (written, then
-// read and rewritten in the second sweep: 2 x 4 x B x out_dim bytes), the part
-// the TPU kept on chip.  The f32 path keeps them in the output itself; the
-// bf16 path cannot, so its wrapper allocates an f32 scratch [B, out_dim]
-// (262 MB at B = 8192, out_dim = 8000; written once, read once) and the second
-// sweep reads it and writes 2-byte posteriors.  The mask adds one byte per
-// (frame, padded column), read once (66 MB at B = 8192, N = 8064).  Read in
-// the epilogue, after the tile's products, it showed: K4 masked took 2.96 ms
-// against 2.29 unmasked, every tile waiting on it once more.  Read one tile
-// ahead it costs 2.54 ms (H100 80GB HBM3 at 700 W, one call).  Only the
-// masked instantiations carry the mask code (MASKED), so the unmasked main
-// path keeps its 80 registers and its time.  expf, not __expf.
+// The loop.  A producer thread streams the block's [N, K] weight tiles by
+// TMA (128-byte swizzle, 128 x 128-byte boxes) through an mbarrier ring that
+// never drains; each stage is released with one block-scope arrival (a
+// cluster-scope release per stage cost about 40% of the loop; PERF.md).  Two
+// consumer warpgroups take the block's tiles in turn: one dequantizes,
+// masks, stores the logits and folds them into its rows' running (max,
+// sum-exp), held in registers (a row's columns sit in 4 lanes of one warp),
+// while the other runs the next tile's products.  The mask bytes of a tile
+// are loaded at the start of its epilogue, all in flight at once, behind the
+// other warpgroup's products.  The two warpgroups' stats of a row merge by
+// the same online formula, then the two blocks' through distributed shared
+// memory, in rank order, so both get the same bits.  Splitting the columns
+// over two blocks that share 64 frames gives a batch below 132 x 64 frames
+// twice the SMs.  The second sweep rescales only the block's own columns,
+// on all 8 consumer warps with 16-byte accesses and 8 loads in flight per
+// thread; in K4 it is about a third of the kernel (PERF.md).  expf, not
+// __expf.
 //
-// Two loops:
-//  * the wgmma loop (resident_softmax_wgmma_kernel): K4 in every variant
-//    (unmasked, masked under both semantics, f32 or bf16), on
-//    csrc/hopper.cuh's warp-specialised shape.  Bound of the unmasked f32
-//    K4 at B = 8192, K = 2048, N = 8064, out_dim = 8000: 271 G int8 ops,
-//    0.137 ms; the bytes in and out 295 MB (0.088 ms); the second sweep's
-//    extra round trip of the logits is 524 MB more.  A cluster of 2 blocks
-//    owns 64 frames, and each block takes half of the column tiles: twice
-//    the blocks of one per 64 frames, so a batch below 132 x 64 frames
-//    keeps twice the SMs busy.  A producer warp streams the block's [N, K]
-//    weight tiles by TMA (128-byte swizzle, 128 x 128-byte boxes) through
-//    an mbarrier ring that never drains; each stage is released with one
-//    block-scope arrival (a cluster-scope release per stage cost about 40%
-//    of the loop; PERF.md).  Two consumer warpgroups take the block's tiles
-//    in turn: one dequantizes, masks, stores the logits and folds them into
-//    its rows' running (max, sum-exp), held in registers (a row's columns
-//    sit in 4 lanes of one warp), while the other runs the next tile's
-//    products.  The mask bytes of a tile are loaded at the start of its
-//    epilogue, all in flight at once, behind the other warpgroup's
-//    products.  The two warpgroups' stats of a row merge by the same online
-//    formula, then the two blocks' through distributed shared memory, in
-//    rank order, so both get the same bits.  The second sweep rescales only
-//    the block's own columns, on all 8 consumer warps with 16-byte accesses
-//    and 8 loads in flight per thread; it is still about a third of the
-//    kernel (PERF.md).
-//  * the mma.sync loop below (resident_softmax_kernel): K6's skipping
-//    variant, and every K4 variant kept callable off every path so the two
-//    loops can be timed in turns on one card.
+// K6 (SPARSE).  Before any product, the producer warpgroup reads the mask
+// bytes of the block's own tiles (64 rows x 128 columns each, 16 loads in
+// flight per thread, while the consumers load the frames) and keeps one bit
+// per tile in shared memory, then the compacted list of the active tiles:
+// the per-block part of the TPU's activity table (:1063-1064), which its
+// scalar prefetch held.  The producer streams weight stages for the listed
+// tiles only, the consumers take alternate entries of the list, and the
+// ring's stage indices (and so its barrier parities) count list entries, so
+// a skipped tile loads no stage, takes no ring slot and runs no wgmma.  Its
+// valid columns still count as the fill logit: under reference the block's
+// stats fold them in closed form, once (the max becomes max(m, 0), the sum
+// gains count * exp(0 - m)); under active_only they add nothing.  No logit
+// of a skipped tile is stored: the second sweep writes the fill's
+// posterior, exp(0 - m) / s or 0, one value per row, without reading.  On
+// clustered masks most tiles are skipped, so most of the sweep's round trip
+// through device memory goes with the products.  The skip granularity is
+// this kernel's 128-column tile, where the TPU's default was 512; the
+// posteriors do not depend on it.  Bound at B = 8192, K = 2048, N = 8064:
+// the bytes, frames 16.8 MB, weight 16.5 MB, masks 66 MB and posteriors
+// 262 MB (0.108 ms); the products of the active tiles are a fraction of
+// K4's 0.137 ms.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -91,150 +83,13 @@
 
 namespace {
 
-constexpr int BM = 64;
-// four stages: 16% faster than two (2.25-2.34 vs 2.75 ms at B = 8192,
-// K = 2048, H100 80GB HBM3 at 700 W); the widest K that fits beside the
-// 64-frame block is then 2048
-constexpr int kStages = 4;
-using fdn::kColsPerLane;
+namespace hp = fdn::hopper;
 using fdn::kEmptyRowMax;
 using fdn::kNegCap;
 using fdn::kReference;
-using fdn::kWarps;
-using fdn::warp_max;
-using fdn::warp_sum;
-constexpr int kRowsPerWarp = BM / kWarps;  // epilogue rows of one warp
-
-__host__ __device__ constexpr size_t smem_bytes(int k) {
-  return static_cast<size_t>(BM) * k + kStages * fdn::kWStageBytes +
-         sizeof(int) * BM * fdn::kLdc + 2 * sizeof(float) * BM;
-}
-
-__device__ __forceinline__ void store_p(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_p(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// MASKED: the mask (u8 [B, N]) is read, otherwise it is never touched.
-// `logits` holds the raw f32 logits between the two sweeps; for f32
-// posteriors it is `out` itself (so neither is __restrict__).
-template <bool SKIP, bool MASKED, typename OutT>
-__global__ void __launch_bounds__(fdn::kThreads)
-    resident_softmax_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
-                            const int* __restrict__ colsum, const float* __restrict__ bias,
-                            float inv_scale, const uint8_t* __restrict__ mask, int semantics,
-                            float* logits, OutT* out, int K, int N, int out_dim) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* a_res = reinterpret_cast<int8_t*>(smem);
-  int8_t* w_stage = a_res + BM * K;
-  int* c_tile = reinterpret_cast<int*>(w_stage + kStages * fdn::kWStageBytes);
-  float* row_m = reinterpret_cast<float*>(c_tile + BM * fdn::kLdc);
-  float* row_s = row_m + BM;
-
-  const int m0 = blockIdx.x * BM;
-  const int chunks = K / 16;
-  for (int i = threadIdx.x; i < BM * chunks; i += fdn::kThreads) {
-    const int r = i / chunks, c = i % chunks;
-    *reinterpret_cast<int4*>(a_res + (c * BM + r) * 16) =
-        *reinterpret_cast<const int4*>(x + static_cast<size_t>(m0 + r) * K + c * 16);
-  }
-  if (threadIdx.x < BM) {
-    row_m[threadIdx.x] = -INFINITY;
-    row_s[threadIdx.x] = 0.0f;
-  }
-  __syncthreads();
-
-  // the logit of an inactive senone
-  const float fill = semantics == kReference ? 0.0f : kNegCap;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint8_t raw[kRowsPerWarp][kColsPerLane] = {};
-  if constexpr (MASKED) fdn::load_mask(raw, mask, N, m0, 0, warp, lane);
-  for (int n0 = 0; n0 < N; n0 += fdn::kBN) {
-    uint32_t word = ~0u;
-    if constexpr (MASKED) {
-      word = fdn::mask_word(raw);
-      if (n0 + fdn::kBN < N) fdn::load_mask(raw, mask, N, m0, n0 + fdn::kBN, warp, lane);
-    }
-    bool active = true;
-    // the tile is skipped when no lane of any warp holds a set bit
-    if constexpr (SKIP) active = __syncthreads_or(word != 0) != 0;
-    if (active) {
-      fdn::Acc<BM> acc;
-      fdn::mma_tile<BM, true, kStages>(acc, nullptr, 0, 0, a_res, wt, K, n0, K, nullptr, w_stage);
-      fdn::store_acc<BM>(acc, c_tile);
-    }
-    __syncthreads();
-    // one warp per row: lane covers columns lane, lane + 32, ... of the tile,
-    // so the logit stores coalesce; each row's stats belong to one warp
-    for (int r = warp; r < BM; r += kWarps, word >>= kColsPerLane) {
-      const size_t row = static_cast<size_t>(m0 + r);
-      float z[kColsPerLane];
-      float tile_max = kNegCap;
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) {
-        const int n = n0 + lane + 32 * j;
-        float v = kNegCap;
-        if (n < out_dim) {
-          v = fill;
-          if (active && (!MASKED || (word >> j & 1u))) {
-            v = fdn::dequantize(c_tile[r * fdn::kLdc + lane + 32 * j], colsum[n], inv_scale,
-                                bias[n]);
-          }
-          logits[row * out_dim + n] = v;
-        }
-        z[j] = v;
-        tile_max = fmaxf(tile_max, v);
-      }
-      tile_max = warp_max(tile_max);
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, tile_max);
-      float e = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) e += expf(z[j] - m_new);
-      e = warp_sum(e);
-      __syncwarp();
-      if (lane == 0) {
-        row_s[r] = row_s[r] * expf(m_old - m_new) + e;
-        row_m[r] = m_new;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-
-  // second sweep: each lane rescales exactly the logits it wrote above
-  for (int r = warp; r < BM; r += kWarps) {
-    const float m = row_m[r];
-    const float s = row_s[r];
-    const bool empty = m <= kEmptyRowMax;
-    const size_t row = static_cast<size_t>(m0 + r) * out_dim;
-    for (int n = lane; n < out_dim; n += 32)
-      store_p(out + row + n, empty ? 0.0f : expf(logits[row + n] - m) / s);
-  }
-}
-
-template <bool SKIP, bool MASKED, typename OutT>
-int launch(const void* x, const void* wt, const void* colsum, const void* bias, float inv_scale,
-           const void* mask, int semantics, void* logits, void* out, int b, int k, int n,
-           int out_dim, int device, void* stream) {
-  const size_t bytes = smem_bytes(k);
-  auto kernel = resident_softmax_kernel<SKIP, MASKED, OutT>;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = fdn::allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<b / BM, fdn::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
-      static_cast<const uint8_t*>(mask), semantics, static_cast<float*>(logits),
-      static_cast<OutT*>(out), k, n, out_dim);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// the wgmma loop
-// ---------------------------------------------------------------------------
-namespace hp = fdn::hopper;
 
 // six stages keep the widest K that fits at 2048
-constexpr int kWgStages = 6;
+constexpr int kStages = 6;
 // blocks of a cluster, sharing 64 frames and splitting the column tiles:
 // 2 beat clusters of 2 blocks on 128 frames sharing stages by multicast, 4
 // lost at B = 8192 (PERF.md)
@@ -242,21 +97,44 @@ constexpr int kSplit = 2;
 // loads in flight per thread in the second sweep: 8 beat 4 by about 10%,
 // 16 gained nothing more (PERF.md)
 constexpr int kSweepInFlight = 8;
+// K6: the most column tiles one block of a cluster takes (N <= kSplit *
+// 128 * kMaxPartTiles), and the mask loads in flight per producer thread
+constexpr int kMaxPartTiles = 256;
+constexpr int kScanInFlight = 16;
+// named barriers beside hp::kConsumerBarrier: the producer warpgroup's own,
+// and the one on which it hands the list of active tiles to the consumers
+constexpr int kProducerBarrier = 2;
+constexpr int kListBarrier = 3;
 static_assert(hp::kConsumers == 2, "the row stats of two consumer warpgroups merge");
+static_assert(32 * kScanInFlight * 16 == hp::kFrames * hp::kTileN, "one warp reads a tile at once");
 
-__host__ __device__ constexpr size_t wgmma_smem_bytes(int k) {
-  return hp::kAlign + static_cast<size_t>(hp::kFrames) * k + kWgStages * hp::kStageBytes +
-         hp::Ring<kWgStages, 1>::kBytes + sizeof(float2) * hp::kConsumers * hp::kFrames;
+// K6's tile bookkeeping, in shared memory after the row stats
+struct SparseTiles {
+  uint32_t active[kMaxPartTiles / 32];  // bit g: the block's tile g has an active senone
+  uint8_t list[kMaxPartTiles];          // the active tiles, in order
+  int count;                            // entries of `list`
+  int skipped_cols;                     // valid columns (< out_dim) of the skipped tiles
+  float fill_p[hp::kFrames];            // each row's posterior of a skipped column
+};
+
+template <bool SPARSE>
+__host__ __device__ constexpr size_t smem_bytes(int k) {
+  return hp::kAlign + static_cast<size_t>(hp::kFrames) * k + kStages * hp::kStageBytes +
+         hp::Ring<kStages, 1>::kBytes + sizeof(float2) * hp::kConsumers * hp::kFrames +
+         (SPARSE ? sizeof(SparseTiles) : 0);
 }
+
+__device__ __forceinline__ void store_p(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_p(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // One consumer warpgroup's tile: logits of columns [n0, n0 + 128) of its
 // 64 rows (dequantized; -1e30 from out_dim on, never stored), stored to
 // `logits`, and folded into the running (max, sum-exp) of the thread's two
 // rows r and r + 8 (the 4 lanes of a quad hold a row's columns of the tile).
-// MASKED: the mask (u8 [B, N], nonzero = active) decides each logit as in
-// the mma.sync loop: an inactive senone's logit is `fill` (0 under
-// reference, -1e30 under active_only).  Its 32 bytes pairs are loaded first,
-// all in flight at once; the other warpgroup's products run meanwhile.
+// MASKED: the mask (u8 [B, N], nonzero = active) decides each logit: an
+// inactive senone's logit is `fill` (0 under reference, -1e30 under
+// active_only).  Its 32 bytes pairs are loaded first, all in flight at once;
+// the other warpgroup's products run meanwhile.
 template <bool MASKED>
 __device__ __forceinline__ void softmax_epilogue(const int (&d)[64], float* logits, int out_dim,
                                                  int m0, int n0, const int* colsum,
@@ -335,14 +213,24 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   q[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
+// K6: does the block's tile holding column c (its part starting at column
+// c0) have an active senone?
+__device__ __forceinline__ bool tile_active(const SparseTiles* sp, int c, int c0) {
+  const int g = (c - c0) / hp::kTileN;
+  return (sp->active[g / 32] >> (g % 32)) & 1u;
+}
+
 // The second sweep: columns [c0, c1) of the block's rows from logits to
 // exp(z - m) / s, by the consumer threads (f32 posteriors overwrite their
 // logits: `logits` is `out`).  16-byte accesses, kSweepInFlight loads in
 // flight per thread, when out_dim % 4 == 0 (c0 and c1 then are multiples
-// of 4); otherwise one warp per row, 4-byte accesses.
-template <typename OutT>
+// of 4); otherwise one warp per row, 4-byte accesses.  SPARSE: a column of a
+// skipped tile has no logit stored; it gets its row's fill posterior
+// (sp->fill_p) without a load.
+template <bool SPARSE, typename OutT>
 __device__ __forceinline__ void rescale_rows(const float* logits, OutT* out, int out_dim, int m0,
-                                             int c0, int c1, const float2* stats, int tid) {
+                                             int c0, int c1, const float2* stats,
+                                             const SparseTiles* sp, int tid) {
   if ((out_dim & 3) == 0) {
     // the part is [64 rows x per_row] float4s, walked in steps of the
     // consumer threads from (r, j) = (tid / per_row, tid % per_row)
@@ -352,11 +240,13 @@ __device__ __forceinline__ void rescale_rows(const float* logits, OutT* out, int
     while (r < hp::kFrames) {
       float4 v[kSweepInFlight];
       int rows[kSweepInFlight], cols[kSweepInFlight];
+      bool skipped[kSweepInFlight] = {};
 #pragma unroll
       for (int u = 0; u < kSweepInFlight; ++u) {
         rows[u] = r;
         cols[u] = c0 + 4 * j;
-        if (r < hp::kFrames)
+        if constexpr (SPARSE) skipped[u] = !tile_active(sp, cols[u], c0);
+        if (r < hp::kFrames && !skipped[u])
           v[u] = *reinterpret_cast<const float4*>(logits + static_cast<size_t>(m0 + r) * out_dim + cols[u]);
         j += hp::kConsumerThreads;
         while (j >= per_row) {
@@ -366,12 +256,17 @@ __device__ __forceinline__ void rescale_rows(const float* logits, OutT* out, int
       }
 #pragma unroll
       for (int u = 0; u < kSweepInFlight; ++u) {
-        if (rows[u] < hp::kFrames) {
+        if (rows[u] >= hp::kFrames) continue;
+        float4 p;
+        if (skipped[u]) {
+          const float f = sp->fill_p[rows[u]];
+          p = make_float4(f, f, f, f);
+        } else {
           const float2 ms = stats[rows[u]];
-          store4(out + static_cast<size_t>(m0 + rows[u]) * out_dim + cols[u],
-                 make_float4(posterior(v[u].x, ms), posterior(v[u].y, ms),
-                             posterior(v[u].z, ms), posterior(v[u].w, ms)));
+          p = make_float4(posterior(v[u].x, ms), posterior(v[u].y, ms), posterior(v[u].z, ms),
+                          posterior(v[u].w, ms));
         }
+        store4(out + static_cast<size_t>(m0 + rows[u]) * out_dim + cols[u], p);
       }
     }
   } else {
@@ -379,7 +274,15 @@ __device__ __forceinline__ void rescale_rows(const float* logits, OutT* out, int
     for (int r = warp; r < hp::kFrames; r += hp::kConsumerThreads / 32) {
       const float2 ms = stats[r];
       const size_t row = static_cast<size_t>(m0 + r) * out_dim;
-      for (int n = c0 + lane; n < c1; n += 32) store_p(out + row + n, posterior(logits[row + n], ms));
+      for (int n = c0 + lane; n < c1; n += 32) {
+        if constexpr (SPARSE) {
+          if (!tile_active(sp, n, c0)) {
+            store_p(out + row + n, sp->fill_p[r]);
+            continue;
+          }
+        }
+        store_p(out + row + n, posterior(logits[row + n], ms));
+      }
     }
   }
 }
@@ -402,6 +305,15 @@ __device__ __forceinline__ float2 load_cluster(const float2* p, unsigned cta) {
   return v;
 }
 
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
 // The column tiles of a launch split over the kSplit blocks of a cluster,
 // which share their 64 frames: block `rank` takes tiles [g0, g0 + tiles).
 struct ColumnPart {
@@ -413,29 +325,76 @@ struct ColumnPart {
   }
 };
 
+// K6, the producer warpgroup (thread pt of 128) before it streams: one bit
+// per tile of the block's part whose 64 x 128 mask bytes hold a nonzero
+// (warp w reads tiles w, w + 4, ..., 16 loads per lane in flight), then, by
+// its first warp, the compacted list and the skipped tiles' valid columns.
+__device__ __forceinline__ void find_active_tiles(SparseTiles* sp, const uint8_t* mask, int N,
+                                                  int m0, const ColumnPart& part, int out_dim,
+                                                  int pt) {
+  const int warp = pt / 32, lane = pt % 32;
+  if (pt < kMaxPartTiles / 32) sp->active[pt] = 0;
+  named_sync<kProducerBarrier, 128>();
+  for (int g = warp; g < part.tiles; g += 4) {
+    const uint8_t* tile = mask + static_cast<size_t>(m0) * N + (part.g0 + g) * hp::kTileN;
+    int4 v[kScanInFlight];
+#pragma unroll
+    for (int i = 0; i < kScanInFlight; ++i) {
+      const int c = lane + 32 * i;  // 16-byte chunk c: row c / 8, chunk c % 8 of the row
+      v[i] = *reinterpret_cast<const int4*>(tile + static_cast<size_t>(c / 8) * N + (c % 8) * 16);
+    }
+    int any = 0;
+#pragma unroll
+    for (int i = 0; i < kScanInFlight; ++i) any |= v[i].x | v[i].y | v[i].z | v[i].w;
+    if (__any_sync(0xffffffffu, any != 0) && lane == 0) atomicOr(&sp->active[g / 32], 1u << (g % 32));
+  }
+  named_sync<kProducerBarrier, 128>();
+  if (warp == 0) {
+    int count = 0, skipped = 0;
+    for (int base = 0; base < part.tiles; base += 32) {
+      const int g = base + lane;
+      const bool in = g < part.tiles;
+      const bool act = in && ((sp->active[g / 32] >> (g % 32)) & 1u);
+      const unsigned ballot = __ballot_sync(0xffffffffu, act);
+      if (act) sp->list[count + __popc(ballot & ((1u << lane) - 1))] = static_cast<uint8_t>(g);
+      count += __popc(ballot);
+      const int cols = in && !act ? min(max(out_dim - (part.g0 + g) * hp::kTileN, 0), hp::kTileN) : 0;
+      skipped += __reduce_add_sync(0xffffffffu, cols);
+    }
+    if (lane == 0) {
+      sp->count = count;
+      sp->skipped_cols = skipped;
+    }
+  }
+}
+
 // `logits` holds the raw f32 logits between the epilogue and the sweep;
 // for f32 posteriors it is `out` itself (so neither is __restrict__).
 // A cluster of kSplit blocks owns 64 frames; each block reads its own part
 // of the column tiles (no multicast), and the blocks trade their rows'
 // (max, sum-exp) through distributed shared memory before each rescales
-// its own columns.
-template <bool MASKED, typename OutT>
+// its own columns.  MASKED: the mask is read; SPARSE (K6, MASKED): tiles
+// with no active senone are skipped.
+template <bool MASKED, bool SPARSE, typename OutT>
 __global__ void __launch_bounds__(hp::kThreads, 1)
     resident_softmax_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
                                   const int8_t* __restrict__ x, const int* __restrict__ colsum,
                                   const float* __restrict__ bias, float inv_scale,
                                   const uint8_t* __restrict__ mask, int semantics, float* logits,
                                   OutT* out, int K, int N, int out_dim) {
+  static_assert(MASKED || !SPARSE, "K6 is the masked variant");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = hp::align_smem(smem_raw);
   int8_t* acts = reinterpret_cast<int8_t*>(smem);
   int8_t* stages = acts + hp::kFrames * K;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + kWgStages * hp::kStageBytes);
-  hp::Ring<kWgStages, 1> ring{bars};
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + kStages * hp::kStageBytes);
+  hp::Ring<kStages, 1> ring{bars};
   // (m, s) per row: [warpgroup][row]; the block's merge goes to [0][row],
   // the cluster's to [1][row]
   float2* stats = reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(bars) +
-                                            hp::Ring<kWgStages, 1>::kBytes);
+                                            hp::Ring<kStages, 1>::kBytes);
+  SparseTiles* sp =  // K6 only: nothing of it stays live in K4
+      SPARSE ? reinterpret_cast<SparseTiles*>(stats + hp::kConsumers * hp::kFrames) : nullptr;
 
   const int wg = threadIdx.x / 128;
   const unsigned rank = hp::cluster_rank();
@@ -446,29 +405,44 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
   hp::cluster_sync();
 
   if (wg == hp::kConsumers) {
+    if constexpr (SPARSE) {
+      find_active_tiles(sp, mask, N, m0, part, out_dim, threadIdx.x % 128);
+      __syncwarp();
+      named_arrive<kListBarrier, hp::kThreads>();
+    }
     hp::reg_dealloc<hp::kProducerRegs>();
     if (threadIdx.x % 128 == 0) {
-      for (int g = 0; g < part.tiles; ++g)
+      // stage e * steps + t: the t-th 128 bytes of K of the e-th tile taken
+      const int count = SPARSE ? sp->count : part.tiles;
+      for (int e = 0; e < count; ++e) {
+        const int g = SPARSE ? sp->list[e] : e;
         for (int t = 0; t < steps; ++t)
-          ring.produce(stages, &w_map, g * steps + t, t * hp::kStageK, (part.g0 + g) * hp::kTileN, 0);
+          ring.produce(stages, &w_map, e * steps + t, t * hp::kStageK, (part.g0 + g) * hp::kTileN, 0);
+      }
     }
     hp::cluster_sync();  // the consumers' exchange
     hp::cluster_sync();
   } else {
-    hp::reg_alloc<hp::kConsumerRegs>();
     const int tid = threadIdx.x;
     const int tw = tid % 128;
     const float fill = semantics == kReference ? 0.0f : kNegCap;  // an inactive senone's logit
-    hp::load_frames(acts, x, m0, K, tid, hp::kConsumerThreads);
+    // K6: the frames load while the producer warpgroup finds the active
+    // tiles, before the register grant, which waits for its release
+    if constexpr (SPARSE) hp::load_frames(acts, x, m0, K, tid, hp::kConsumerThreads);
+    hp::reg_alloc<hp::kConsumerRegs>();
+    if constexpr (!SPARSE) hp::load_frames(acts, x, m0, K, tid, hp::kConsumerThreads);
     hp::fence_proxy_async();
+    if constexpr (SPARSE) named_sync<kListBarrier, hp::kThreads>();
     hp::consumer_sync();
+    const int count = SPARSE ? sp->count : part.tiles;
     int d[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[i] = 0;
     float m[2] = {-INFINITY, -INFINITY};
     float s[2] = {0.0f, 0.0f};
-    for (int g = wg, n = 0; g < part.tiles; g += hp::kConsumers, ++n) {
-      hp::tile_products(d, ring, stages, acts, K, g * steps, wg, n, tw);
+    for (int e = wg, n = 0; e < count; e += hp::kConsumers, ++n) {
+      const int g = SPARSE ? sp->list[e] : e;
+      hp::tile_products(d, ring, stages, acts, K, e * steps, wg, n, tw);
       softmax_epilogue<MASKED>(d, logits, out_dim, m0, (part.g0 + g) * hp::kTileN, colsum, bias,
                                inv_scale, mask, N, fill, tw, m, s);
     }
@@ -479,31 +453,46 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
     }
     __threadfence_block();  // the logits, for the sweep's other threads
     hp::consumer_sync();
-    if (tid < hp::kFrames) stats[tid] = merge_stats(stats[tid], stats[hp::kFrames + tid]);
+    if (tid < hp::kFrames) {
+      float2 block = merge_stats(stats[tid], stats[hp::kFrames + tid]);
+      // K6 under reference: the skipped tiles' valid columns, logit 0 each
+      if constexpr (SPARSE) {
+        if (semantics == kReference && sp->skipped_cols > 0)
+          block = merge_stats(block, make_float2(0.0f, static_cast<float>(sp->skipped_cols)));
+      }
+      stats[tid] = block;
+    }
     hp::cluster_sync();  // every block's [0][row] is merged
     if (tid < hp::kFrames) {  // in rank order, so every block gets the same bits
       float2 all = make_float2(-INFINITY, 0.0f);
 #pragma unroll
       for (int p = 0; p < kSplit; ++p) all = merge_stats(all, load_cluster(stats + tid, p));
       stats[hp::kFrames + tid] = all;
+      if constexpr (SPARSE) sp->fill_p[tid] = posterior(fill, all);
     }
     hp::consumer_sync();
-    rescale_rows(logits, out, out_dim, m0, min(part.g0 * hp::kTileN, out_dim),
-                 min((part.g0 + part.tiles) * hp::kTileN, out_dim), stats + hp::kFrames, tid);
+    rescale_rows<SPARSE>(logits, out, out_dim, m0, min(part.g0 * hp::kTileN, out_dim),
+                         min((part.g0 + part.tiles) * hp::kTileN, out_dim), stats + hp::kFrames,
+                         sp, tid);
     hp::cluster_sync();  // no block leaves while another reads its stats
   }
 }
 
-template <bool MASKED, typename OutT>
-int launch_wgmma_variant(const CUtensorMap& map, const void* x, const void* colsum,
-                         const void* bias, float inv_scale, const void* mask, int semantics,
-                         void* logits, void* out, int b, int k, int n, int out_dim, void* stream) {
-  return static_cast<int>(hp::launch_clustered(
-      resident_softmax_wgmma_kernel<MASKED, OutT>, kSplit * b / hp::kFrames, kSplit,
-      wgmma_smem_bytes(k), stream, map, static_cast<const int8_t*>(x),
-      static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
-      static_cast<const uint8_t*>(mask), semantics, static_cast<float*>(logits),
-      static_cast<OutT*>(out), k, n, out_dim));
+template <bool MASKED, bool SPARSE, typename OutT>
+int launch(const void* x, const void* wt, const void* colsum, const void* bias, float inv_scale,
+           const void* mask, int semantics, void* logits, void* out, int b, int k, int n,
+           int out_dim, int device, void* stream) {
+  CUtensorMap map;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = hp::weight_map(&map, wt, n, k, hp::kTileN);
+  if (err == cudaSuccess)
+    err = hp::launch_clustered(
+        resident_softmax_wgmma_kernel<MASKED, SPARSE, OutT>, kSplit * b / hp::kFrames, kSplit,
+        smem_bytes<SPARSE>(k), stream, map, static_cast<const int8_t*>(x),
+        static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
+        static_cast<const uint8_t*>(mask), semantics, static_cast<float*>(logits),
+        static_cast<OutT*>(out), k, n, out_dim);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -513,72 +502,51 @@ int launch_wgmma_variant(const CUtensorMap& map, const void* x, const void* cols
 // (the logits live in out); fast != 0: out is bf16 [B, out_dim] and `logits`
 // an f32 [B, out_dim] scratch.  Requires B % 64 == 0, K % 128 == 0,
 // N % 128 == 0, 0 < out_dim <= N, 16-byte aligned x, wt and mask, and
-// fdn_resident_softmax_smem_bytes(K) within the block limit (checked by the
-// wrapper).
-extern "C" int fdn_resident_softmax(const void* x, const void* wt, const void* colsum,
-                                    const void* bias, float inv_scale, const void* mask,
-                                    int semantics, void* logits, void* out, int fast, int b, int k,
-                                    int n, int out_dim, int device, void* stream) {
+// fdn_resident_softmax_wgmma_smem_bytes(K) within the block limit (checked
+// by the wrapper).
+extern "C" int fdn_resident_softmax_wgmma(const void* x, const void* wt, const void* colsum,
+                                          const void* bias, float inv_scale, const void* mask,
+                                          int semantics, void* logits, void* out, int fast, int b,
+                                          int k, int n, int out_dim, int device, void* stream) {
   if (fast && mask)
-    return launch<false, true, __nv_bfloat16>(x, wt, colsum, bias, inv_scale, mask, semantics,
+    return launch<true, false, __nv_bfloat16>(x, wt, colsum, bias, inv_scale, mask, semantics,
                                               logits, out, b, k, n, out_dim, device, stream);
   if (fast)
     return launch<false, false, __nv_bfloat16>(x, wt, colsum, bias, inv_scale, mask, semantics,
                                                logits, out, b, k, n, out_dim, device, stream);
   if (mask)
-    return launch<false, true, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out,
+    return launch<true, false, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out,
                                       b, k, n, out_dim, device, stream);
   return launch<false, false, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b,
                                      k, n, out_dim, device, stream);
 }
 
-// K6: masked (mask u8 [B, N], required), f32 out [B, out_dim]; the same
-// requirements as K4.
+extern "C" long long fdn_resident_softmax_wgmma_smem_bytes(int k) {
+  return static_cast<long long>(smem_bytes<false>(k));
+}
+
+// K6: masked (mask u8 [B, N], required), f32 out [B, out_dim]; the
+// requirements of K4, with fdn_resident_softmax_block_sparse_smem_bytes(K)
+// for the shared memory, and N <= 65,536 (kSplit * 128 * kMaxPartTiles).
 extern "C" int fdn_resident_softmax_block_sparse(const void* x, const void* wt,
                                                  const void* colsum, const void* bias,
                                                  float inv_scale, const void* mask, int semantics,
                                                  void* out, int b, int k, int n, int out_dim,
                                                  int device, void* stream) {
-  return launch<true, true, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b,
-                                   k, n, out_dim, device, stream);
+  if (mask == nullptr || n > kSplit * hp::kTileN * kMaxPartTiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true, true, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b, k,
+                                   n, out_dim, device, stream);
 }
 
-extern "C" long long fdn_resident_softmax_smem_bytes(int k) {
-  return static_cast<long long>(smem_bytes(k));
+extern "C" long long fdn_resident_softmax_block_sparse_smem_bytes(int k) {
+  return static_cast<long long>(smem_bytes<true>(k));
 }
 
-// K4's wgmma loop: the arguments of fdn_resident_softmax, and the same
-// requirements (B % 64 == 0) with fdn_resident_softmax_wgmma_smem_bytes(K)
-// for the shared memory.
-extern "C" int fdn_resident_softmax_wgmma(const void* x, const void* wt, const void* colsum,
-                                          const void* bias, float inv_scale, const void* mask,
-                                          int semantics, void* logits, void* out, int fast, int b,
-                                          int k, int n, int out_dim, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  CUtensorMap map;
-  if (err == cudaSuccess) err = hp::weight_map(&map, wt, n, k, hp::kTileN);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (fast && mask)
-    return launch_wgmma_variant<true, __nv_bfloat16>(
-        map, x, colsum, bias, inv_scale, mask, semantics, logits, out, b, k, n, out_dim, stream);
-  if (fast)
-    return launch_wgmma_variant<false, __nv_bfloat16>(
-        map, x, colsum, bias, inv_scale, mask, semantics, logits, out, b, k, n, out_dim, stream);
-  if (mask)
-    return launch_wgmma_variant<true, float>(
-        map, x, colsum, bias, inv_scale, mask, semantics, out, out, b, k, n, out_dim, stream);
-  return launch_wgmma_variant<false, float>(
-      map, x, colsum, bias, inv_scale, mask, semantics, out, out, b, k, n, out_dim, stream);
-}
-
-extern "C" long long fdn_resident_softmax_wgmma_smem_bytes(int k) {
-  return static_cast<long long>(wgmma_smem_bytes(k));
-}
-
-// Clusters of the wgmma loop (kSplit blocks each) at input width k that the
-// card seats at once (-1 if it cannot tell).
+// Clusters of kSplit blocks of K4 at input width k that the card seats at
+// once (-1 if it cannot tell).
 extern "C" int fdn_resident_softmax_wgmma_max_clusters(int k, int device) {
   if (cudaSetDevice(device) != cudaSuccess) return -1;
-  return hp::max_active_clusters(resident_softmax_wgmma_kernel<false, float>, kSplit,
-                                 wgmma_smem_bytes(k));
+  return hp::max_active_clusters(resident_softmax_wgmma_kernel<false, false, float>, kSplit,
+                                 smem_bytes<false>(k));
 }

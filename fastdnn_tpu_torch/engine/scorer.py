@@ -134,7 +134,9 @@ def uses_resident_output(net: QuantizedNet, *, block_sparse: bool = False) -> bo
     TPU's: K4 never holds the weight, it keeps a 64-frame block of
     activations (64 K bytes) in shared memory beside its weight ring, so N
     does not enter and the limit is K <= ops.kernels.RESIDENT_SOFTMAX_MAX_K.
-    K6 holds the same, so `block_sparse` does not change the answer."""
+    K6 is the same kernel with a list of its active tiles beside the ring,
+    which fits at that K too, so `block_sparse` does not change the
+    answer."""
     return _output_input_width(net) <= kernels.RESIDENT_SOFTMAX_MAX_K
 
 

@@ -55,31 +55,21 @@ _SIGNATURES = {
     "fdn_input_layer_smem_bytes": (ctypes.c_longlong, []),
     "fdn_hidden_layer_packed": (
         ctypes.c_int,
-        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, _P],
+        [_P, _P, _P, _P, ctypes.c_float, _P, *[ctypes.c_int] * 5, _P],
     ),
-    "fdn_hidden_stack": (
-        ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    ),
-    "fdn_hidden_stack_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_hidden_layer_packed_smem_bytes": (ctypes.c_longlong, []),
     "fdn_hidden_stack_wgmma": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, *[ctypes.c_int] * 5, _P],
     ),
     "fdn_hidden_stack_wgmma_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "fdn_hidden_stack_wgmma_max_clusters": (ctypes.c_int, [ctypes.c_int] * 3),
-    "fdn_resident_softmax": (
-        ctypes.c_int,
-        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    ),
     "fdn_resident_softmax_block_sparse": (
         ctypes.c_int,
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     ),
-    "fdn_resident_softmax_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_resident_softmax_block_sparse_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "fdn_resident_softmax_wgmma": (
         ctypes.c_int,
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, *[ctypes.c_int] * 6, _P],

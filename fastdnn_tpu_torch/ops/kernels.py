@@ -17,30 +17,28 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
     K9 input_layer                    the float input layer: 3xTF32 product + K1's
                                       epilogue, frames f32 in, s8 out
     K2 hidden_layer                   one int8 hidden layer with the fused epilogue
-                                      (wgmma loop, activations streamed: any K)
+                                      (activations streamed: any K)
     K3 hidden_stack                   all equal-width hidden layers in one launch
-                                      (wgmma loop; the mma.sync loop on request)
     K4 resident_softmax               int8 output layer + full row softmax, optionally
                                       masked (both lazy semantics) and bf16
-                                      (wgmma loop; the mma.sync loop on request)
     K5 output_logits                  int8 output layer -> f32 logits, no softmax
     K6 resident_softmax_block_sparse  K4 masked, skipping all-inactive
                                       (64-frame x 128-senone) tiles
     K7 hidden_layer_packed            K2 for an int4 layer stored two nibbles
-                                      per byte (quant.quantize.pack_int4_trunk)
+                                      per byte (quant.quantize.pack_int4_trunk),
+                                      widened in shared memory
     K8 flash_stats                    int8 output layer -> logits + softmax row
                                       stats (max, sum-exp), masked or not, any K
        flash_stats_block_sparse       K8 skipping all-inactive tiles
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 
-K2, K3, K4 and K9 run Hopper's warp-specialised shape (csrc/hopper.cuh:
-TMA stages, wgmma products); K3 and K4 also keep their first loop
-(`loop="mma_sync"`, the ldmatrix + mma.sync tile engine the other kernels
-share), the same function, for timing in turns.  K2's and K3's wgmma loops
-run blocks of 64 frames in clusters of wgmma_cluster(B) blocks that share
-weight stages by multicast; K4's runs clusters of 2 blocks that share 64
-frames and split the output columns.  K9 takes 128 frames per block.
+K2, K3, K4, K6, K7 and K9 run Hopper's warp-specialised shape
+(csrc/hopper.cuh: TMA stages, wgmma products); K5 and K8 run the ldmatrix +
+mma.sync tile engine of csrc/common.cuh.  K2, K3 and K7 run blocks of 64
+frames in clusters of wgmma_cluster(B) blocks that share weight stages by
+multicast; K4 and K6 run clusters of 2 blocks that share 64 frames and
+split the output columns.  K9 takes 128 frames per block.
 
 K9 reads the input weight as `input_layer_operand(w)`: W transposed and
 split into two TF32 halves, made once (cuda_backend.prepare).
@@ -69,21 +67,19 @@ TILE_N = 128
 #: Hopper's opt-in shared-memory limit per block, where torch does not say
 HOPPER_BLOCK_SMEM = 232448
 #: the widest output-layer input K4 and K6 take: their 64-frame activation
-#: block (64 K bytes) sits in shared memory beside a 4-stage weight ring
-#: (fdn_resident_softmax_smem_bytes(2048) = 231,936 bytes, one 128-deep
-#: step more exceeds HOPPER_BLOCK_SMEM; K4's wgmma loop: 6 stages,
-#: 231,536 bytes); wider goes to K8
+#: block (64 K bytes) sits in shared memory beside a 6-stage weight ring
+#: (fdn_resident_softmax_wgmma_smem_bytes(2048) = 231,536 bytes, K6 552
+#: bytes more for its tile list; one 128-deep step more exceeds
+#: HOPPER_BLOCK_SMEM); wider goes to K8
 RESIDENT_SOFTMAX_MAX_K = 2048
-#: the widest hidden layer K3 takes, for the same reason with 3 stages
-#: (fdn_hidden_stack_smem_bytes(2304) = 231,424 bytes; the wgmma loop: 5
-#: stages and the sigmoid table, 231,779 bytes); wider runs K2 per layer
+#: the widest hidden layer K3 takes, for the same reason with 5 stages and
+#: the sigmoid table (fdn_hidden_stack_wgmma_smem_bytes(2304) = 231,779
+#: bytes); wider runs K2 per layer
 HIDDEN_STACK_MAX_H = 2304
 #: K9 reads frame and weight rows by TMA, whose rows start on 16-byte
 #: boundaries: the operand's K is padded to a multiple of 4 f32
 INPUT_K_MULTIPLE = 4
-#: K3's and K4's loops: the Hopper one and the shared mma.sync tile engine
-LOOPS = ("wgmma", "mma_sync")
-#: blocks per thread-block cluster of K3's wgmma loop: each weight stage
+#: blocks per thread-block cluster of K2, K3 and K7: each weight stage
 #: leaves L2 once per cluster and is multicast to its blocks.  On the H100
 #: clusters of 2 beat 1, and clusters of 4 lost to both (PERF.md)
 WGMMA_CLUSTER = 2
@@ -233,14 +229,9 @@ def wgmma_cluster(frames: int) -> int:
     return WGMMA_CLUSTER if (frames // HIDDEN_STACK_FRAMES) % WGMMA_CLUSTER == 0 else 1
 
 
-def _check_loop(name: str, loop: str) -> None:
-    if loop not in LOOPS:
-        raise ValueError(f"{name}: unknown loop {loop!r}; expected one of {LOOPS}")
-
-
 def _check_tma_weight(name: str, w_t: torch.Tensor, what: str = "the weight") -> None:
-    """The wgmma loops read the weight (K2: and the activations) by TMA,
-    from a 16-byte boundary."""
+    """The wgmma kernels read the weight (K2, K7: and the activations) by
+    TMA, from a 16-byte boundary."""
     if w_t.data_ptr() % 16:
         raise ValueError(f"{name}: {what} must start on a 16-byte boundary")
 
@@ -335,21 +326,23 @@ def hidden_layer_packed(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tens
     )
     _require_multiples("hidden_layer_packed", B=(b, HIDDEN_LAYER_FRAMES), K=(k, TILE_K),
                        N=(n, TILE_N))
+    _check_tma_weight("hidden_layer_packed", w_t)
+    _check_tma_weight("hidden_layer_packed", acts, "the activations")
     out = torch.empty((b, n), dtype=torch.int8, device=device)
     if b:
         lib = _build.load()
+        _require_smem("hidden_layer_packed", device, lib.fdn_hidden_layer_packed_smem_bytes())
         _launch("hidden_layer_packed", device, lib.fdn_hidden_layer_packed,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
-                float(inv_scale), out.data_ptr(), b, k, n)
+                float(inv_scale), out.data_ptr(), b, k, n, wgmma_cluster(b))
     return out
 
 
-def hidden_stack(acts, w_t, colsum, inv_scales, bias, *, loop: str = "wgmma") -> torch.Tensor:
+def hidden_stack(acts, w_t, colsum, inv_scales, bias) -> torch.Tensor:
     """K3: L square hidden layers in one launch, s8 [B, H] -> s8 [B, H].
     w_t s8 [L, H, H] (each layer in kernel_layout), colsum i32 [L, H],
-    inv_scales f32 [L], bias f32 [L, H].  `loop` "wgmma" or "mma_sync".
-    Plain version: ops.matmul.hidden_stack_step."""
-    _check_loop("hidden_stack", loop)
+    inv_scales f32 [L], bias f32 [L, H].  Plain version:
+    ops.matmul.hidden_stack_step."""
     if acts.device.type == "cpu":
         return plain.hidden_stack_step(acts, (w_t.transpose(1, 2), colsum, inv_scales, bias))
     b, h = acts.shape
@@ -360,18 +353,14 @@ def hidden_stack(acts, w_t, colsum, inv_scales, bias, *, loop: str = "wgmma") ->
         ((b, h), (layers, h, h), (layers, h), (layers,), (layers, h)),
     )
     _require_multiples("hidden_stack", B=(b, HIDDEN_STACK_FRAMES), H=(h, TILE_N))
+    _check_tma_weight("hidden_stack", w_t)
     out = torch.empty((b, h), dtype=torch.int8, device=device)
     if b:
         lib = _build.load()
-        args = (acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), inv_scales.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), b, h, layers)
-        if loop == "wgmma":
-            _check_tma_weight("hidden_stack", w_t)
-            _require_smem("hidden_stack", device, lib.fdn_hidden_stack_wgmma_smem_bytes(h))
-            _launch("hidden_stack", device, lib.fdn_hidden_stack_wgmma, *args, wgmma_cluster(b))
-        else:
-            _require_smem("hidden_stack", device, lib.fdn_hidden_stack_smem_bytes(h))
-            _launch("hidden_stack", device, lib.fdn_hidden_stack, *args)
+        _require_smem("hidden_stack", device, lib.fdn_hidden_stack_wgmma_smem_bytes(h))
+        _launch("hidden_stack", device, lib.fdn_hidden_stack_wgmma,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), inv_scales.data_ptr(),
+                bias.data_ptr(), out.data_ptr(), b, h, layers, wgmma_cluster(b))
     return out
 
 
@@ -406,14 +395,12 @@ def _resident_args(name, acts, w_t, colsum, bias, masks, out_dim, semantics):
 
 
 def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, out_dim: int,
-                     semantics: str = "reference", fast: bool = False,
-                     loop: str = "wgmma") -> torch.Tensor:
+                     semantics: str = "reference", fast: bool = False) -> torch.Tensor:
     """K4: output layer + row softmax over the first `out_dim` columns,
     s8 [B, K] x s8 [K, N] -> [B, out_dim], f32 or (fast) bf16; the weight
     given as w_t = kernel_layout(w), [N, K].  masks: None or u8 [B, N],
-    softmax under `semantics` ("reference" or "active_only").  `loop`
-    "wgmma" or "mma_sync".  Plain version: ops.matmul.output_posteriors."""
-    _check_loop("resident_softmax", loop)
+    softmax under `semantics` ("reference" or "active_only").  Plain
+    version: ops.matmul.output_posteriors."""
     if acts.device.type == "cpu":
         return plain.output_posteriors(acts, w_t.t(), colsum, inv_scale, bias, masks,
                                        out_dim=out_dim, semantics=semantics, fast=fast)
@@ -424,37 +411,34 @@ def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, o
                       device=device)
     # bf16 posteriors cannot hold the logits between the kernel's two sweeps
     logits = torch.empty((b, out_dim), dtype=torch.float32, device=device) if fast else out
+    _check_tma_weight("resident_softmax", w_t)
     if b:
         lib = _build.load()
-        args = (acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+        _require_smem("resident_softmax", device, lib.fdn_resident_softmax_wgmma_smem_bytes(k))
+        _launch("resident_softmax", device, lib.fdn_resident_softmax_wgmma,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), None if masks is None else masks.data_ptr(), code,
                 logits.data_ptr(), out.data_ptr(), int(fast), b, k, w_t.shape[0], out_dim)
-        if loop == "wgmma":
-            _check_tma_weight("resident_softmax", w_t)
-            _require_smem("resident_softmax", device, lib.fdn_resident_softmax_wgmma_smem_bytes(k))
-            _launch("resident_softmax", device, lib.fdn_resident_softmax_wgmma, *args)
-        else:
-            _require_smem("resident_softmax", device, lib.fdn_resident_softmax_smem_bytes(k))
-            _launch("resident_softmax", device, lib.fdn_resident_softmax, *args)
     return out
 
 
 def resident_softmax_block_sparse(acts, w_t, colsum, inv_scale: float, bias, masks, *,
                                   out_dim: int, semantics: str = "reference") -> torch.Tensor:
     """K6: K4 masked, skipping the weight loads and products of every
-    (64-frame x 128-column) tile whose mask is all zero -> f32 [B, out_dim].
-    Plain version: ops.matmul.output_posteriors_block_sparse."""
+    (64-frame x 128-column) tile whose mask is all zero -> f32 [B, out_dim];
+    N at most 65,536.  Plain version: ops.matmul.output_posteriors_block_sparse."""
     if acts.device.type == "cpu":
         return plain.output_posteriors_block_sparse(acts, w_t.t(), colsum, inv_scale, bias, masks,
                                                     out_dim=out_dim, semantics=semantics)
     device, code = _resident_args("resident_softmax_block_sparse", acts, w_t, colsum, bias, masks,
                                   out_dim, semantics)
     b, k = acts.shape
+    _check_tma_weight("resident_softmax_block_sparse", w_t)
     out = torch.empty((b, out_dim), dtype=torch.float32, device=device)
     if b:
         lib = _build.load()
         _require_smem("resident_softmax_block_sparse", device,
-                      lib.fdn_resident_softmax_smem_bytes(k))
+                      lib.fdn_resident_softmax_block_sparse_smem_bytes(k))
         _launch("resident_softmax_block_sparse", device, lib.fdn_resident_softmax_block_sparse,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), masks.data_ptr(), code, out.data_ptr(), b, k, w_t.shape[0],
@@ -465,9 +449,8 @@ def resident_softmax_block_sparse(acts, w_t, colsum, inv_scale: float, bias, mas
 def block_skip_share(masks: torch.Tensor) -> float:
     """Share of K6's (64-frame x 128-column) tiles that `masks` [B, N]
     leaves all-inactive, i.e. the tiles K6 skips."""
-    b, n = masks.shape
-    tiles = masks.reshape(b // RESIDENT_SOFTMAX_FRAMES, RESIDENT_SOFTMAX_FRAMES, n // TILE_N, TILE_N)
-    return float((tiles != 0).any(dim=3).any(dim=1).logical_not().float().mean())
+    active = plain.block_activity(masks, RESIDENT_SOFTMAX_FRAMES, TILE_N)
+    return float(active.logical_not().float().mean())
 
 
 def output_logits(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:

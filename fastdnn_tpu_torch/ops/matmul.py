@@ -196,6 +196,14 @@ def output_posteriors_block_sparse(
     )
 
 
+def block_activity(masks, frames: int, cols: int):
+    """Which (frames x cols) tiles of masks [B, N] hold an active senone ->
+    bool [B / frames, N / cols]: the tiles a block-sparse kernel computes
+    (the rest it skips)."""
+    b, n = masks.shape
+    return (masks != 0).reshape(b // frames, frames, n // cols, cols).any(dim=3).any(dim=1)
+
+
 # -- the stats output layer (flash_stats kernel) -----------------------------
 
 #: a logit kept out of the softmax (padding, beyond the valid count, inactive

@@ -148,6 +148,28 @@ class TestPackedLayerStep:
         np.testing.assert_array_equal(got, pallas)
         np.testing.assert_array_equal(got, unpacked)
 
+    @pytest.mark.parametrize("k,n", [(384, 384), (128, 128), (128, 256)])
+    def test_wrapper_at_narrow_k_matches_pallas_packed(self, k, n):
+        """K7's edge widths: K/2 = 192 and 64 are not multiples of the
+        kernel's 128-byte packed stage.  The wrapper on CPU tensors against
+        the Pallas packed kernel in interpret mode, and against K2's plain
+        version on the same int4 values held unpacked."""
+        rng = np.random.default_rng(k + n)
+        w = rng.integers(-8, 8, (k, n), dtype=np.int8)
+        packed = ((w[: k // 2] & 0xF) | (w[k // 2:] << 4)).astype(np.int8)
+        colsum = 128 * w.astype(np.int32).sum(axis=0, dtype=np.int32)
+        inv = np.float32(1.0 / (rng.integers(5, 20) * 255.0))
+        bias = (rng.standard_normal(n) * 0.5).astype(np.float32)
+        acts = _acts(k * n, 128, k)
+        want = np.asarray(jpk.fused_hidden_layer(acts, packed, colsum, inv, bias, packed=True,
+                                                 interpret=True))
+        t = [torch.as_tensor(a) for a in (acts, packed, colsum, bias, w)]
+        got = kernels.hidden_layer_packed(t[0], kernels.kernel_layout(t[1]), t[2], float(inv), t[3])
+        unpacked = kernels.hidden_layer(t[0], kernels.kernel_layout(t[4]), t[2], float(inv), t[3])
+        assert got.shape == (128, n) and got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), unpacked.numpy())
+
     def test_kernel_wrapper_on_cpu_takes_the_kernel_layout(self, q4):
         t_q, _ = q4
         t_p = fdt.pack_int4_trunk(t_q)

@@ -256,6 +256,73 @@ class TestBlockSparse:
             assert (got == 0).all()
         assert kernels.block_skip_share(torch.as_tensor(masks)) == 1.0
 
+    @pytest.mark.parametrize("semantics", SEMANTICS)
+    def test_fully_masked_frame_block(self, semantics):
+        """K6's 64-frame block with every tile skipped: it runs no product,
+        and its rows come out uniform (reference) or zero (active_only)."""
+        rng = np.random.default_rng(17)
+        args = _layer(rng, 192, 128, 512, 500)
+        masks = (rng.random((192, 512)) < 0.3).astype(np.uint8)
+        masks[64:128] = 0
+        want = np.asarray(pk.output_layer_posteriors_resident_block_sparse(
+            *args, jnp.asarray(masks), out_dim=500, semantics=semantics,
+            block_frames=64, block_nodes=128, interpret=True,
+        ))
+        got = kernels.resident_softmax_block_sparse(
+            *_wrapper_args(*args), torch.as_tensor(masks), out_dim=500, semantics=semantics
+        ).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=SOFTMAX_ATOL)
+        np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+        if semantics == "reference":
+            np.testing.assert_allclose(got[64:128], 1 / 500.0, rtol=1e-6)
+        else:
+            assert (got[64:128] == 0).all()
+        active = tops.block_activity(torch.as_tensor(masks), 64, 128)
+        assert not active[1].any() and active[0].all() and active[2].all()
+
+    @pytest.mark.parametrize("semantics", SEMANTICS)
+    def test_out_dim_ends_inside_a_skipped_tile(self, semantics):
+        """out_dim = 450 ends inside the last 128-column tile; with that
+        tile's mask all zero K6 skips it, and only its 66 valid columns join
+        the softmax as the fill logit, never its 62 padding columns."""
+        rng = np.random.default_rng(18)
+        args = _layer(rng, 128, 256, 512, 450)
+        masks = self._band_masks(rng, out=380)
+        masks[:, 384:] = 0
+        assert not tops.block_activity(torch.as_tensor(masks), 64, 128)[:, 3].any()
+        got, want = self._run(args, masks, 450, semantics)
+        np.testing.assert_allclose(got, want, rtol=0, atol=SOFTMAX_ATOL)
+        np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+        dense = tops.output_posteriors(*(torch.as_tensor(a) for a in args[:3]), float(args[3]),
+                                       torch.as_tensor(args[4]), torch.as_tensor(masks),
+                                       out_dim=450, semantics=semantics).numpy()
+        np.testing.assert_allclose(got, dense, rtol=0, atol=SOFTMAX_ATOL)
+        if semantics == "active_only":
+            assert (got[:, 384:] == 0).all()
+        else:  # one fill posterior per row, exp(0 - m) / s
+            assert (got[:, 384:] > 0).all()
+            np.testing.assert_array_equal(got[:, 384:], np.repeat(got[:, 384:385], 66, axis=1))
+
+    @pytest.mark.parametrize("kind", ["bands", "random", "empty", "full"])
+    def test_block_activity_matches_the_pallas_definition(self, kind):
+        """The activity of each (64-frame x 128-column) tile, as K6 finds it
+        in its block, against the table the Pallas block-sparse kernel takes
+        (`act`, pallas_kernels.py:1063-1064), transposed to [frames, nodes]."""
+        rng = np.random.default_rng(19)
+        b, n = 256, 1024
+        masks = {
+            "bands": self._band_masks(rng, b=b, n=n, out=1000),
+            "random": (rng.random((b, n)) < 0.002).astype(np.uint8),
+            "empty": np.zeros((b, n), np.uint8),
+            "full": np.ones((b, n), np.uint8),
+        }[kind]
+        got = tops.block_activity(torch.as_tensor(masks), 64, 128).numpy()
+        ni, nj = b // 64, n // 128
+        want = np.asarray((jnp.asarray(masks) != 0).reshape(ni, 64, nj, 128).any(axis=(1, 3)))
+        assert got.shape == (ni, nj) and got.dtype == np.bool_
+        np.testing.assert_array_equal(got, want)
+        assert kernels.block_skip_share(torch.as_tensor(masks)) == pytest.approx(1 - want.mean())
+
 
 class TestGathered:
     @pytest.mark.parametrize("semantics", SEMANTICS)

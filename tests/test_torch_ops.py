@@ -271,8 +271,8 @@ class TestWrappers:
 
 
 class TestLoops:
-    """The Python side of K3's and K4's two loops: loop names, the weight's
-    alignment, and the cluster size a K3 launch gets."""
+    """The Python side of the wgmma kernels' launches: the weight's
+    alignment, and the cluster size a K2, K3 or K7 launch gets."""
 
     @pytest.mark.parametrize("frames,want", [
         (8192, 2), (8320, 2), (128, 2), (256, 2), (384, 2), (64, 1), (192, 1), (320, 1),
@@ -292,19 +292,6 @@ class TestLoops:
         kernels._check_tma_weight("k", w[16:])
         with pytest.raises(ValueError, match="16-byte boundary"):
             kernels._check_tma_weight("k", w[1:])
-        with pytest.raises(ValueError, match="unknown loop"):
-            kernels._check_loop("k", "tiles")
-
-    def test_loop_arguments_on_cpu(self):
-        rng = np.random.default_rng(11)
-        x, w, colsum, inv, bias = _layer(rng, 64, 128, 128)
-        args = (torch.as_tensor(x), kernels.kernel_layout(torch.as_tensor(w)),
-                torch.as_tensor(colsum), float(inv), torch.as_tensor(bias))
-        with pytest.raises(ValueError, match="unknown loop"):
-            kernels.resident_softmax(*args, out_dim=100, loop="tiles")
-        stack = (args[1][None], args[2][None], torch.tensor([inv]), args[4][None])
-        with pytest.raises(ValueError, match="unknown loop"):
-            kernels.hidden_stack(args[0], *stack, loop="tiles")
 
 
 @pytest.fixture()
@@ -338,36 +325,32 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
             want = tops.hidden_layer_step(xl[:b], wl, cl, float(il), bl)
             assert torch.equal(kernels.hidden_layer(xl[:b], wl_t, cl, float(il), bl), want), (
                 tuple(wl.shape), b)
-    # K3, both loops: B = 128 (a cluster of 2 blocks) and 192 (three blocks:
-    # clusters of 1), L = 2, H = 256
+    # K3: B = 128 (a cluster of 2 blocks) and 192 (three blocks: clusters
+    # of 1), L = 2, H = 256
     stack = (torch.stack([w, w]), torch.stack([colsum, colsum]),
              torch.tensor([inv, inv], device=cuda_device), torch.stack([bias, bias]))
     w_stack = kernels.kernel_layout(stack[0])
     for b in (128, 192):
         want = tops.hidden_stack_step(x[:b], stack)
-        for loop in kernels.LOOPS:
-            got = kernels.hidden_stack(x[:b], w_stack, *stack[1:], loop=loop)
-            assert torch.equal(got, want), (b, loop)
-    # K4: K = 256, N = 384, out_dim 200; on both loops unmasked, masked
-    # (both semantics) and bf16
+        assert torch.equal(kernels.hidden_stack(x[:b], w_stack, *stack[1:]), want), b
+    # K4: K = 256, N = 384, out_dim 200; unmasked, masked (both semantics)
+    # and bf16; K6 on the same masks
     xo, wo, co, io, bo = (torch.as_tensor(a).to(cuda_device) if isinstance(a, np.ndarray)
                           else a for a in _layer(rng, 192, 256, 384))
     wo_t = kernels.kernel_layout(wo)
     masks = torch.as_tensor((rng.random((192, 384)) < 0.4).astype(np.uint8)).to(cuda_device)
+    masks[64:128] = 0  # a frame block with no active tile
     for b in (128, 192):
         want = tops.output_posteriors(xo[:b], wo, co, float(io), bo, out_dim=200)
-        for loop in kernels.LOOPS:
-            got = kernels.resident_softmax(xo[:b], wo_t, co, float(io), bo, out_dim=200, loop=loop)
-            assert float((got - want).abs().max()) <= SOFTMAX_ATOL, (b, loop)
+        got = kernels.resident_softmax(xo[:b], wo_t, co, float(io), bo, out_dim=200)
+        assert float((got - want).abs().max()) <= SOFTMAX_ATOL, b
         for semantics in ("reference", "active_only"):
             want_m = tops.output_posteriors(xo[:b], wo, co, float(io), bo, masks[:b], out_dim=200,
                                             semantics=semantics)
-            for loop in kernels.LOOPS:
-                got = kernels.resident_softmax(xo[:b], wo_t, co, float(io), bo, masks[:b],
-                                               out_dim=200, semantics=semantics, loop=loop)
-                assert float((got - want_m).abs().max()) <= SOFTMAX_ATOL, (b, semantics, loop)
-        for loop in kernels.LOOPS:
-            got = kernels.resident_softmax(xo[:b], wo_t, co, float(io), bo, out_dim=200, fast=True,
-                                           loop=loop)
-            assert got.dtype == torch.bfloat16
-            assert torch.allclose(got.float(), want, rtol=2e-2, atol=1e-3), (b, loop)
+            for fn in (kernels.resident_softmax, kernels.resident_softmax_block_sparse):
+                got = fn(xo[:b], wo_t, co, float(io), bo, masks[:b], out_dim=200,
+                         semantics=semantics)
+                assert float((got - want_m).abs().max()) <= SOFTMAX_ATOL, (b, semantics, fn)
+        got = kernels.resident_softmax(xo[:b], wo_t, co, float(io), bo, out_dim=200, fast=True)
+        assert got.dtype == torch.bfloat16
+        assert torch.allclose(got.float(), want, rtol=2e-2, atol=1e-3), b
