@@ -11,17 +11,19 @@ both semantics and in the block-sparse and gathered modes, and a beam decode
 through `LazyContext`), the same net with an int4 hidden trunk (unpacked,
 and packed two nibbles per byte through the packed-layer kernel), and the
 command-line chain from a Kaldi text model through `convert model`,
-`convert quantize --hidden-bits 4` and `score`, the stats output kernel at
-the flagship shapes, a 432 -> 2x3072 -> 8000 net too wide for the resident
-softmax and the stack kernels (scored through the stats kernel), and the
+`convert quantize --hidden-bits 4` and `score`, the stats output kernel
+(K8) and its normalize at the flagship shapes, a 432 -> 2x3072 -> 8000 net
+too wide for the resident softmax and the stack kernels (scored through K8
+and the normalize kernel, traced to show no other device work), and the
 tensor-parallel `Scorer(mesh=...)` on the flagship net with two ranks on the
 one card (gloo); shows through the launch counters that each run went
 through the kernels it should, and times kernels and paths beside their
 plain versions: the input kernel (K9) against the f64 product + K1 route it
 replaced, K3 against six K2 launches, the block-sparse softmax (K6) against
 the dense masked one (K4) and the skipping stats kernel (K8), the packed
-int4 layer (K7) against K2, all in turns, with each kernel's bound and, as a
-yardstick, the
+int4 layer (K7) against K2, all in turns, the logits kernel (K5) at the
+LazyContext's 64 frames and at 8192, single, queued and under the profiler,
+with each kernel's bound and, as a yardstick, the
 product alone at its shape (`torch._int_mm`; for K9 the f64 and the f32
 `torch.matmul`), which the port never calls.  Any failed check raises and
 the script exits non-zero.
@@ -52,6 +54,8 @@ FRAMES_PER_AUDIO_SECOND = 100  # 10 ms frame shift
 TIMED_REPS = 12
 LAZY_DENSITY = 0.4  # the JAX bench's lazy mix: 40% of the senones active
 BF16_RTOL, BF16_ATOL = 2e-2, 1e-3
+# the normalize kernel against its plain version on the same f32 stats
+NORMALIZE_RTOL, NORMALIZE_ATOL = 1e-6, 1e-12
 DECODE_FRAMES = 60
 CLI_HIDDEN, CLI_DEPTH, CLI_SENONES = 256, 3, 1000  # the text net, before --extend
 CLI_FRAMES = 1000
@@ -132,6 +136,27 @@ def back_to_back_ms(torch, fn, calls: int = 20) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / calls
+
+
+def profile_device(torch, fn, calls: int = 10):
+    """`fn` called `calls` times under torch.profiler (CUPTI), after one
+    warm-up call -> (host window in ms per call, [(kernel name, device ms
+    per call)]); the list is empty when the profiler recorded no device
+    time.  Launch counts come from the wrappers' counters, not from here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3 / calls
+    device = [(e.key, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return window_ms, device
 
 
 def in_turns(torch, fns: dict, timer=time_ms) -> dict:
@@ -550,33 +575,20 @@ def main() -> int:
     # where score_device's device time goes, and how much of a window of
     # back-to-back calls the device is busy (torch.profiler, CUPTI): at B =
     # 8192 (the stack trunk) and 8320 (six K2 launches)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     calls = 10
     for frames_in in (batch, frames_dev):
         b = frames_in.shape[0]
-        scorer.score_device(frames_in)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                scorer.score_device(frames_in)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-        device = [(e.key, e.self_device_time_total / 1e3 / calls, e.count // calls)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        window_ms, device = profile_device(torch, lambda: scorer.score_device(frames_in), calls)
         if not device:
             print(f"  score_device B={b} under torch.profiler: no device time recorded; idle share "
                   "not measured")
             continue
-        busy = sum(ms for _, ms, _ in device) * calls / window_ms
+        busy = sum(ms for _, ms in device) / window_ms
         print(f"  score_device B={b} under torch.profiler ({calls} calls, host window "
-              f"{window_ms / calls:.4f} ms/call): device busy {busy:.1%}, idle {1 - busy:.1%}  [{smi}]")
-        for name, ms, count in sorted(device, key=lambda row: -row[1]):
-            print(f"    {ms:.4f} ms/call in {count} launch(es)  {name[:100]}")
-        library = [name for name, _, _ in device if re.search("gemm|copy|cast|convert", name, re.I)]
+              f"{window_ms:.4f} ms/call): device busy {busy:.1%}, idle {1 - busy:.1%}  [{smi}]")
+        for name, ms in sorted(device, key=lambda row: -row[1]):
+            print(f"    {ms:.4f} ms/call  {name[:100]}")
+        library = [name for name, _ in device if re.search("gemm|copy|cast|convert", name, re.I)]
         check(not library, f"score_device B={b} runs no library product and no cast kernel on the "
                            f"device ({len(device)} kernels)")
 
@@ -617,7 +629,7 @@ def main() -> int:
     # K5 writes the padded width: its plain version takes the same padded
     # operands, the weight back in the plain layout
     plain_out_padded = (out[0].t(), *out[1:])
-    for b in (64, 8192):
+    for b in (64, 8128, 8192):  # one frame block (columns split), clusters of 1 and of 2
         k5 = kernels.output_logits(p3[:b], *out)
         p5 = plain.output_logits(p3[:b], *plain_out_padded)
         check(k5.shape == (b, n_pad) and torch.equal(k5, p5), f"K5 output_logits B={b} N={n_pad} bitwise")
@@ -750,17 +762,38 @@ def main() -> int:
             f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in queued.items()) + f" ms per call  [{smi}]")
         report["resident_softmax_block_sparse"]["ms"] = sum(times["K6"]) / 2
         report["resident_softmax_block_sparse"]["plain_ms"] = sum(times["plain"]) / 2
-    lazy_cases = {
-        "K5 B=8192": ("output_logits", lambda: kernels.output_logits(p3, *out),
-                      lambda: plain.output_logits(p3, *plain_out_padded)),
-        # the last case is the one the JSON row reports: the LazyContext shape
-        "K5 B=64": ("output_logits", lambda: kernels.output_logits(p3[:64], *out),
-                    lambda: plain.output_logits(p3[:64], *plain_out_padded)),
-    }
-    for title, (name, kernel_fn, plain_fn) in lazy_cases.items():
+    # K5 single, 20 queued back to back (no wrapper host time) and its
+    # device time under the profiler; the last B is the one the JSON row
+    # reports: the LazyContext shape
+    k5_ms = {}
+    for b in (8192, 64):
+        kernel_fn = lambda b=b: kernels.output_logits(p3[:b], *out)
+        plain_fn = lambda b=b: plain.output_logits(p3[:b], *plain_out_padded)
         ms, plain_ms = time_ms(torch, kernel_fn), time_ms(torch, plain_fn)
-        report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
-        print(f"  {title:22s} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{smi}]")
+        queued_ms = back_to_back_ms(torch, kernel_fn)
+        _, device = profile_device(torch, kernel_fn, 20)
+        traced = (f"{sum(row[1] for row in device):.4f} ms under the profiler ({len(device)} kernel)"
+                  if device else "profiler: no device time recorded")
+        report["output_logits"]["ms"], report["output_logits"]["plain_ms"] = ms, plain_ms
+        k5_ms[b] = ms
+        print(f"  K5 output_logits B={b:4d}: single {ms:.4f} ms, 20 queued {queued_ms:.4f} ms per "
+              f"call, {traced}; plain {plain_ms:.4f} ms  [{smi}]")
+    # the B = 64 call is host time: the part of it each wrapper spends on its
+    # shared-memory check, and the whole wrapper, on the host clock
+    calls = 5000
+    host_us = {}
+    for what, fn in (("shared-memory check", lambda: kernels._require_smem(
+            "output_logits", dev, lib.fdn_output_logits_smem_bytes())),
+            ("K5 wrapper, B=64 (launch not awaited)", lambda: kernels.output_logits(p3[:64], *out))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_us[what] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    print("  host time per call (mean of 5000): " + ", ".join(
+        f"{what} {us:.2f} us" for what, us in host_us.items()) + f"  [{smi}]")
 
     phase("10. K7 packed int4 hidden layer against its plain version and against K2")
     q4 = quantize_net(net, hidden_bits=4)
@@ -880,7 +913,7 @@ def main() -> int:
               f"{audio_s / mean * 1e3:.1f} audio-s/s  [{smi}]")
 
     phase("14. K8 flash stats against its plain version at the flagship shapes")
-    def stats_check(title, got, want, fast=False):
+    def stats_check(title, got, want, fast=False, out_dim=SENONES):
         """K8's (z, m, s[, tile_max]) against the plain version's: z, m and
         the tile maxes bitwise, s within rtol 1e-5 -> the posteriors' max |d|
         against the plain normalize of the plain stats."""
@@ -891,16 +924,48 @@ def main() -> int:
         if fast:
             check(torch.equal(got[3], want[3]), f"K8 {title}: tile maxes bitwise")
         tile = (got[3], want[3]) if fast else (None, None)
-        p_got = plain.normalize_stats(*got[:3], out_dim=SENONES, tile_max=tile[0])
-        p_want = plain.normalize_stats(*want[:3], out_dim=SENONES, tile_max=tile[1])
+        p_got = kernels.normalize_stats(*got[:3], out_dim=out_dim, tile_max=tile[0])
+        p_want = plain.normalize_stats(*want[:3], out_dim=out_dim, tile_max=tile[1])
         return p_got, float((p_got.float() - p_want.float()).abs().max())
+
+    def normalize_check(title, stats, out_dim=SENONES, zero_rows=()):
+        """The normalize kernel against its plain version on the same stats:
+        f32 within rtol NORMALIZE_RTOL + atol NORMALIZE_ATOL (the same expf
+        and division, so equal on the card), bf16 (fast stats) within
+        rtol/atol of the plain bf16; `zero_rows` (no active senone) exactly
+        0 -> max |d|."""
+        tile = stats[3] if len(stats) == 4 else None
+        got = kernels.normalize_stats(*stats[:3], out_dim=out_dim, tile_max=tile)
+        want = plain.normalize_stats(*stats[:3], out_dim=out_dim, tile_max=tile)
+        d = float((got.float() - want.float()).abs().max())
+        if tile is None:
+            ok = got.dtype == torch.float32 and bool(torch.allclose(
+                got, want, rtol=NORMALIZE_RTOL, atol=NORMALIZE_ATOL))
+            bound_text = f"within rtol {NORMALIZE_RTOL:g}, atol {NORMALIZE_ATOL:g}"
+        else:
+            ok = got.dtype == torch.bfloat16 and bool(torch.allclose(
+                got.float(), want.float(), rtol=BF16_RTOL, atol=BF16_ATOL))
+            bound_text = f"bf16 within rtol {BF16_RTOL}, atol {BF16_ATOL}"
+        zeros = not zero_rows or bool((got[list(zero_rows)] == 0).all())
+        check(ok and zeros and got.shape == (stats[0].shape[0], out_dim),
+              f"normalize_stats {title} out_dim={out_dim}: max |d| {d:.3g} {bound_text}"
+              + (f", {len(zero_rows)} fully masked or capped row(s) exactly 0" if zero_rows else ""))
+        report["normalize_stats"]["max_abs_err"] = max(report["normalize_stats"]["max_abs_err"], d)
 
     report["flash_stats"]["max_abs_err"] = 0.0
     report["flash_stats_block_sparse"]["max_abs_err"] = 0.0
+    report["normalize_stats"]["max_abs_err"] = 0.0
     for vc in (SENONES, 4096, 3904, 0):
         got = kernels.flash_stats(p3, *out, valid_count=vc)
         stats_check(f"unmasked valid_count={vc}", got, plain.flash_stats(p3, *plain_out_padded,
                                                                          valid_count=vc))
+        if vc == 0:  # every column capped: every row's max at -1e30, all posteriors 0
+            normalize_check("valid_count=0 (all capped)", got, zero_rows=range(p3.shape[0]))
+        else:
+            normalize_check(f"valid_count={vc}", got)
+    # out_dim not a multiple of 4 (one value per thread), and the padded width
+    normalize_check("out_dim 7990", got, out_dim=SENONES - 10)
+    normalize_check(f"out_dim {n_pad}", got, out_dim=n_pad)
     got = kernels.flash_stats(p3, *out, valid_count=SENONES)
     p8, d8 = stats_check("unmasked", got, plain.flash_stats(p3, *plain_out_padded,
                                                             valid_count=SENONES))
@@ -917,6 +982,7 @@ def main() -> int:
                                                    semantics=sem)).abs().max())
         check(d8 <= 3e-5 and d84 <= 3e-5,
               f"K8 masked {sem}: posteriors max |d| {d8:.3g} (plain), {d84:.3g} (K4) <= 3e-5")
+        normalize_check(f"masked {sem}", got, zero_rows=(7,) if sem == "active_only" else ())
         if sem == "active_only":
             check(bool((p8[7] == 0).all()), "K8 active_only: the fully masked row is 0")
         report["flash_stats"]["max_abs_err"] = max(report["flash_stats"]["max_abs_err"], d8, d84)
@@ -924,6 +990,7 @@ def main() -> int:
         got = kernels.flash_stats(p3, *out, m, valid_count=SENONES, fast=True)
         p8f, _ = stats_check(f"fast {what}", got, plain.flash_stats(
             p3, *plain_out_padded, m, valid_count=SENONES, fast=True), fast=True)
+        normalize_check(f"fast {what}", got)
         ref = kernels.resident_softmax(p3, *out, m, out_dim=SENONES)
         check(p8f.dtype == torch.bfloat16 and bool(torch.allclose(p8f.float(), ref, rtol=BF16_RTOL,
                                                                    atol=BF16_ATOL)),
@@ -937,6 +1004,8 @@ def main() -> int:
                                                 semantics=sem, capped_fill=capped)
                 p8, d8 = stats_check(f"block-sparse {what} {sem} capped_fill={capped} "
                                      f"valid_count={vc}", got, want)
+                if capped:  # the shards' stats, normalized at their full width
+                    normalize_check(f"block-sparse {what} {sem} capped", got, out_dim=n_pad)
                 if not capped:
                     d86 = float((p8 - kernels.resident_softmax_block_sparse(
                         p3, *out, m, out_dim=SENONES, semantics=sem)).abs().max())
@@ -956,15 +1025,117 @@ def main() -> int:
         check(fn(widest) <= limit < fn(widest + kernels.TILE_K),
               f"{name}: {widest} fits the card's {limit} bytes "
               f"({fn(widest)}), {widest + kernels.TILE_K} does not ({fn(widest + kernels.TILE_K)})")
-    fixed = {"K2": lib.fdn_hidden_layer_smem_bytes(), "K7": lib.fdn_hidden_layer_packed_smem_bytes(),
-             "K9": lib.fdn_input_layer_smem_bytes()}
+    fixed = {"K2": lib.fdn_hidden_layer_smem_bytes(), "K5": lib.fdn_output_logits_smem_bytes(),
+             "K7": lib.fdn_hidden_layer_packed_smem_bytes(), "K8": lib.fdn_flash_stats_smem_bytes(0),
+             "K8 skipping": lib.fdn_flash_stats_smem_bytes(1), "K9": lib.fdn_input_layer_smem_bytes()}
     check(all(v <= limit for v in fixed.values()),
           ", ".join(f"{k} ({v})" for k, v in fixed.items()) + f", any K, fit the card's {limit} bytes")
     q_wide = quantize_net(random_net(rng, INPUT_DIM, [WIDE_HIDDEN] * WIDE_DEPTH, SENONES))
     wide = Scorer(q_wide, EngineConfig(), device="cuda")
     wide_cpu = Scorer(q_wide, device="cpu")
     check(wide._hstack is None, f"the wide net has no hidden stack (H = {WIDE_HIDDEN})")
-    one_call = {"input_layer": 1, "hidden_layer": WIDE_DEPTH - 1, "flash_stats": 1}
+    # K8 and the normalize at the shapes the other routes give them, with
+    # phase 14's gates: the wide net's last hidden activations (K = 3072)
+    # and output weight; one shard of the flagship's output layer per mesh
+    # rank (N = n_local = 4096, valid counts 4096 and 3904, capped skipping);
+    # and the skipping variant past K6's widest N (65,536)
+    qw = wide.net
+    xw = kernels.input_layer(batch, qw.input_w, qw.input_operand, qw.input_b)
+    for i in range(WIDE_DEPTH - 1):
+        xw = kernels.hidden_layer(xw, qw.weights[i], qw.colsum128[i], qw.inv_scales[i],
+                                  qw.biases[i])
+    w_out = (qw.weights[-1], qw.colsum128[-1], qw.inv_scales[-1], qw.biases[-1])
+    w_plain = (w_out[0].t(), *w_out[1:])
+    check(xw.shape == (8192, WIDE_HIDDEN) and w_out[0].shape == (n_pad, WIDE_HIDDEN),
+          f"wide net: activations [8192, {WIDE_HIDDEN}], output weight [{n_pad}, {WIDE_HIDDEN}]")
+    wide_k = f"K={WIDE_HIDDEN} N={n_pad}"
+    got = kernels.flash_stats(xw, *w_out, valid_count=SENONES)
+    _, d = stats_check(f"{wide_k} unmasked", got, plain.flash_stats(xw, *w_plain,
+                                                                     valid_count=SENONES))
+    normalize_check(f"{wide_k} unmasked", got)
+    for sem in ("reference", "active_only"):
+        got = kernels.flash_stats(xw, *w_out, masks40, valid_count=SENONES, semantics=sem)
+        d = max(d, stats_check(f"{wide_k} masked {sem}", got, plain.flash_stats(
+            xw, *w_plain, masks40, valid_count=SENONES, semantics=sem))[1])
+        normalize_check(f"{wide_k} masked {sem}", got,
+                        zero_rows=(7,) if sem == "active_only" else ())
+        got = kernels.flash_stats_block_sparse(xw, *w_out, bands, valid_count=SENONES,
+                                               semantics=sem)
+        d = max(d, stats_check(f"{wide_k} block-sparse band masks {sem}", got,
+                               plain.block_sparse_stats(xw, *w_plain, bands, valid_count=SENONES,
+                                                        semantics=sem))[1])
+        normalize_check(f"{wide_k} block-sparse band masks {sem}", got)
+    got = kernels.flash_stats(xw, *w_out, valid_count=SENONES, fast=True)
+    stats_check(f"{wide_k} fast", got, plain.flash_stats(xw, *w_plain, valid_count=SENONES,
+                                                         fast=True), fast=True)
+    normalize_check(f"{wide_k} fast", got)
+    check(d <= 3e-5, f"K8 + normalize {wide_k}: posteriors max |d| {d:.3g} against the plain "
+                     "version <= 3e-5")
+
+    n_local = -(-SENONES // (kernels.TILE_N * TP_RANKS)) * kernels.TILE_N
+    n_all = n_local * TP_RANKS
+
+    def pad_cols(t, axis):  # zero columns (weight rows) up to n_all
+        shape = list(t.shape)
+        shape[axis] = n_all
+        full = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        full.narrow(axis, 0, t.shape[axis]).copy_(t)
+        return full
+
+    shard_w, shard_cs, shard_b = pad_cols(out[0], 0), pad_cols(out[1], 0), pad_cols(out[3], 0)
+    shard_m40, shard_bands = pad_cols(masks40, 1), pad_cols(bands, 1)
+    d = 0.0
+    for rank in range(TP_RANKS):
+        cols = slice(rank * n_local, (rank + 1) * n_local)
+        valid = min(max(SENONES - rank * n_local, 0), n_local)
+        s_out = (shard_w[cols].contiguous(), shard_cs[cols].contiguous(), out[2],
+                 shard_b[cols].contiguous())
+        s_plain = (s_out[0].t(), *s_out[1:])
+        m40, mb = shard_m40[:, cols].contiguous(), shard_bands[:, cols].contiguous()
+        what = f"shard {rank} K={HIDDEN} N={n_local} valid_count={valid}"
+        got = kernels.flash_stats(p3, *s_out, valid_count=valid)
+        d = max(d, stats_check(f"{what} unmasked", got, plain.flash_stats(
+            p3, *s_plain, valid_count=valid), out_dim=n_local)[1])
+        normalize_check(f"{what} unmasked", got, out_dim=n_local)
+        for sem in ("reference", "active_only"):
+            got = kernels.flash_stats(p3, *s_out, m40, valid_count=valid, semantics=sem)
+            d = max(d, stats_check(f"{what} masked {sem}", got, plain.flash_stats(
+                p3, *s_plain, m40, valid_count=valid, semantics=sem),
+                out_dim=n_local)[1])
+            got = kernels.flash_stats_block_sparse(p3, *s_out, mb, valid_count=valid,
+                                                   semantics=sem, capped_fill=True)
+            d = max(d, stats_check(f"{what} block-sparse band masks {sem} capped", got,
+                                   plain.block_sparse_stats(p3, *s_plain, mb, valid_count=valid,
+                                                            semantics=sem, capped_fill=True),
+                                   out_dim=n_local)[1])
+            normalize_check(f"{what} block-sparse {sem} capped", got, out_dim=n_local)
+    check(d <= 3e-5, f"K8 + normalize on the shards: posteriors max |d| {d:.3g} against the "
+                     "plain version <= 3e-5")
+
+    # past K6's widest output layer: 514 column tiles per block of a pair
+    wide_n = 2 * 65536 + 3 * kernels.TILE_N
+    far_rng = np.random.default_rng(SEED + 15)
+    far_w, far_colsum, far_inv, far_bias = random_layer(far_rng, 256, wide_n)
+    far = (kernels.kernel_layout(torch.from_numpy(far_w).to(dev)),
+           torch.from_numpy(far_colsum).to(dev), far_inv, torch.from_numpy(far_bias).to(dev))
+    far_plain = (far[0].t(), *far[1:])
+    far_x = torch.from_numpy(far_rng.integers(-128, 128, (128, 256), dtype=np.int8)).to(dev)
+    tiles_on = far_rng.random((2, wide_n // kernels.TILE_N)) < 0.2
+    far_masks = torch.from_numpy(
+        np.repeat(np.repeat(tiles_on, 64, axis=0), kernels.TILE_N, axis=1)
+        & (far_rng.random((128, wide_n)) < 0.5)).to(torch.uint8).to(dev)
+    for sem in ("reference", "active_only"):
+        for capped, valid in ((False, wide_n), (True, wide_n - 200)):
+            got = kernels.flash_stats_block_sparse(far_x, *far, far_masks, valid_count=valid,
+                                                   semantics=sem, capped_fill=capped)
+            _, d = stats_check(f"block-sparse B=128 K=256 N={wide_n} {sem} capped_fill={capped}",
+                               got, plain.block_sparse_stats(far_x, *far_plain, far_masks,
+                                                             valid_count=valid, semantics=sem,
+                                                             capped_fill=capped), out_dim=valid)
+            check(d <= 3e-5, f"K8 block-sparse N={wide_n} {sem}: posteriors max |d| {d:.3g} "
+                             "<= 3e-5")
+    one_call = {"input_layer": 1, "hidden_layer": WIDE_DEPTH - 1, "flash_stats": 1,
+                "normalize_stats": 1}
     for n in sizes:
         want = wide_cpu.score(frames[:n])
         close(drive(f"wide score n={n}", one_call, lambda: wide.score(frames[:n])), want,
@@ -982,7 +1153,7 @@ def main() -> int:
                   want, f"wide score_masked {sem} {what} n=1000")
             close(drive(f"wide block_sparse {sem} {what}",
                         {"input_layer": 1, "hidden_layer": WIDE_DEPTH - 1,
-                         "flash_stats_block_sparse": 1},
+                         "flash_stats_block_sparse": 1, "normalize_stats": 1},
                         lambda: wide_sparse[sem].score_masked(frames[:1000], m)),
                   want, f"wide block_sparse {sem} {what} n=1000")
 
@@ -1014,9 +1185,8 @@ def main() -> int:
     errors = [r["error"] for r in reports if "error" in r]
     check(not errors and all(proc.exitcode == 0 for proc in ranks),
           f"{TP_RANKS} ranks finished" + ("" if not errors else ":\n" + "\n".join(errors)))
-    # the output pads to 128 x TP_RANKS columns: shards of n_local = 4096,
-    # valid counts 4096 and 3904
-    n_local = -(-SENONES // (kernels.TILE_N * TP_RANKS)) * kernels.TILE_N
+    # the output pads to 128 x TP_RANKS columns: shards of n_local = 4096
+    # (phase 15), valid counts 4096 and 3904
     for rep in sorted(reports, key=lambda r: r["rank"]):
         rank = rep["rank"]
         valid = min(max(SENONES - rank * n_local, 0), n_local)
@@ -1024,7 +1194,7 @@ def main() -> int:
               f"rank {rank}: score_device block [8192, {n_local}], valid count {valid}")
         for title, run in rep["runs"].items():
             kernel = "flash_stats_block_sparse" if "block_sparse" in title else "flash_stats"
-            expect = {"input_layer": 1, "hidden_stack": 1, kernel: 1}
+            expect = {"input_layer": 1, "hidden_stack": 1, kernel: 1, "normalize_stats": 1}
             print(f"  rank {rank} launch counts of {title}: {run['counts']}")
             for name, count in run["counts"].items():
                 check(count == expect.get(name, 0),
@@ -1037,6 +1207,8 @@ def main() -> int:
                   f"one device, argmax agreement {run['agree']:.4f} >= 0.999")
 
     phase(f"17. stats and tensor-parallel times (median of {TIMED_REPS} calls; card: {smi})")
+    stats8 = kernels.flash_stats(p3, *out, valid_count=SENONES)
+    fast8 = kernels.flash_stats(p3, *out, valid_count=SENONES, fast=True)
     stats_cases = {
         "K8 unmasked": ("flash_stats", lambda: kernels.flash_stats(p3, *out, valid_count=SENONES),
                         lambda: plain.flash_stats(p3, *plain_out_padded, valid_count=SENONES)),
@@ -1051,21 +1223,45 @@ def main() -> int:
                                                                         valid_count=SENONES),
                                lambda: plain.block_sparse_stats(p3, *plain_out_padded, bands,
                                                                 valid_count=SENONES)),
+        "normalize_stats": ("normalize_stats",
+                            lambda: kernels.normalize_stats(*stats8, out_dim=SENONES),
+                            lambda: plain.normalize_stats(*stats8, out_dim=SENONES)),
+        "normalize_stats fast": (None, lambda: kernels.normalize_stats(
+            *fast8[:3], out_dim=SENONES, tile_max=fast8[3]), lambda: plain.normalize_stats(
+            *fast8[:3], out_dim=SENONES, tile_max=fast8[3])),
         "K8 + normalize": (None, lambda: cuda_backend.output_posteriors(p3, *out, out_dim=SENONES),
                            lambda: plain.output_posteriors_stats(p3, *plain_out_padded,
                                                                  out_dim=SENONES)),
     }
     for title, (name, kernel_fn, plain_fn) in stats_cases.items():
         ms, plain_ms = time_ms(torch, kernel_fn), time_ms(torch, plain_fn)
+        queued_ms = back_to_back_ms(torch, kernel_fn)
         if name is not None:
             report[name]["ms"], report[name]["plain_ms"] = ms, plain_ms
-        print(f"  {title:20s} B=8192 K={HIDDEN} N={n_pad} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-              f"  [{smi}]")
+        print(f"  {title:20s} B=8192 K={HIDDEN} N={n_pad} kernel {ms:.4f} ms (20 queued "
+              f"{queued_ms:.4f} ms per call), plain {plain_ms:.4f} ms  [{smi}]")
     wide_plain = Scorer(q_wide, EngineConfig(backend="torch"), device="cuda")
     wide_ms = time_ms(torch, lambda: wide.score_device(batch))
     wide_plain_ms = time_ms(torch, lambda: wide_plain.score_device(batch))
     print(f"  wide net score_device B=8192: kernels {wide_ms:.4f} ms/batch, "
           f"{audio_s / wide_ms * 1e3:.1f} audio-s/s; plain {wide_plain_ms:.4f} ms/batch  [{smi}]")
+    # the wide net's device work: K9, K2, K8 and the normalize kernel, one
+    # launch each per call, and nothing else (no torch elementwise pass)
+    window_ms, device = profile_device(torch, lambda: wide.score_device(batch), 10)
+    check(bool(device), f"wide score_device B=8192 under torch.profiler: device time recorded "
+                        f"({len(device)} kernels)")
+    busy = sum(row[1] for row in device) / window_ms
+    print(f"  wide score_device B=8192 under torch.profiler (10 calls, host window "
+          f"{window_ms:.4f} ms/call): device busy {busy:.1%}, idle {1 - busy:.1%}  [{smi}]")
+    for name, ms in sorted(device, key=lambda row: -row[1]):
+        print(f"    {ms:.4f} ms/call  {name[:100]}")
+    wide_kernels = {"K9": "input_layer_kernel", "K2": "SigmoidEpilogue",
+                    "K8": "flash_stats_kernel", "normalize": "normalize_stats_kernel"}
+    # (the launch counts per call are phase 15's)
+    found = {what: [row for row in device if key in row[0]] for what, key in wide_kernels.items()}
+    check(len(device) == len(wide_kernels) and all(len(rows) == 1 for rows in found.values()),
+          "wide score_device runs K9, K2, K8 and the normalize kernel on the device and no "
+          "other kernel (no torch elementwise pass)")
     tp_ms = [rep["score_device_ms"] for rep in sorted(reports, key=lambda r: r["rank"])]
     one_ms = host_ms(torch, lambda: scorer.score_device(batch))
     print(f"  flagship score_device B=8192 (host clock): {TP_RANKS} model ranks on this one card "
@@ -1113,6 +1309,8 @@ def main() -> int:
             (1 - skip_bands) * out_ops,
             b_dim * k_dim + n_pad * k_dim + vec_bytes + b_dim * n_pad + b_dim * (n_pad * 4 + 8),
             lambda: torch._int_mm(p3, w_out)),
+        # z's first out_dim columns and (m, s) read, the posteriors written
+        "normalize_stats": (0, b_dim * (SENONES * 4 + 8) + b_dim * SENONES * 4, None),
     }
     for name, (ops, nbytes, product) in work.items():
         peak = "tf32" if name == "input_layer" else "int8"
@@ -1125,6 +1323,11 @@ def main() -> int:
         print(f"  {name:29s} {report[name]['ms']:.4f} ms, bound {report[name]['bound_ms']:.4f} ms "
               f"({report[name]['bound_by']}, {ops / 1e9:.1f} G ops, {nbytes / 1e6:.1f} MB), "
               f"{share:.1%} of it; {product_text}  [{smi}]")
+    # K5 at B = 8192 (fused_softmax=False), beside the B = 64 row above
+    k5_bound, k5_by = bound(2 * b_dim * k_dim * n_pad, "int8",
+                            b_dim * k_dim + n_pad * k_dim + vec_bytes + b_dim * n_pad * 4)
+    print(f"  output_logits B=8192           {k5_ms[8192]:.4f} ms, bound {k5_bound:.4f} ms ({k5_by}), "
+          f"{k5_bound / k5_ms[8192]:.1%} of it  [{smi}]")
     tf32_switch = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -1148,7 +1351,8 @@ def main() -> int:
             "bound_by": report[name]["bound_by"],
             "product_ms": report[name]["product_ms"],
             # no single PyTorch call computes any of these functions: each fuses a
-            # quantized sigmoid or a softmax into an int8 product
+            # quantized sigmoid or a softmax into an int8 product, and the
+            # normalize takes its softmax from given (z, m, s)
             "library_ms": None,
         }
         for name, k in kernels.KERNELS.items()

@@ -1,29 +1,32 @@
-// Hopper (sm_90a) building blocks of the port's warp-specialised kernels, the
-// wgmma K2 (csrc/hidden_layer.cu), K3 (csrc/hidden_stack.cu), K4 and K6
-// (csrc/resident_softmax.cu), K7 (csrc/hidden_layer_packed.cu) and K9
-// (csrc/input_layer.cu): mbarriers, TMA tensor copies (multicast across a
-// thread-block cluster), int8 wgmma from shared-memory descriptors and TF32
-// wgmma with A from registers, register reallocation, the quantized-sigmoid
-// epilogue of a hidden layer's tile, and the host side of a launch (tensor
-// maps, cluster launches).
+// Hopper (sm_90a) building blocks of every int8 and TF32 kernel of the port:
+// K2 and K5 (csrc/hidden_layer.cu, csrc/output_logits.cu, one kernel
+// template below, streamed_layer_kernel), K3 (csrc/hidden_stack.cu), K4,
+// K6 (csrc/resident_softmax.cu), K7 (csrc/hidden_layer_packed.cu), K8
+// (csrc/flash_stats.cu) and K9 (csrc/input_layer.cu): mbarriers, TMA tensor
+// copies (multicast across a thread-block cluster), int8 wgmma from
+// shared-memory descriptors and TF32 wgmma with A from registers, register
+// reallocation, the quantized-sigmoid epilogue of a hidden layer's tile,
+// and the host side of a launch (tensor maps, cluster launches).  The
+// row-softmax pieces K4, K6 and K8 share are in csrc/row_stats.cuh.
 //
-// Shape of the int8 kernels (K2, K3, K4, K6, K7).  A block is three
-// warpgroups and owns kFrames = 64 frames, whose int8 activations sit whole
-// in shared memory as the wgmma A operand (K2, K7: a 64 x 128-byte tile of
-// them comes with each weight stage instead).  Warpgroup 2 is the producer:
-// one thread keeps a ring of kStageBytes weight stages (kTileN output
-// columns x kStageK of K) full with TMA copies, in the order the tiles are
-// consumed, across tiles and (K3) layers, never draining.  Warpgroups 0 and
-// 1 are consumers and take the output tiles in turn (ping-pong): while one
-// runs a tile's products the other runs the previous tile's epilogue.  K2's,
-// K3's and K7's blocks of a cluster (along frames) share each weight stage:
-// every block copies 1 / cluster of it and multicasts that part to all, so
-// L2 serves each stage once per cluster; each SM still receives every byte
-// of it.  K4's blocks of a cluster share their frames instead and split the
-// tiles, each streaming its own (a ring of CS = 1); K6 streams only the
-// tiles its mask leaves active.  K7's stages are packed int4, which the
-// producer warpgroup's other three warps widen to s8 in shared memory before
-// the consumers read them.  K9 (f32 frames, TF32 products) keeps the three
+// Shape of the int8 kernels (K2-K8).  A block is three warpgroups and owns
+// kFrames = 64 frames.  Their int8 activations sit whole in shared memory as
+// the wgmma A operand (K3, K4, K6), or a 64 x 128-byte tile of them comes
+// with each weight stage (K2, K5, K7, K8: any K).  Warpgroup 2 is the
+// producer: one thread keeps a ring of kStageBytes weight stages (kTileN
+// output columns x kStageK of K) full with TMA copies, in the order the
+// tiles are consumed, across tiles and (K3) layers, never draining.
+// Warpgroups 0 and 1 are consumers and take the output tiles in turn
+// (ping-pong): while one runs a tile's products the other runs the previous
+// tile's epilogue.  K2's, K3's, K5's and K7's blocks of a cluster (along
+// frames) share each weight stage: every block copies 1 / cluster of it and
+// multicasts that part to all, so L2 serves each stage once per cluster;
+// each SM still receives every byte of it.  K4's, K6's and K8's blocks of a
+// cluster share their frames instead and split the tiles, each streaming
+// its own (a ring of CS = 1); K6 and K8 SKIP stream only the tiles their
+// mask leaves active.  K7's stages are packed int4, which the producer
+// warpgroup's other three warps widen to s8 in shared memory before the
+// consumers read them.  K9 (f32 frames, TF32 products) keeps the three
 // warpgroups and the barriers but runs a ring of its own: both consumers
 // read every stage, for 64 frames each.
 //
@@ -39,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <mutex>
 #include <utility>
 #include <vector>
@@ -573,6 +577,124 @@ __host__ inline int max_active_clusters(void (*kernel)(Params...), int cluster, 
   int n = -1;
   if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
   return n;
+}
+
+// ---------------------------------------------------------------------------
+// One layer on the streamed loop: s8 [B, K] x s8 [K, N] (the weight as Wt
+// [N, K]) through an epilogue, K2's kernel (the quantized sigmoid) and K5's
+// (f32 logits).  Block b is frame block b % frame_blocks of column split
+// b / frame_blocks; a cluster's blocks are consecutive frame blocks of one
+// split and share each weight stage by multicast.  The split takes tiles
+// [split * tiles / splits, (split + 1) * tiles / splits): when the frame
+// blocks are fewer than the SMs, the columns split over floor(SMs / frame
+// blocks) blocks per frame block.  The activations do not sit in shared
+// memory: a 64 x 128-byte tile of them comes with each weight stage,
+// through the same ring and barrier, so K has no limit and the ring holds 8
+// stages of 24 KB.
+//
+// Epilogue: `Out`, the output element; kSmemBytes, the block's shared
+// memory beside the ring; prepare(extra, tid, count), by the consumer
+// threads before their first tile; store(d, out, ld, m0, n0, colsum, bias,
+// inv, extra, thread_in_wg), one consumer warpgroup's 64 x 128 output tile
+// from its accumulators.
+// ---------------------------------------------------------------------------
+constexpr int kLayerStages = 8;
+
+template <class Epilogue>
+__host__ __device__ constexpr size_t streamed_layer_smem_bytes() {
+  return kAlign + static_cast<size_t>(kLayerStages) * (kStageBytes + kActBlockBytes) +
+         Ring<kLayerStages, 1>::kBytes + Epilogue::kSmemBytes;
+}
+
+template <class Epilogue, int CS>
+__global__ void __launch_bounds__(kThreads, 1)
+    streamed_layer_kernel(const __grid_constant__ CUtensorMap w_map,
+                          const __grid_constant__ CUtensorMap x_map,
+                          const int* __restrict__ colsum, const float* __restrict__ bias,
+                          float inv_scale, typename Epilogue::Out* __restrict__ out, int K, int N,
+                          int frame_blocks, int splits) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  int8_t* stages = reinterpret_cast<int8_t*>(smem);
+  int8_t* acts = stages + kLayerStages * kStageBytes;  // one activation tile per stage
+  Ring<kLayerStages, CS> ring{reinterpret_cast<uint64_t*>(acts + kLayerStages * kActBlockBytes)};
+  unsigned char* extra = reinterpret_cast<unsigned char*>(ring.bars) + Ring<kLayerStages, CS>::kBytes;
+
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x % frame_blocks * kFrames;
+  const int split = blockIdx.x / frame_blocks;
+  const int tiles = N / kTileN;
+  const int first_tile = split * tiles / splits;
+  const int my_tiles = (split + 1) * tiles / splits - first_tile;
+  const int steps = K / kStageK;
+  if (threadIdx.x == 0) ring.init();
+  cluster_sync();
+
+  if (wg == kConsumers) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      const unsigned rank = cluster_rank();
+      for (int g = 0; g < my_tiles; ++g)
+        for (int t = 0; t < steps; ++t)
+          ring.produce(stages, &w_map, g * steps + t, t * kStageK, (first_tile + g) * kTileN, rank,
+                       acts, &x_map, m0);
+    }
+    cluster_sync();
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int tw = threadIdx.x % 128;
+    Epilogue::prepare(extra, threadIdx.x, kConsumerThreads);
+    consumer_sync();
+    int d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0;
+    for (int g = wg, n = 0; g < my_tiles; g += kConsumers, ++n) {
+      tile_products<kLayerStages, CS, true>(d, ring, stages, acts, K, g * steps, wg, n, tw);
+      Epilogue::store(d, out, N, m0, (first_tile + g) * kTileN, colsum, bias, inv_scale, extra, tw);
+    }
+    cluster_sync();
+  }
+}
+
+template <class Epilogue, int CS>
+__host__ inline cudaError_t launch_streamed_layer(const void* x, const void* wt, const void* colsum,
+                                                  const void* bias, float inv_scale, void* out,
+                                                  int b, int k, int n, int sms, void* stream) {
+  CUtensorMap w_map, x_map;
+  cudaError_t err = weight_map(&w_map, wt, n, k, kTileN / CS);
+  if (err == cudaSuccess) err = weight_map(&x_map, x, b, k, kFrames);
+  if (err != cudaSuccess) return err;
+  const int frame_blocks = b / kFrames;
+  const int tiles = n / kTileN;
+  const int splits = frame_blocks >= sms ? 1 : std::min(tiles, sms / frame_blocks);
+  return launch_clustered(streamed_layer_kernel<Epilogue, CS>, frame_blocks * splits, CS,
+                          streamed_layer_smem_bytes<Epilogue>(), stream, w_map, x_map,
+                          static_cast<const int*>(colsum), static_cast<const float*>(bias),
+                          inv_scale, static_cast<typename Epilogue::Out*>(out), k, n,
+                          frame_blocks, splits);
+}
+
+// The launch of one layer on `device`'s stream in clusters of `cluster`
+// (1 or 2) blocks.  Requires B % (64 * cluster) == 0, K % 128 == 0,
+// N % 128 == 0, 16-byte aligned x and wt.
+template <class Epilogue>
+__host__ inline cudaError_t streamed_layer(const void* x, const void* wt, const void* colsum,
+                                           const void* bias, float inv_scale, void* out, int b,
+                                           int k, int n, int cluster, int device, void* stream) {
+  int sms = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  switch (cluster) {
+    case 1:
+      return launch_streamed_layer<Epilogue, 1>(x, wt, colsum, bias, inv_scale, out, b, k, n, sms,
+                                                stream);
+    case 2:
+      return launch_streamed_layer<Epilogue, 2>(x, wt, colsum, bias, inv_scale, out, b, k, n, sms,
+                                                stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace hopper

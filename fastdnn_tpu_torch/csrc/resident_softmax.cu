@@ -80,42 +80,23 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "row_stats.cuh"
 
 namespace {
 
 namespace hp = fdn::hopper;
+namespace rs = fdn::rowstats;
 using fdn::kEmptyRowMax;
 using fdn::kNegCap;
 using fdn::kReference;
+using rs::kSplit;
+using SparseTiles = rs::SparseTiles<rs::kMaxPartTiles, uint8_t>;
 
 // six stages keep the widest K that fits at 2048
 constexpr int kStages = 6;
-// blocks of a cluster, sharing 64 frames and splitting the column tiles:
-// 2 beat clusters of 2 blocks on 128 frames sharing stages by multicast, 4
-// lost at B = 8192 (PERF.md)
-constexpr int kSplit = 2;
 // loads in flight per thread in the second sweep: 8 beat 4 by about 10%,
 // 16 gained nothing more (PERF.md)
 constexpr int kSweepInFlight = 8;
-// K6: the most column tiles one block of a cluster takes (N <= kSplit *
-// 128 * kMaxPartTiles), and the mask loads in flight per producer thread
-constexpr int kMaxPartTiles = 256;
-constexpr int kScanInFlight = 16;
-// named barriers beside hp::kConsumerBarrier: the producer warpgroup's own,
-// and the one on which it hands the list of active tiles to the consumers
-constexpr int kProducerBarrier = 2;
-constexpr int kListBarrier = 3;
-static_assert(hp::kConsumers == 2, "the row stats of two consumer warpgroups merge");
-static_assert(32 * kScanInFlight * 16 == hp::kFrames * hp::kTileN, "one warp reads a tile at once");
-
-// K6's tile bookkeeping, in shared memory after the row stats
-struct SparseTiles {
-  uint32_t active[kMaxPartTiles / 32];  // bit g: the block's tile g has an active senone
-  uint8_t list[kMaxPartTiles];          // the active tiles, in order
-  int count;                            // entries of `list`
-  int skipped_cols;                     // valid columns (< out_dim) of the skipped tiles
-  float fill_p[hp::kFrames];            // each row's posterior of a skipped column
-};
 
 template <bool SPARSE>
 __host__ __device__ constexpr size_t smem_bytes(int k) {
@@ -128,13 +109,9 @@ __device__ __forceinline__ void store_p(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_p(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // One consumer warpgroup's tile: logits of columns [n0, n0 + 128) of its
-// 64 rows (dequantized; -1e30 from out_dim on, never stored), stored to
-// `logits`, and folded into the running (max, sum-exp) of the thread's two
-// rows r and r + 8 (the 4 lanes of a quad hold a row's columns of the tile).
-// MASKED: the mask (u8 [B, N], nonzero = active) decides each logit: an
-// inactive senone's logit is `fill` (0 under reference, -1e30 under
-// active_only).  Its 32 bytes pairs are loaded first, all in flight at once;
-// the other warpgroup's products run meanwhile.
+// 64 rows (dequantized, masked; -1e30 from out_dim on, never stored; the
+// shared tile_logits), stored to `logits`, and folded into the running
+// (max, sum-exp) of the thread's two rows r and r + 8.
 template <bool MASKED>
 __device__ __forceinline__ void softmax_epilogue(const int (&d)[64], float* logits, int out_dim,
                                                  int m0, int n0, const int* colsum,
@@ -146,60 +123,19 @@ __device__ __forceinline__ void softmax_epilogue(const int (&d)[64], float* logi
   const int r0 = m0 + warp * 16 + lane / 4;
   float* rows[2] = {logits + static_cast<size_t>(r0) * out_dim,
                     logits + static_cast<size_t>(r0 + 8) * out_dim};
-  uchar2 active[16][2];
-  if constexpr (MASKED) {
-#pragma unroll
-    for (int q = 0; q < 16; ++q)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        active[q][h] =
-            *reinterpret_cast<const uchar2*>(mask + static_cast<size_t>(r0 + 8 * h) * N + col + 8 * q);
-  }
   const bool pairs = (out_dim & 1) == 0;  // a float2 store stays 8-byte aligned
-  float z[64];
-  float tile_max[2] = {kNegCap, kNegCap};
-#pragma unroll
-  for (int q = 0; q < 16; ++q) {
-    const int n = col + 8 * q;  // even, and n + 1 < N
-    const int2 cs = *reinterpret_cast<const int2*>(colsum + n);
-    const float2 b = *reinterpret_cast<const float2*>(bias + n);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float& v0 = z[4 * q + 2 * h];
-      float& v1 = z[4 * q + 2 * h + 1];
-      v0 = fdn::dequantize(d[4 * q + 2 * h], cs.x, inv, b.x);
-      v1 = fdn::dequantize(d[4 * q + 2 * h + 1], cs.y, inv, b.y);
-      if constexpr (MASKED) {
-        if (!active[q][h].x) v0 = fill;
-        if (!active[q][h].y) v1 = fill;
-      }
-      if (n >= out_dim) v0 = kNegCap;
-      if (n + 1 >= out_dim) v1 = kNegCap;
-      tile_max[h] = fmaxf(tile_max[h], fmaxf(v0, v1));
-      if (pairs && n < out_dim) {
-        *reinterpret_cast<float2*>(rows[h] + n) = make_float2(v0, v1);
-      } else {
-        if (n < out_dim) rows[h][n] = v0;
-        if (n + 1 < out_dim) rows[h][n + 1] = v1;
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 1));
-    tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 2));
-  }
-  const float m_new[2] = {fmaxf(m[0], tile_max[0]), fmaxf(m[1], tile_max[1])};
-  float e[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < 64; ++i) e[(i >> 1) & 1] += expf(z[i] - m_new[(i >> 1) & 1]);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    e[h] += __shfl_xor_sync(0xffffffffu, e[h], 1);
-    e[h] += __shfl_xor_sync(0xffffffffu, e[h], 2);
-    s[h] = s[h] * expf(m[h] - m_new[h]) + e[h];
-    m[h] = m_new[h];
-  }
+  float z[64], tile_max[2];
+  rs::tile_logits<MASKED>(d, z, tile_max, r0, col, colsum, bias, inv, mask, N, fill, out_dim,
+                          [&](int h, int n, float v0, float v1) {
+                            if (pairs && n < out_dim) {
+                              *reinterpret_cast<float2*>(rows[h] + n) = make_float2(v0, v1);
+                            } else {
+                              if (n < out_dim) rows[h][n] = v0;
+                              if (n + 1 < out_dim) rows[h][n + 1] = v1;
+                            }
+                          });
+  rs::quad_max(tile_max);
+  rs::fold_stats(z, tile_max, m, s);
 }
 
 __device__ __forceinline__ float posterior(float z, float2 ms) {
@@ -216,8 +152,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // K6: does the block's tile holding column c (its part starting at column
 // c0) have an active senone?
 __device__ __forceinline__ bool tile_active(const SparseTiles* sp, int c, int c0) {
-  const int g = (c - c0) / hp::kTileN;
-  return (sp->active[g / 32] >> (g % 32)) & 1u;
+  return rs::part_tile_active(sp, (c - c0) / hp::kTileN);
 }
 
 // The second sweep: columns [c0, c1) of the block's rows from logits to
@@ -287,87 +222,6 @@ __device__ __forceinline__ void rescale_rows(const float* logits, OutT* out, int
   }
 }
 
-// the online merge of two (max, sum-exp) pairs; a pair that saw no column
-// (-inf, 0) leaves the other as it is
-__device__ __forceinline__ float2 merge_stats(float2 a, float2 b) {
-  if (b.x == -INFINITY) return a;
-  if (a.x == -INFINITY) return b;
-  const float mm = fmaxf(a.x, b.x);
-  return make_float2(mm, a.y * expf(a.x - mm) + b.y * expf(b.x - mm));
-}
-
-// a float2 at p's offset in the shared memory of block `cta` of the cluster
-__device__ __forceinline__ float2 load_cluster(const float2* p, unsigned cta) {
-  unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(fdn::smem_addr(p)), "r"(cta));
-  float2 v;
-  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
-  return v;
-}
-
-template <int ID, int THREADS>
-__device__ __forceinline__ void named_sync() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
-}
-template <int ID, int THREADS>
-__device__ __forceinline__ void named_arrive() {
-  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
-}
-
-// The column tiles of a launch split over the kSplit blocks of a cluster,
-// which share their 64 frames: block `rank` takes tiles [g0, g0 + tiles).
-struct ColumnPart {
-  int g0, tiles;
-  __device__ __forceinline__ ColumnPart(int all_tiles, int rank) {
-    const int per = (all_tiles + kSplit - 1) / kSplit;
-    g0 = rank * per;
-    tiles = min(all_tiles, g0 + per) - g0;
-  }
-};
-
-// K6, the producer warpgroup (thread pt of 128) before it streams: one bit
-// per tile of the block's part whose 64 x 128 mask bytes hold a nonzero
-// (warp w reads tiles w, w + 4, ..., 16 loads per lane in flight), then, by
-// its first warp, the compacted list and the skipped tiles' valid columns.
-__device__ __forceinline__ void find_active_tiles(SparseTiles* sp, const uint8_t* mask, int N,
-                                                  int m0, const ColumnPart& part, int out_dim,
-                                                  int pt) {
-  const int warp = pt / 32, lane = pt % 32;
-  if (pt < kMaxPartTiles / 32) sp->active[pt] = 0;
-  named_sync<kProducerBarrier, 128>();
-  for (int g = warp; g < part.tiles; g += 4) {
-    const uint8_t* tile = mask + static_cast<size_t>(m0) * N + (part.g0 + g) * hp::kTileN;
-    int4 v[kScanInFlight];
-#pragma unroll
-    for (int i = 0; i < kScanInFlight; ++i) {
-      const int c = lane + 32 * i;  // 16-byte chunk c: row c / 8, chunk c % 8 of the row
-      v[i] = *reinterpret_cast<const int4*>(tile + static_cast<size_t>(c / 8) * N + (c % 8) * 16);
-    }
-    int any = 0;
-#pragma unroll
-    for (int i = 0; i < kScanInFlight; ++i) any |= v[i].x | v[i].y | v[i].z | v[i].w;
-    if (__any_sync(0xffffffffu, any != 0) && lane == 0) atomicOr(&sp->active[g / 32], 1u << (g % 32));
-  }
-  named_sync<kProducerBarrier, 128>();
-  if (warp == 0) {
-    int count = 0, skipped = 0;
-    for (int base = 0; base < part.tiles; base += 32) {
-      const int g = base + lane;
-      const bool in = g < part.tiles;
-      const bool act = in && ((sp->active[g / 32] >> (g % 32)) & 1u);
-      const unsigned ballot = __ballot_sync(0xffffffffu, act);
-      if (act) sp->list[count + __popc(ballot & ((1u << lane) - 1))] = static_cast<uint8_t>(g);
-      count += __popc(ballot);
-      const int cols = in && !act ? min(max(out_dim - (part.g0 + g) * hp::kTileN, 0), hp::kTileN) : 0;
-      skipped += __reduce_add_sync(0xffffffffu, cols);
-    }
-    if (lane == 0) {
-      sp->count = count;
-      sp->skipped_cols = skipped;
-    }
-  }
-}
-
 // `logits` holds the raw f32 logits between the epilogue and the sweep;
 // for f32 posteriors it is `out` itself (so neither is __restrict__).
 // A cluster of kSplit blocks owns 64 frames; each block reads its own part
@@ -399,16 +253,16 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
   const int wg = threadIdx.x / 128;
   const unsigned rank = hp::cluster_rank();
   const int m0 = blockIdx.x / kSplit * hp::kFrames;
-  const ColumnPart part(N / hp::kTileN, rank);
+  const rs::ColumnPart part(N / hp::kTileN, rank);
   const int steps = K / hp::kStageK;
   if (threadIdx.x == 0) ring.init();
   hp::cluster_sync();
 
   if (wg == hp::kConsumers) {
     if constexpr (SPARSE) {
-      find_active_tiles(sp, mask, N, m0, part, out_dim, threadIdx.x % 128);
+      rs::find_active_tiles(sp, mask, N, m0, part, out_dim, threadIdx.x % 128);
       __syncwarp();
-      named_arrive<kListBarrier, hp::kThreads>();
+      rs::named_arrive<rs::kListBarrier, hp::kThreads>();
     }
     hp::reg_dealloc<hp::kProducerRegs>();
     if (threadIdx.x % 128 == 0) {
@@ -432,7 +286,7 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
     hp::reg_alloc<hp::kConsumerRegs>();
     if constexpr (!SPARSE) hp::load_frames(acts, x, m0, K, tid, hp::kConsumerThreads);
     hp::fence_proxy_async();
-    if constexpr (SPARSE) named_sync<kListBarrier, hp::kThreads>();
+    if constexpr (SPARSE) rs::named_sync<rs::kListBarrier, hp::kThreads>();
     hp::consumer_sync();
     const int count = SPARSE ? sp->count : part.tiles;
     int d[64];
@@ -454,11 +308,11 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
     __threadfence_block();  // the logits, for the sweep's other threads
     hp::consumer_sync();
     if (tid < hp::kFrames) {
-      float2 block = merge_stats(stats[tid], stats[hp::kFrames + tid]);
+      float2 block = rs::merge_stats(stats[tid], stats[hp::kFrames + tid]);
       // K6 under reference: the skipped tiles' valid columns, logit 0 each
       if constexpr (SPARSE) {
         if (semantics == kReference && sp->skipped_cols > 0)
-          block = merge_stats(block, make_float2(0.0f, static_cast<float>(sp->skipped_cols)));
+          block = rs::merge_stats(block, make_float2(0.0f, static_cast<float>(sp->skipped_cols)));
       }
       stats[tid] = block;
     }
@@ -466,7 +320,7 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
     if (tid < hp::kFrames) {  // in rank order, so every block gets the same bits
       float2 all = make_float2(-INFINITY, 0.0f);
 #pragma unroll
-      for (int p = 0; p < kSplit; ++p) all = merge_stats(all, load_cluster(stats + tid, p));
+      for (int p = 0; p < kSplit; ++p) all = rs::merge_stats(all, rs::load_cluster(stats + tid, p));
       stats[hp::kFrames + tid] = all;
       if constexpr (SPARSE) sp->fill_p[tid] = posterior(fill, all);
     }
@@ -533,7 +387,7 @@ extern "C" int fdn_resident_softmax_block_sparse(const void* x, const void* wt,
                                                  float inv_scale, const void* mask, int semantics,
                                                  void* out, int b, int k, int n, int out_dim,
                                                  int device, void* stream) {
-  if (mask == nullptr || n > kSplit * hp::kTileN * kMaxPartTiles)
+  if (mask == nullptr || n > kSplit * hp::kTileN * rs::kMaxPartTiles)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch<true, true, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b, k,
                                    n, out_dim, device, stream);

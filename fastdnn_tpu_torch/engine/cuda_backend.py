@@ -10,7 +10,6 @@ import dataclasses
 import torch
 
 from ..ops import kernels
-from ..ops.matmul import normalize_stats
 from ..quant.quantize import QuantizedNet
 
 
@@ -75,7 +74,7 @@ def output_posteriors_block_sparse(acts_i8, w_t, colsum128_i32, inv_scale: float
     """Masked output + softmax skipping all-inactive tiles -> f32
     [B, out_dim] (no `fast` variant: the gain is skipped work): one K6
     launch, or with resident=False (an output layer too wide for K6) one
-    skipping K8 launch and the normalize in tensor ops."""
+    skipping K8 launch and one normalize launch."""
     if resident:
         return kernels.resident_softmax_block_sparse(
             acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, out_dim=out_dim,
@@ -85,17 +84,18 @@ def output_posteriors_block_sparse(acts_i8, w_t, colsum128_i32, inv_scale: float
         acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks, valid_count=out_dim,
         semantics=semantics, capped_fill=False,
     )
-    return normalize_stats(z, m, s, out_dim=out_dim)
+    return kernels.normalize_stats(z, m, s, out_dim=out_dim)
 
 
 def output_posteriors(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32, masks=None, *,
                       out_dim: int, semantics: str = "reference", fast: bool = False):
     """Output layer + (optionally masked) softmax through the stats, for an
-    output layer too wide for K4: one K8 launch, then exp(z - m) / s in
-    tensor ops -> [B, out_dim], f32 or (fast) bf16."""
+    output layer too wide for K4: one K8 launch, then one normalize launch,
+    exp(z - m) / s -> [B, out_dim], f32 or (fast) bf16."""
     stats = kernels.flash_stats(acts_i8, w_t, colsum128_i32, inv_scale, bias_f32, masks,
                                 valid_count=out_dim, semantics=semantics, fast=fast)
-    return normalize_stats(*stats[:3], out_dim=out_dim, tile_max=stats[3] if fast else None)
+    return kernels.normalize_stats(*stats[:3], out_dim=out_dim,
+                                   tile_max=stats[3] if fast else None)
 
 
 def output_flash_stats(acts_i8, w_t, colsum128_i32, inv_scale: float, bias_f32, masks=None, *,

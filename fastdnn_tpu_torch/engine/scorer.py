@@ -18,7 +18,7 @@ layer.  With `fused_softmax` (the default) the output layer and its softmax
 are one K4 launch, masked under the lazy semantics for `score_masked`, or
 one K6 launch (tile skipping) for lazy_mode="block_sparse"; an output layer
 wider than K4 takes (uses_resident_output) runs one K8 stats launch, plain
-or skipping, and the normalize in tensor ops.  Without `fused_softmax` they
+or skipping, and one normalize launch.  Without `fused_softmax` they
 are a K5 logits launch and a library softmax.  LazyContext scores each
 frame with K5 and the masked softmax in plain tensor ops, as the JAX
 package did in XLA, and lazy_mode="gathered" runs engine.lazy's library
@@ -144,7 +144,7 @@ def _fused_posteriors(net, acts, masks, *, backend, out_dim, semantics, fast, bl
     """Output layer + softmax: K4 (masks optional, bf16 with `fast`), or K6
     for masked block-sparse calls (f32 only), when the output layer fits
     them (uses_resident_output); otherwise one K8 launch (skipping for
-    block-sparse) and the normalize in tensor ops.  The plain versions of
+    block-sparse) and one normalize launch.  The plain versions of
     the same routes on backend "torch".  Unlike the JAX package, no batch is
     cut into 8192-row chunks: that bounded a VMEM scratch of the TPU kernel,
     and K8 keeps its row stats in registers."""

@@ -78,14 +78,16 @@ _SIGNATURES = {
     "fdn_resident_softmax_wgmma_max_clusters": (ctypes.c_int, [ctypes.c_int] * 2),
     "fdn_output_logits": (
         ctypes.c_int,
-        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, _P],
+        [_P, _P, _P, _P, ctypes.c_float, _P, *[ctypes.c_int] * 5, _P],
     ),
+    "fdn_output_logits_smem_bytes": (ctypes.c_longlong, []),
     "fdn_flash_stats": (
         ctypes.c_int,
         [_P, _P, _P, _P, ctypes.c_float, _P, *[ctypes.c_int] * 5, _P, _P, _P, _P,
          *[ctypes.c_int] * 4, _P],
     ),
+    "fdn_flash_stats_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_normalize_stats": (ctypes.c_int, [_P, _P, _P, _P, _P, *[ctypes.c_int] * 4, _P]),
 }
 
 _lock = threading.Lock()

@@ -9,9 +9,9 @@ adds one to its launch count (`launch_counts`), which is how a run shows
 that its main path went through the kernels.
 
 The kernels read their int8 weights transposed, K contiguous ([N, K], or
-[L, N, K] for the stack; `kernel_layout`), so that every tensor-core
-operand is one `ldmatrix`; the plain versions keep the JAX package's
-[K, N].  A wrapper given CPU tensors transposes back for its plain version.
+[L, N, K] for the stack; `kernel_layout`), the K-major operand that TMA
+copies and wgmma reads; the plain versions keep the JAX package's [K, N].
+A wrapper given CPU tensors transposes back for its plain version.
 
     K1 bias_sigmoid_i8                the quantized-sigmoid epilogue as its own kernel
     K9 input_layer                    the float input layer: 3xTF32 product + K1's
@@ -30,15 +30,16 @@ operand is one `ldmatrix`; the plain versions keep the JAX package's
     K8 flash_stats                    int8 output layer -> logits + softmax row
                                       stats (max, sum-exp), masked or not, any K
        flash_stats_block_sparse       K8 skipping all-inactive tiles
+       normalize_stats                K8's normalize, exp(z - m) / s, one pass
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 
-K2, K3, K4, K6, K7 and K9 run Hopper's warp-specialised shape
-(csrc/hopper.cuh: TMA stages, wgmma products); K5 and K8 run the ldmatrix +
-mma.sync tile engine of csrc/common.cuh.  K2, K3 and K7 run blocks of 64
-frames in clusters of wgmma_cluster(B) blocks that share weight stages by
-multicast; K4 and K6 run clusters of 2 blocks that share 64 frames and
-split the output columns.  K9 takes 128 frames per block.
+Every product runs Hopper's warp-specialised shape (csrc/hopper.cuh: TMA
+stages, wgmma products).  K2, K3, K5 and K7 run blocks of 64 frames in
+clusters of wgmma_cluster(B) blocks that share weight stages by multicast
+(K2 and K5 are one kernel with two epilogues); K4, K6 and K8 run clusters
+of 2 blocks that share 64 frames and split the output columns.  K9 takes
+128 frames per block.
 
 K9 reads the input weight as `input_layer_operand(w)`: W transposed and
 split into two TF32 halves, made once (cuda_backend.prepare).
@@ -60,8 +61,11 @@ HIDDEN_STACK_FRAMES = 64
 RESIDENT_SOFTMAX_FRAMES = 64
 OUTPUT_LOGITS_FRAMES = 64
 FLASH_STATS_FRAMES = 64
-#: K-stage depth and output-column tile of the shared tile engine
-#: (kBK, kBN in csrc/common.cuh); pad_qnet pads node dims to TILE_N
+#: the widest output layer the skipping stats kernel takes: each block of a
+#: pair lists at most 8192 of its column tiles (csrc/flash_stats.cu)
+FLASH_STATS_MAX_SKIP_N = 2 * 8192 * 128
+#: K-stage depth and output-column tile of the wgmma loop (kStageK, kTileN
+#: in csrc/hopper.cuh); pad_qnet pads node dims to TILE_N
 TILE_K = 128
 TILE_N = 128
 #: Hopper's opt-in shared-memory limit per block, where torch does not say
@@ -129,6 +133,9 @@ KERNELS = {
         "fastdnn_tpu_torch/csrc/flash_stats.cu",
         "fastdnn_tpu/ops/pallas_kernels.py:814, :853",
     ),
+    "normalize_stats": Kernel(
+        "fastdnn_tpu_torch/csrc/flash_stats.cu", "fastdnn_tpu/ops/pallas_kernels.py:572-585"
+    ),
 }
 
 #: the lazy semantics as the resident-softmax kernels number them
@@ -187,18 +194,20 @@ def _launch(name: str, device: torch.device, fn, *args) -> None:
         _counts[name] += 1
 
 
-def _check(name, tensors, dtypes, shapes) -> torch.device:
-    """All tensors CUDA, on one device, contiguous, of the given dtypes and
-    shapes (None in a shape matches any size)."""
+def _check(name, tensors, dtypes, shapes, *, cuda: bool = True) -> torch.device:
+    """All tensors on one device (a CUDA one unless `cuda` is False), of the
+    given dtypes and shapes (None in a shape matches any size), and
+    contiguous on the card."""
     device = tensors[0].device
     for t, dtype, shape in zip(tensors, dtypes, shapes):
-        if t.device != device or t.device.type != "cuda":
-            raise ValueError(f"{name}: every tensor must be on one CUDA device, got {t.device}")
+        if t.device != device or (cuda and t.device.type != "cuda"):
+            raise ValueError(f"{name}: every tensor must be on one {'CUDA ' if cuda else ''}"
+                             f"device, got {t.device}")
         if t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
+        if t.device.type == "cuda" and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return device
 
@@ -455,20 +464,23 @@ def block_skip_share(masks: torch.Tensor) -> float:
 
 def output_logits(acts, w_t, colsum, inv_scale: float, bias) -> torch.Tensor:
     """K5: output-layer logits, s8 [B, K] x s8 [K, N] -> f32 [B, N]; the
-    weight given as w_t = kernel_layout(w), [N, K].  Plain version:
-    ops.matmul.output_logits."""
+    weight given as w_t = kernel_layout(w), [N, K].  K2's kernel with an f32
+    epilogue.  Plain version: ops.matmul.output_logits."""
     if acts.device.type == "cpu":
         return plain.output_logits(acts, w_t.t(), colsum, inv_scale, bias)
     device = _output_layer_shapes("output_logits", acts, w_t, colsum, bias, None,
                                   OUTPUT_LOGITS_FRAMES)
     b, k = acts.shape
     n = w_t.shape[0]
+    _check_tma_weight("output_logits", w_t)
+    _check_tma_weight("output_logits", acts, "the activations")
     out = torch.empty((b, n), dtype=torch.float32, device=device)
     if b:
         lib = _build.load()
+        _require_smem("output_logits", device, lib.fdn_output_logits_smem_bytes())
         _launch("output_logits", device, lib.fdn_output_logits,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
-                float(inv_scale), out.data_ptr(), b, k, n)
+                float(inv_scale), out.data_ptr(), b, k, n, wgmma_cluster(b))
     return out
 
 
@@ -480,6 +492,8 @@ def _stats_args(name, acts, w_t, colsum, bias, masks, valid_count, semantics):
         raise ValueError(f"{name}: valid_count={valid_count} must be in [0, {n}]")
     if semantics not in _SEMANTICS:
         raise ValueError(f"{name}: unknown lazy semantics {semantics!r}")
+    _check_tma_weight(name, w_t)
+    _check_tma_weight(name, acts, "the activations")
     return device, _SEMANTICS[semantics]
 
 
@@ -500,7 +514,8 @@ def flash_stats(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, valid_
     w_t = kernel_layout(w), [N, K].  masks: None or u8 [B, N] under
     `semantics`; columns at or beyond `valid_count` are capped at -1e30.
     `fast` -> (z_rel bf16 [B, N], m, s, tile_max f32 [B, N / 128]).  No limit
-    on K.  Plain version: ops.matmul.flash_stats."""
+    on K: the activations stream with the weight stages.  Plain version:
+    ops.matmul.flash_stats."""
     if acts.device.type == "cpu":
         return plain.flash_stats(acts, w_t.t(), colsum, inv_scale, bias, masks,
                                  valid_count=valid_count, semantics=semantics, fast=fast)
@@ -511,6 +526,7 @@ def flash_stats(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, valid_
     z, m, s, tile_max = _stats_outputs(b, n, device, fast)
     if b:
         lib = _build.load()
+        _require_smem("flash_stats", device, lib.fdn_flash_stats_smem_bytes(0))
         _launch("flash_stats", device, lib.fdn_flash_stats,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), None if masks is None else masks.data_ptr(), code,
@@ -525,8 +541,8 @@ def flash_stats_block_sparse(acts, w_t, colsum, inv_scale: float, bias, masks, *
     """K8 masked, skipping the weight loads and products of every
     (64-frame x 128-column) tile whose mask is all zero -> (z f32 [B, N],
     m, s f32 [B, 1]).  A skipped tile stores the fill logit (with
-    `capped_fill`, -1e30 at or beyond `valid_count`).  Plain version:
-    ops.matmul.block_sparse_stats."""
+    `capped_fill`, -1e30 at or beyond `valid_count`).  N at most
+    FLASH_STATS_MAX_SKIP_N.  Plain version: ops.matmul.block_sparse_stats."""
     if acts.device.type == "cpu":
         return plain.block_sparse_stats(acts, w_t.t(), colsum, inv_scale, bias, masks,
                                         valid_count=valid_count, semantics=semantics,
@@ -535,11 +551,46 @@ def flash_stats_block_sparse(acts, w_t, colsum, inv_scale: float, bias, masks, *
                                valid_count, semantics)
     b, k = acts.shape
     n = w_t.shape[0]
+    if n > FLASH_STATS_MAX_SKIP_N:
+        raise ValueError(f"flash_stats_block_sparse: N={n} exceeds {FLASH_STATS_MAX_SKIP_N}")
     z, m, s, _ = _stats_outputs(b, n, device, False)
     if b:
         lib = _build.load()
+        _require_smem("flash_stats_block_sparse", device, lib.fdn_flash_stats_smem_bytes(1))
         _launch("flash_stats_block_sparse", device, lib.fdn_flash_stats,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), masks.data_ptr(), code, int(valid_count), 1,
                 int(capped_fill), 0, z.data_ptr(), m.data_ptr(), s.data_ptr(), None, b, k, n)
     return z, m, s
+
+
+def normalize_stats(z, m, s, *, out_dim: int, tile_max=None) -> torch.Tensor:
+    """K8's normalize in one pass: exp(z - m) / max(s, tiny) over the first
+    `out_dim` columns of z [B, N] -> [B, out_dim], rows whose max stayed at
+    the cap (m <= -1e29: no active senone) all 0.  z f32 with m, s f32
+    [B, 1] -> f32; with `tile_max` f32 [B, N / 128] (fast stats), z is the
+    bf16 z_rel, rebuilt as z_rel + its tile's max, -> bf16.  Shapes and
+    dtypes are checked on every device.  Plain version:
+    ops.matmul.normalize_stats."""
+    fast = tile_max is not None
+    if z.dim() != 2:
+        raise ValueError(f"normalize_stats: z must be [B, N], got {tuple(z.shape)}")
+    b, n = z.shape
+    on_card = z.device.type != "cpu"
+    if fast or on_card:  # the kernel's tiles; the fast stats' tile maxes
+        _require_multiples("normalize_stats", N=(n, TILE_N))
+    tensors = [z, m, s] + ([tile_max] if fast else [])
+    dtypes = [torch.bfloat16 if fast else torch.float32] + [torch.float32] * (len(tensors) - 1)
+    device = _check("normalize_stats", tensors, dtypes, [(b, n), (b, 1), (b, 1), (b, n // TILE_N)],
+                    cuda=on_card)
+    if not 0 < out_dim <= n:
+        raise ValueError(f"normalize_stats: out_dim={out_dim} must be in [1, {n}]")
+    if not on_card:
+        return plain.normalize_stats(z, m, s, out_dim=out_dim, tile_max=tile_max)
+    out = torch.empty((b, out_dim), dtype=z.dtype, device=device)
+    if b:
+        lib = _build.load()
+        _launch("normalize_stats", device, lib.fdn_normalize_stats,
+                z.data_ptr(), m.data_ptr(), s.data_ptr(),
+                None if tile_max is None else tile_max.data_ptr(), out.data_ptr(), b, n, out_dim)
+    return out

@@ -118,7 +118,8 @@ def _sharded_fused_posteriors(net: QuantizedNet, acts, masks, *, out_dim: int, s
     """Tensor-parallel fused softmax: each rank's stats kernel (K8, or its
     plain version on backend "torch") gives its local logits and
     unnormalized (max, sum-exp) in one pass; two all-reduces of one f32 per
-    row make them global, and one read of the local logits normalizes.  The
+    row make them global, and one read of the local logits normalizes (one
+    normalize launch on the CUDA backend).  The
     rank's valid column count, clamp(out_dim - r n_local, 0, n_local), is a
     runtime argument of the kernel.
 
@@ -145,9 +146,11 @@ def _sharded_fused_posteriors(net: QuantizedNet, acts, masks, *, out_dim: int, s
                                                       semantics=semantics)
     m = _all_reduce(m_l.clone(), dist.ReduceOp.MAX, group)
     s = _all_reduce(s_l * torch.exp(m_l - m), dist.ReduceOp.SUM, group)
-    # rows whose global max stayed at the cap (no active senone anywhere,
-    # active_only) -> zeros
-    p = xops.normalize_stats(z, m, s)
+    # one read of the local logits (the normalize kernel on the CUDA
+    # backend); rows whose global max stayed at the cap (no active senone
+    # anywhere, active_only) -> zeros
+    normalize = xops.normalize_stats if backend == "torch" else kernels.normalize_stats
+    p = normalize(z, m, s, out_dim=n_local)
     return p.to(torch.bfloat16) if fast else p
 
 

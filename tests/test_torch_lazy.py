@@ -615,3 +615,17 @@ def test_lazy_kernels_match_plain_versions_on_card(cuda_device, semantics):
     fast = kernels.resident_softmax(x, w_t, colsum, float(inv), bias, masks, out_dim=450,
                                     semantics=semantics, fast=True)
     torch.testing.assert_close(fast.float(), want, rtol=2e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 192, 256])
+def test_output_logits_kernel_bitwise_on_card(cuda_device, b):
+    """K5 (K2's kernel with an f32 epilogue) bitwise with its plain version:
+    one frame block (its columns split over the SMs), three (clusters of 1)
+    and four (clusters of 2), on a square and a non-square layer."""
+    rng = np.random.default_rng(b)
+    for k, n in ((256, 384), (384, 1024)):
+        x, w, colsum, inv, bias = (torch.as_tensor(a).to(cuda_device) if isinstance(a, np.ndarray)
+                                   else a for a in _layer(rng, b, k, n))
+        got = kernels.output_logits(x, kernels.kernel_layout(w), colsum, float(inv), bias)
+        assert torch.equal(got, tops.output_logits(x, w, colsum, float(inv), bias)), (b, k, n)

@@ -259,9 +259,16 @@ class TestWrappers:
 
     def test_library_hash_covers_the_headers(self):
         names = {p.name for p in _build.CSRC.iterdir() if p.suffix == ".cuh"}
-        assert {"common.cuh", "hopper.cuh"} <= names
-        for src in ("hidden_layer.cu", "hidden_stack.cu", "input_layer.cu", "resident_softmax.cu"):
+        assert {"common.cuh", "hopper.cuh", "row_stats.cuh"} <= names
+        for src in ("hidden_layer.cu", "hidden_stack.cu", "input_layer.cu", "resident_softmax.cu",
+                    "hidden_layer_packed.cu", "output_logits.cu", "flash_stats.cu"):
             assert '#include "hopper.cuh"' in (_build.CSRC / src).read_text()
+        for src in ("resident_softmax.cu", "flash_stats.cu"):
+            assert '#include "row_stats.cuh"' in (_build.CSRC / src).read_text()
+        # the retired mma.sync engine is gone from every source
+        for path in _build.CSRC.iterdir():
+            text = path.read_text()
+            assert "mma.sync" not in text and "ldmatrix" not in text, path.name
 
     def test_sources_note_what_they_replace(self):
         for k in kernels.KERNELS.values():

@@ -240,6 +240,223 @@ class TestBlockSparseStats:
             np.testing.assert_array_equal(got[5].numpy(), 0.0)
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+class TestNormalizeStats:
+    """K8's normalize wrapper (kernels.normalize_stats, its plain version on
+    the CPU) after the stats wrappers, against the Pallas posteriors it
+    replaces the fused XLA pass of: out_dim below N, the all-masked
+    active_only row exactly 0."""
+
+    @pytest.mark.parametrize("mode", ["unmasked", *SEMANTICS])
+    def test_matches_pallas(self, shape, mode):
+        b, k, n, out, seed = shape
+        args, masks, _ = _layer(*shape)
+        m = None if mode == "unmasked" else masks
+        sem = "reference" if mode == "unmasked" else mode
+        want = np.asarray(pk.output_layer_posteriors(
+            *args, None if m is None else jnp.asarray(m), out_dim=out, semantics=sem, **TILES))
+        z, mx, s = kernels.flash_stats(*_wrapper_args(*args),
+                                       None if m is None else torch.as_tensor(m),
+                                       valid_count=out, semantics=sem)
+        got = kernels.normalize_stats(z, mx, s, out_dim=out)
+        assert got.shape == (b, out) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=SOFTMAX_ATOL)
+        if mode == "active_only":
+            np.testing.assert_array_equal(got[5].numpy(), 0.0)
+
+    @pytest.mark.parametrize("mode", ["unmasked", "reference"])
+    def test_fast_matches_pallas(self, shape, mode):
+        b, k, n, out, seed = shape
+        args, masks, _ = _layer(*shape)
+        m = None if mode == "unmasked" else masks
+        want = np.asarray(pk.output_layer_posteriors(
+            *args, None if m is None else jnp.asarray(m), out_dim=out, fast=True,
+            **TILES).astype(jnp.float32))
+        z_rel, mx, s, tile_max = kernels.flash_stats(
+            *_wrapper_args(*args), None if m is None else torch.as_tensor(m), valid_count=out,
+            fast=True)
+        got = kernels.normalize_stats(z_rel, mx, s, out_dim=out, tile_max=tile_max)
+        assert got.shape == (b, out) and got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_RTOL, atol=BF16_ATOL)
+
+    @pytest.mark.parametrize("semantics", SEMANTICS)
+    def test_block_sparse_matches_pallas(self, shape, semantics):
+        b, k, n, out, seed = shape
+        args, _, bands = _layer(*shape)
+        want = np.asarray(pk.output_layer_posteriors_block_sparse(
+            *args, jnp.asarray(bands), out_dim=out, semantics=semantics, **TILES))
+        z, mx, s = kernels.flash_stats_block_sparse(
+            *_wrapper_args(*args), torch.as_tensor(bands), valid_count=out, semantics=semantics)
+        got = kernels.normalize_stats(z, mx, s, out_dim=out).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=SOFTMAX_ATOL)
+        if semantics == "active_only":
+            np.testing.assert_array_equal(got[5], 0.0)
+
+    def test_all_capped_rows_are_zero(self, shape):
+        """valid_count 0: every column capped, every row's max at -1e30."""
+        b, k, n, out, seed = shape
+        args, _, _ = _layer(*shape)
+        z, mx, s = kernels.flash_stats(*_wrapper_args(*args), valid_count=0)
+        assert (mx.numpy() == np.float32(-1e30)).all()
+        got = kernels.normalize_stats(z, mx, s, out_dim=out)
+        np.testing.assert_array_equal(got.numpy(), 0.0)
+
+
+def _merge(a, b):
+    """rowstats::merge_stats on rows of (m, s) pairs: a pair that saw no
+    column (-inf, 0) leaves the other as it is."""
+    (am, a_s), (bm, b_s) = a, b
+    mm = np.maximum(am, bm)
+    with np.errstate(invalid="ignore"):
+        both = a_s * np.exp(am - mm) + b_s * np.exp(bm - mm)
+    m = np.where(bm == -np.inf, am, np.where(am == -np.inf, bm, mm))
+    s = np.where(bm == -np.inf, a_s, np.where(am == -np.inf, b_s, both))
+    return m.astype(np.float32), s.astype(np.float32)
+
+
+def _k8_fold(z, valid_count, semantics="reference", active=None):
+    """(m, s) [B, 1] from logits z [B, N] in K8's fold order
+    (csrc/flash_stats.cu): per 64-frame block, the two blocks of a pair take
+    the first and second half of the column tiles (rowstats::ColumnPart),
+    the two consumer warpgroups of a block take alternate tiles of its list
+    (every tile, or with `active` [B / 64, N / 128] the active ones), each
+    folding its tiles online; the warpgroups' pairs merge, then (skipping,
+    under reference) the block's skipped valid columns as the pair
+    (0, count), then the blocks in rank order; m is floored at -1e30."""
+    z = np.asarray(z, np.float32)
+    b, n = z.shape
+    tiles = n // 128
+    per = -(-tiles // 2)
+    parts = [(g0, min(tiles, g0 + per)) for g0 in (0, per)]
+    m_out = np.empty((b, 1), np.float32)
+    s_out = np.empty((b, 1), np.float32)
+    empty = (np.full(64, -np.inf, np.float32), np.zeros(64, np.float32))
+    for r0 in range(0, b, 64):
+        rows = z[r0:r0 + 64]
+        total = empty
+        for g0, g1 in parts:
+            listed = [g for g in range(g0, g1) if active is None or active[r0 // 64, g]]
+            pairs = []
+            for w in range(2):
+                m, s = empty
+                for g in listed[w::2]:
+                    t = rows[:, g * 128:(g + 1) * 128]
+                    m_new = np.maximum(m, t.max(axis=1))
+                    e = np.exp(t - m_new[:, None]).sum(axis=1, dtype=np.float32)
+                    s = (s * np.exp(m - m_new) + e).astype(np.float32)
+                    m = m_new
+                pairs.append((m, s))
+            block = _merge(*pairs)
+            if active is not None and semantics == "reference":
+                skipped = sum(min(max(valid_count - g * 128, 0), 128)
+                              for g in range(g0, g1) if not active[r0 // 64, g])
+                if skipped:
+                    block = _merge(block, (np.zeros(64, np.float32),
+                                           np.full(64, skipped, np.float32)))
+            total = _merge(total, block)
+        m_out[r0:r0 + 64, 0] = np.maximum(total[0], np.float32(-1e30))
+        s_out[r0:r0 + 64, 0] = total[1]
+    return m_out, s_out
+
+
+# 33 column tiles: the pair splits them 17 / 16, and the warpgroups of a
+# block take 9 / 8 and 8 / 8
+FOLD_SHAPE = (128, 128, 4224, 4100, 4224)
+
+
+class TestFoldOrder:
+    """A CPU model of K8's fold order (_k8_fold) on the Pallas stats
+    kernels' own logits, in interpret mode: m bitwise, s within rtol 1e-5,
+    for valid counts N, 4096 and 0, dense and skipping under both
+    semantics; and on the plain version's logits against its (m, s)."""
+
+    @pytest.mark.parametrize("valid", [4224, 4096, 0])
+    @pytest.mark.parametrize("mode", ["unmasked", *SEMANTICS])
+    def test_dense_fold_matches_pallas(self, mode, valid):
+        args, masks, _ = _layer(*FOLD_SHAPE)
+        m = None if mode == "unmasked" else masks
+        sem = "reference" if mode == "unmasked" else mode
+        jz, jm, js = (np.asarray(t) for t in pk.output_layer_flash_stats(
+            *args, None if m is None else jnp.asarray(m), valid_count=jnp.int32(valid),
+            semantics=sem, **TILES))
+        m_model, s_model = _k8_fold(jz, valid, sem)
+        np.testing.assert_array_equal(m_model, jm)
+        np.testing.assert_allclose(s_model, js, rtol=STATS_RTOL, atol=0)
+        z, pm, ps = kernels.flash_stats(*_wrapper_args(*args),
+                                        None if m is None else torch.as_tensor(m),
+                                        valid_count=valid, semantics=sem)
+        m_model, s_model = _k8_fold(z.numpy(), valid, sem)
+        np.testing.assert_array_equal(m_model, pm.numpy())
+        np.testing.assert_allclose(s_model, ps.numpy(), rtol=STATS_RTOL, atol=0)
+
+    @pytest.mark.parametrize("valid", [4224, 4096, 0])
+    @pytest.mark.parametrize("semantics", SEMANTICS)
+    def test_skipping_fold_matches_pallas(self, semantics, valid):
+        args, _, bands = _layer(*FOLD_SHAPE)
+        jz, jm, js = (np.asarray(t) for t in pk.output_flash_stats_block_sparse(
+            *args, jnp.asarray(bands), valid_count=jnp.int32(valid), semantics=semantics,
+            **TILES))
+        active = tops.tile_activity(torch.as_tensor(bands)).numpy()
+        assert 0 < active.mean() < 0.5  # most tiles are skipped
+        m_model, s_model = _k8_fold(jz, valid, semantics, active)
+        np.testing.assert_array_equal(m_model, jm)
+        np.testing.assert_allclose(s_model, js, rtol=STATS_RTOL, atol=0)
+        z, pm, ps = kernels.flash_stats_block_sparse(
+            *_wrapper_args(*args), torch.as_tensor(bands), valid_count=valid,
+            semantics=semantics, capped_fill=True)
+        m_model, s_model = _k8_fold(z.numpy(), valid, semantics, active)
+        np.testing.assert_array_equal(m_model, pm.numpy())
+        np.testing.assert_allclose(s_model, ps.numpy(), rtol=STATS_RTOL, atol=0)
+
+
+def _normalize_operands(fast=False):
+    rng = np.random.default_rng(21)
+    z = torch.as_tensor(rng.standard_normal((64, 256)).astype(np.float32))
+    m, s = z.amax(dim=1, keepdim=True), torch.ones((64, 1))
+    if fast:
+        return z.to(torch.bfloat16), m, s, torch.zeros((64, 2))
+    return z, m, s, None
+
+
+@pytest.mark.parametrize("case,match", [
+    ("z f64", "expected torch.float32"),
+    ("z 1-d", r"z must be \[B, N\]"),
+    ("m [B]", "expected shape"),
+    ("s int32", "expected torch.float32"),
+    ("fast z f32", "expected torch.bfloat16"),
+    ("tile_max shape", "expected shape"),
+    ("fast N not a tile multiple", "multiple of 128"),
+    ("out_dim 0", "out_dim=0"),
+    ("out_dim past N", "out_dim=257"),
+])
+def test_normalize_stats_refusals(case, match):
+    """The normalize wrapper refuses wrong dtypes and shapes on every
+    device, before it dispatches."""
+    z, m, s, tile_max = _normalize_operands(fast=case.startswith(("fast", "tile_max")))
+    out_dim = 200
+    if case == "z f64":
+        z = z.double()
+    elif case == "z 1-d":
+        z = z[0]
+    elif case == "m [B]":
+        m = m[:, 0]
+    elif case == "s int32":
+        s = s.int()
+    elif case == "fast z f32":
+        z = z.float()
+    elif case == "tile_max shape":
+        tile_max = tile_max[:, :1]
+    elif case == "fast N not a tile multiple":
+        z, tile_max = z[:, :200], tile_max[:, :1]
+        out_dim = 100
+    elif case == "out_dim 0":
+        out_dim = 0
+    elif case == "out_dim past N":
+        out_dim = 257
+    with pytest.raises(ValueError, match=match):
+        kernels.normalize_stats(z, m, s, out_dim=out_dim, tile_max=tile_max)
+
+
 def _qnet(widths, out=64, seed=0, input_dim=32):
     return fdt.quantize_net(fdt.random_net(np.random.default_rng(seed), input_dim, widths, out))
 
@@ -310,3 +527,79 @@ class TestWideNet:
         assert (got.argmax(1) == want.argmax(1)).mean() >= ARGMAX_AGREEMENT
         if semantics == "active_only":
             np.testing.assert_array_equal(got[3], 0.0)
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs the same checks on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semantics", SEMANTICS)
+def test_stats_kernels_match_plain_versions_on_card(cuda_device, semantics):
+    """K8 (unmasked, masked, fast, skipping with and without capped_fill) and
+    its normalize against their plain versions on the card: z, m and the
+    tile maxes bitwise, s within rtol 1e-5, posteriors within 3e-5 (bf16:
+    rtol 2e-2, atol 1e-3).  B = 192 (three pairs of blocks), N = 640 (five
+    tiles: the pair splits them 3 / 2)."""
+    b, k, n, out = 192, 256, 640, 600
+    args, masks, bands = _layer(b, k, n, out, 640)
+    x, w_t, colsum, inv, bias = (t.to(cuda_device) if isinstance(t, torch.Tensor) else t
+                                 for t in _wrapper_args(*args))
+    w = w_t.t()
+    masks, bands = torch.as_tensor(masks).to(cuda_device), torch.as_tensor(bands).to(cuda_device)
+
+    def same_stats(got, want):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=STATS_RTOL, atol=0)
+
+    for valid in (out, n // 2, 0):
+        for m in (None, masks):
+            got = kernels.flash_stats(x, w_t, colsum, inv, bias, m, valid_count=valid,
+                                      semantics=semantics)
+            same_stats(got, tops.flash_stats(x, w, colsum, inv, bias, m, valid_count=valid,
+                                             semantics=semantics))
+            p = kernels.normalize_stats(*got, out_dim=out)
+            torch.testing.assert_close(p, tops.normalize_stats(*got, out_dim=out), rtol=0,
+                                       atol=SOFTMAX_ATOL)
+        for capped in (False, True):
+            got = kernels.flash_stats_block_sparse(x, w_t, colsum, inv, bias, bands,
+                                                   valid_count=valid, semantics=semantics,
+                                                   capped_fill=capped)
+            same_stats(got, tops.block_sparse_stats(x, w, colsum, inv, bias, bands,
+                                                    valid_count=valid, semantics=semantics,
+                                                    capped_fill=capped))
+    got = kernels.flash_stats(x, w_t, colsum, inv, bias, masks, valid_count=out,
+                              semantics=semantics, fast=True)
+    want = tops.flash_stats(x, w, colsum, inv, bias, masks, valid_count=out, semantics=semantics,
+                            fast=True)
+    same_stats(got, want)
+    assert torch.equal(got[3], want[3])
+    p = kernels.normalize_stats(*got[:3], out_dim=out, tile_max=got[3])
+    assert p.dtype == torch.bfloat16
+    torch.testing.assert_close(p.float(), tops.normalize_stats(
+        *got[:3], out_dim=out, tile_max=got[3]).float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semantics", SEMANTICS)
+def test_skipping_stats_past_k6_width_on_card(cuda_device, semantics):
+    """K8's skipping variant lists up to 8192 column tiles per block of a
+    pair: at N = 131,456 each block takes 514 tiles, past the 256 of K6's
+    list.  z and m bitwise and s within rtol 1e-5 of its plain version."""
+    b, k, n, out = 128, 128, 2 * 65536 + 3 * 128, 131000
+    assert n <= kernels.FLASH_STATS_MAX_SKIP_N
+    args, _, bands = _layer(b, k, n, out, 131)
+    x, w_t, colsum, inv, bias = (t.to(cuda_device) if isinstance(t, torch.Tensor) else t
+                                 for t in _wrapper_args(*args))
+    bands = torch.as_tensor(bands).to(cuda_device)
+    for capped, valid in ((False, n), (True, out)):
+        got = kernels.flash_stats_block_sparse(x, w_t, colsum, inv, bias, bands,
+                                               valid_count=valid, semantics=semantics,
+                                               capped_fill=capped)
+        want = tops.block_sparse_stats(x, w_t.t(), colsum, inv, bias, bands, valid_count=valid,
+                                       semantics=semantics, capped_fill=capped)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=STATS_RTOL, atol=0)
