@@ -25,7 +25,12 @@ int4 layer (K7) against K2, all in turns, the logits kernel (K5) at the
 LazyContext's 64 frames and at 8192, single, queued and under the profiler,
 with each kernel's bound and, as a yardstick, the
 product alone at its shape (`torch._int_mm`; for K9 the f64 and the f32
-`torch.matmul`), which the port never calls.  Any failed check raises and
+`torch.matmul`), which the port never calls.  Then the serving path on the
+flagship net: the StreamingScorer fed by 8 submitter threads (every result
+against serial scoring, in turns with a serial loop, under the profiler,
+and where one 8192-frame batch's time goes), a ScoreServer on loopback TCP
+driven by bench_serve.run_load with 16 clients, and 8 threads sharing one
+Scorer beside 4 LazyContexts decoding at once.  Any failed check raises and
 the script exits non-zero.
 The last line of standard output is one JSON object:
 
@@ -40,10 +45,13 @@ from __future__ import annotations
 import json
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -67,6 +75,13 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "tf32": 494.7e12}
 HBM_BYTES_PER_S = 3.35e12
 COUNT_FLIP_RATE = 1e-4  # the input layer's gate: <= 1 count on <= 1e-4 of the entries
 SMOKE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_cli"
+# the serving phases: bench_serve's mix (utterances of 100-1000 frames, a
+# quarter of them masked at density 0.08), the stream's and the server's
+# defaults (8192-frame batches, 3 ms wait)
+STREAM_UTTERANCES, STREAM_SUBMITTERS = 96, 8
+SERVE_CLIENTS, SERVE_SECONDS, SERVE_KEEP = 16, 5.0, 8
+UTT_MIN, UTT_MAX, MASKED_FRAC, SERVE_DENSITY = 100, 1000, 0.25, 0.08
+SERVE_BOUND = 3e-5  # every streamed or served posterior against serial scoring
 
 
 def phase(title: str) -> None:
@@ -356,12 +371,16 @@ def main() -> int:
     report = {name: {"max_abs_err": None, "ms": None, "plain_ms": None} for name in kernels.KERNELS}
     path_launches = dict.fromkeys(kernels.KERNELS, 0)
 
-    def drive(title: str, expect: dict, fn):
+    def drive(title: str, expect, fn):
         """Run one path with every launch count set to 0 just before, check
-        each count exactly just after, and add them to the path's totals."""
+        each count exactly just after, and add them to the path's totals.
+        `expect` is the counts, or a function of the path's result that
+        gives them (a stream launches once per batch it formed)."""
         kernels.reset_launch_counts()
         result = fn()
         counts = kernels.launch_counts()
+        if callable(expect):
+            expect = expect(result)
         print(f"  launch counts of {title}: {counts}")
         for name, count in counts.items():
             check(count == expect.get(name, 0),
@@ -404,6 +423,26 @@ def main() -> int:
     k1 = kernels.bias_sigmoid_i8(lin, r.input_b)
     check(torch.equal(k1, plain.bias_sigmoid_i8(lin, r.input_b)),
           f"K1 bias_sigmoid_i8 [8192, {r.input_w.shape[1]}] bitwise")
+    # the 16-column vector path (N a multiple of 16), every row's scalar
+    # tail and the misaligned rows: N = 5127 puts every row after the first
+    # off a 16-byte boundary, and a slice of a larger buffer 4 bytes past one
+    # puts every row there
+    k1_rng = np.random.default_rng(SEED + 1)
+    k1_buf = torch.from_numpy(k1_rng.uniform(-8, 8, 8192 * SENONES + 1).astype(np.float32)).to(dev)
+    k1_cases = {
+        f"[8192, {SENONES}]": k1_buf[:8192 * SENONES].view(8192, SENONES),
+        "[3, 5127]": k1_buf[:3 * 5127].view(3, 5127),
+        "[3, 5127], base 4 bytes past a 16-byte boundary": k1_buf[1:1 + 3 * 5127].view(3, 5127),
+        "[64, 2048], base 4 bytes past a 16-byte boundary": k1_buf[1:1 + 64 * 2048].view(64, 2048),
+        "[1, 1]": k1_buf[:1].view(1, 1),
+        "[0, 2048]": k1_buf[:0].view(0, 2048),
+    }
+    for what, x_k1 in k1_cases.items():
+        b_k1 = torch.from_numpy(
+            (k1_rng.standard_normal(x_k1.shape[1]) * 0.5).astype(np.float32)).to(dev)
+        got = kernels.bias_sigmoid_i8(x_k1, b_k1)
+        check(got.shape == x_k1.shape and torch.equal(got, plain.bias_sigmoid_i8(x_k1, b_k1)),
+              f"K1 bias_sigmoid_i8 {what} bitwise")
     report["bias_sigmoid_i8"]["max_abs_err"] = 0.0
 
     # K9 against its plain version (the f64 product rounded once to f32):
@@ -568,10 +607,30 @@ def main() -> int:
     for name, ms in turn_ms["score_device"].items():
         print(f"  score_device B=8192 {name:8s} {ms:.4f} ms/batch, {audio_s / ms * 1e3:.1f} audio-s/s"
               f"  [{smi}]")
-    report["bias_sigmoid_i8"]["ms"] = time_ms(torch, lambda: kernels.bias_sigmoid_i8(lin, r.input_b))
+    # K1: single calls (the wrapper's host time included), 20 queued back to
+    # back, under the profiler, and the wrapper's host time alone
+    k1_fn = lambda: kernels.bias_sigmoid_i8(lin, r.input_b)  # noqa: E731
+    report["bias_sigmoid_i8"]["ms"] = time_ms(torch, k1_fn)
     report["bias_sigmoid_i8"]["plain_ms"] = time_ms(torch, lambda: plain.bias_sigmoid_i8(lin, r.input_b))
-    print(f"  bias_sigmoid_i8 [8192, 2048] kernel {report['bias_sigmoid_i8']['ms']:.4f} ms, "
-          f"plain {report['bias_sigmoid_i8']['plain_ms']:.4f} ms  [{smi}]")
+    k1_queued = back_to_back_ms(torch, k1_fn)
+    _, device = profile_device(torch, k1_fn, 20)
+    k1_traced = (f"{sum(row[1] for row in device):.4f} ms under the profiler"
+                 if device else "profiler: no device time recorded")
+    k1_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        k1_fn()
+    k1_host_us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    print(f"  bias_sigmoid_i8 [8192, 2048] single {report['bias_sigmoid_i8']['ms']:.4f} ms, 20 queued "
+          f"{k1_queued:.4f} ms per call, {k1_traced}; wrapper host time {k1_host_us:.2f} us per call "
+          f"(mean of 2000); plain {report['bias_sigmoid_i8']['plain_ms']:.4f} ms  [{smi}]")
+    k1_wide = k1_cases[f"[8192, {SENONES}]"]
+    k1_wide_bias = torch.zeros(SENONES, dtype=torch.float32, device=dev)
+    print(f"  bias_sigmoid_i8 [8192, {SENONES}] 20 queued "
+          f"{back_to_back_ms(torch, lambda: kernels.bias_sigmoid_i8(k1_wide, k1_wide_bias)):.4f} "
+          f"ms per call (bound {8192 * SENONES * 5 / HBM_BYTES_PER_S * 1e3:.4f} ms)  [{smi}]")
     # where score_device's device time goes, and how much of a window of
     # back-to-back calls the device is busy (torch.profiler, CUPTI): at B =
     # 8192 (the stack trunk) and 8320 (six K2 launches)
@@ -1336,6 +1395,234 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = tf32_switch
     print(f"  input_layer yardstick: torch.matmul f32 (TF32 off) [8192, {INPUT_DIM}] x "
           f"[{INPUT_DIM}, {k_dim}] {f32_ms:.4f} ms  [{smi}]")
+
+    phase(f"19. streaming: StreamingScorer on the flagship net, {STREAM_SUBMITTERS} submitter threads")
+    from fastdnn_tpu_torch.engine.stream import StreamingScorer
+    from fastdnn_tpu_torch.utils import timer
+
+    utt_rng = np.random.default_rng(SEED + 19)
+    utts = []
+    for i in range(STREAM_UTTERANCES):
+        n = int(utt_rng.integers(UTT_MIN, UTT_MAX + 1))
+        f = utt_rng.standard_normal((n, INPUT_DIM), dtype=np.float32)
+        m = None
+        if i % round(1 / MASKED_FRAC) == 0:
+            m = (utt_rng.random((n, SENONES), dtype=np.float32) < SERVE_DENSITY).astype(np.uint8)
+        utts.append((f, m))
+    sent = sum(f.shape[0] for f, _ in utts)
+    n_masked = sum(m is not None for _, m in utts)
+
+    def serial_run():
+        return [scorer.score(f) if m is None else scorer.score_masked(f, m) for f, m in utts]
+
+    def stream_run(ss):
+        """Every utterance submitted from STREAM_SUBMITTERS threads, each
+        submitting its share and then waiting on its futures."""
+        results, errors = [None] * len(utts), []
+
+        def submitter(t):
+            try:
+                futs = [(i, ss.submit(*utts[i])) for i in range(t, len(utts), STREAM_SUBMITTERS)]
+                for i, fut in futs:
+                    results[i] = fut.result(120)
+            except Exception as e:  # reported below; the phase fails
+                errors.append(e)
+
+        threads = [threading.Thread(target=submitter, args=(t,)) for t in range(STREAM_SUBMITTERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"streaming run: every submitter finished without an error ({errors[:1]})")
+        return results
+
+    want_s = serial_run()
+    with StreamingScorer(scorer, max_batch_frames=8192, max_wait_ms=3.0) as ss:
+        per_batch = lambda _: dict.fromkeys(  # noqa: E731
+            ("input_layer", "hidden_stack", "resident_softmax"), ss.throughput.batches)
+        got_s = drive("the streaming run", per_batch, lambda: stream_run(ss))
+        check(ss.throughput.frames == sent,
+              f"throughput.frames = {ss.throughput.frames} = the {sent} frames sent "
+              f"({STREAM_UTTERANCES} utterances, {n_masked} masked; {ss.throughput.batches} batches, "
+              f"mean fill {ss.throughput.mean_batch_fill():.1f})")
+        d_s = max(float(np.abs(g - w).max()) for g, w in zip(got_s, want_s))
+        check(all(g.shape == w.shape and g.dtype == np.float32 for g, w in zip(got_s, want_s))
+              and d_s <= SERVE_BOUND,
+              f"every streamed result within {SERVE_BOUND:g} of serial Scorer.score / score_masked "
+              f"(max |d| = {d_s:.3g})")
+
+        def timed(fn):
+            def run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+            return run
+
+        turns = {"serial Scorer loop": timed(serial_run), "stream": timed(lambda: stream_run(ss))}
+        secs = {name: [] for name in turns}
+        for name in list(turns) + list(turns)[::-1]:
+            secs[name].append(turns[name]())
+        print(f"  {sent} frames ({sent / FRAMES_PER_AUDIO_SECOND:.1f} audio-s) in turns: " + "; ".join(
+            f"{name} " + " / ".join(f"{sent / FRAMES_PER_AUDIO_SECOND / t:.1f}" for t in ts)
+            + " audio-s/s" for name, ts in secs.items()) + f"  [{smi}]")
+
+        # one more stream run under torch.profiler (CUPTI), through the
+        # port's own trace scope: which CUDA stream the copies and the
+        # kernels ran on, the kernels, the busy share
+        trace_dir = SMOKE_DIR.parent / "stream_trace"
+        with timer.trace(str(trace_dir)):
+            window_s = timed(lambda: stream_run(ss))()
+        events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    h2d = [e for e in copies if "HtoD" in e.get("name", "")]
+    d2h = [e for e in copies if "DtoH" in e.get("name", "")]
+    check(bool(kern) and bool(h2d),
+          f"the stream's trace recorded device activity ({len(kern)} kernels, {len(h2d)} uploads)")
+    kernel_streams = {e["args"].get("stream") for e in kern}
+    copy_streams = {e["args"].get("stream") for e in h2d}
+    check(not kernel_streams & copy_streams,
+          f"the host-to-device copies ran on CUDA stream(s) {sorted(copy_streams)}, the kernels "
+          f"on {sorted(kernel_streams)}")
+    names = sorted({e["name"] for e in kern})
+    busy = sum(e["dur"] for e in kern) / 1e6 / window_s
+    copy_s = {what: sum(e["dur"] for e in evs) / 1e6 for what, evs in (("HtoD", h2d), ("DtoH", d2h))}
+    print(f"  stream under torch.profiler: window {window_s * 1e3:.1f} ms; kernels busy "
+          f"{busy:.1%} of it ({len(kern)} launches); copies HtoD {copy_s['HtoD'] * 1e3:.1f} ms "
+          f"({len(h2d)}), DtoH {copy_s['DtoH'] * 1e3:.1f} ms ({len(d2h)})  [{smi}]")
+    for name in names:
+        rows_k = [e for e in kern if e["name"] == name]
+        print(f"    {len(rows_k):4d} x {sum(e['dur'] for e in rows_k) / len(rows_k) / 1e3:.4f} ms  "
+              f"{name[:110]}")
+    want_k = {"K9": "input_layer_kernel", "K3": "hidden_stack_wgmma_kernel",
+              "K4": "resident_softmax_wgmma_kernel<false", "K4 masked": "resident_softmax_wgmma_kernel<true"}
+    check(all(any(key in name for name in names) for key in want_k.values())
+          and not any(re.search("gemm|cutlass|cublas", name, re.I) for name in names),
+          "the stream ran K9, K3, K4 and K4 masked, and no library GEMM")
+
+    # where one 8192-frame batch's time goes: the kernels (phase 6's
+    # score_device), the frames' upload from pinned memory, the posteriors'
+    # download into pinned memory, the assembly of the frames on the host,
+    # and a server's tobytes and sendall over loopback TCP of the same bytes
+    pinned_in = torch.empty((8192, INPUT_DIM), dtype=torch.float32, pin_memory=True)
+    frames_8192 = frames[:8192]
+    posts = scorer.score_device(batch)
+    pinned_out = torch.empty(posts.shape, dtype=torch.float32, pin_memory=True)
+    masks_pinned = torch.empty((8192, SENONES), dtype=torch.uint8, pin_memory=True)
+    split = {
+        "kernels (score_device, phase 6)": turn_ms["score_device"]["kernels"],
+        "H2D frames, 14.2 MB pinned": time_ms(torch, lambda: pinned_in.to(dev, non_blocking=True)),
+        "H2D masks of a masked batch, 65.5 MB pinned": time_ms(
+            torch, lambda: masks_pinned.to(dev, non_blocking=True)),
+        "D2H posteriors, 262.1 MB pinned": time_ms(
+            torch, lambda: pinned_out.copy_(posts, non_blocking=True)),
+        "assembly of the frames (host)": host_ms(torch, lambda: pinned_in.numpy().__setitem__(
+            slice(None), frames_8192), reps=5),
+    }
+    array = pinned_out.numpy()
+    split["tobytes (host)"] = host_ms(torch, array.tobytes, reps=5)
+    payload = array.tobytes()
+    with socket.create_server(("127.0.0.1", 0)) as listener:
+        sender = socket.create_connection(listener.getsockname())
+        receiver, _ = listener.accept()
+
+        def drain(total, received):
+            view = memoryview(bytearray(1 << 24))
+            while received[0] < total:
+                k = receiver.recv_into(view)
+                if k == 0:
+                    return
+                received[0] += k
+
+        sends = []
+        for _ in range(4):
+            received = [0]
+            reader = threading.Thread(target=drain, args=(len(payload), received))
+            reader.start()
+            t0 = time.perf_counter()
+            sender.sendall(payload)
+            reader.join(120)
+            sends.append((time.perf_counter() - t0) * 1e3)
+            check(received[0] == len(payload), f"loopback TCP: all {len(payload)} bytes received")
+        sender.close()
+        receiver.close()
+    split["sendall over loopback TCP (host)"] = statistics.median(sends[1:])
+    print(f"  one 8192-frame batch ({INPUT_DIM} -> {SENONES}), ms:  [{smi}]")
+    for what, ms in split.items():
+        print(f"    {ms:9.4f}  {what}")
+    del posts, pinned_out, payload, array
+
+    phase(f"20. serving over TCP: ScoreServer + bench_serve.run_load, {SERVE_CLIENTS} clients, "
+          f"{SERVE_SECONDS:g} s")
+    from fastdnn_tpu_torch.cli import bench_serve, serve
+
+    ss = StreamingScorer(scorer, max_batch_frames=8192, max_wait_ms=3.0)
+    server = serve.ScoreServer(("127.0.0.1", 0), ss)
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    try:
+        served = drive(
+            "the serving run",
+            lambda _: dict.fromkeys(("input_layer", "hidden_stack", "resident_softmax"),
+                                    ss.throughput.batches),
+            lambda: bench_serve.run_load(
+                server.server_address[1], clients=SERVE_CLIENTS, duration_s=SERVE_SECONDS,
+                min_len=UTT_MIN, max_len=UTT_MAX, masked_frac=MASKED_FRAC,
+                mask_density=SERVE_DENSITY, keep=SERVE_KEEP))
+    finally:
+        server.shutdown()
+        server.server_close()
+        ss.close()
+    server_thread.join(60)
+    per_client = served.pop("responses")
+    responses = [r for kept in per_client for r in kept]
+    check(len(responses) >= 64 and all(per_client),
+          f"{len(responses)} responses kept (at least 64), {min(map(len, per_client))} to "
+          f"{max(map(len, per_client))} from each of the {SERVE_CLIENTS} clients "
+          f"({sum(m is not None for _, m, _ in responses)} masked)")
+    d_v, shapes_ok = 0.0, True
+    for f, m, out in responses:
+        want = scorer.score(f) if m is None else scorer.score_masked(f, m)
+        shapes_ok &= out.shape == want.shape and out.dtype == np.float32
+        d_v = max(d_v, float(np.abs(out - want).max())) if shapes_ok else float("inf")
+    check(shapes_ok and d_v <= SERVE_BOUND,
+          f"every kept response f32 [n, {SENONES}] and within {SERVE_BOUND:g} of serial scoring "
+          f"(max |d| = {d_v:.3g}); no error response")
+    print(f"  bench_serve row: {json.dumps(served)}  [{smi}]")
+
+    phase("21. concurrency on the card: one Scorer shared by 8 threads, 4 LazyContexts at once")
+    conc_rng = np.random.default_rng(SEED + 21)
+    tasks = [frames[conc_rng.permutation(frames.shape[0])[:int(conc_rng.integers(1, UTT_MAX + 1))]]
+             for _ in range(32)]
+    want_c = [scorer.score(t) for t in tasks]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        got_c = drive("8 threads sharing one Scorer",
+                      dict.fromkeys(("input_layer", "hidden_stack", "resident_softmax"), len(tasks)),
+                      lambda: list(pool.map(scorer.score, tasks)))
+    d_c = max(float(np.abs(g - w).max()) for g, w in zip(got_c, want_c))
+    bitwise = all(np.array_equal(g, w) for g, w in zip(got_c, want_c))
+    check(d_c <= SERVE_BOUND, f"{len(tasks)} calls from 8 threads: max |d| = {d_c:.3g} <= "
+                              f"{SERVE_BOUND:g} against serial calls (bitwise: {bitwise})")
+    ctx_frames = 12
+    ctx_masks = (conc_rng.random((4, ctx_frames, SENONES)) < LAZY_DENSITY).astype(np.uint8)
+
+    def decode(t):
+        ctx = scorer.new_lazy_context(ctx_frames)
+        ctx.calculate_until_output(frames[t * ctx_frames:(t + 1) * ctx_frames])
+        return np.stack([ctx.calculate_for_output_nodes(m) for m in ctx_masks[t]])
+
+    want_l = [decode(t) for t in range(4)]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        got_l = drive("4 LazyContexts at once",
+                      {"input_layer": 4, "hidden_stack": 4, "output_logits": 4 * ctx_frames},
+                      lambda: list(pool.map(decode, range(4))))
+    d_l = max(float(np.abs(g - w).max()) for g, w in zip(got_l, want_l))
+    bitwise = all(np.array_equal(g, w) for g, w in zip(got_l, want_l))
+    check(d_l <= SERVE_BOUND, f"4 LazyContexts decoding at once: max |d| = {d_l:.3g} <= "
+                              f"{SERVE_BOUND:g} against serial decodes (bitwise: {bitwise})")
 
     rows = [
         {
