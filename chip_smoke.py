@@ -30,8 +30,14 @@ flagship net: the StreamingScorer fed by 8 submitter threads (every result
 against serial scoring, in turns with a serial loop, under the profiler,
 and where one 8192-frame batch's time goes), a ScoreServer on loopback TCP
 driven by bench_serve.run_load with 16 clients, and 8 threads sharing one
-Scorer beside 4 LazyContexts decoding at once.  Any failed check raises and
-the script exits non-zero.
+Scorer beside 4 LazyContexts decoding at once.  Then the multi-process
+path, each extra rank a second process on the card over gloo: a
+MultiHostScorer coordinated from this process with one worker rank (every
+case against the single device, each rank's launches per call), the
+serve CLI as two processes under bench_serve's load, a worker that dies
+mid-stream, the score CLI under torchrun, make_gspmd_scorer on two ranks,
+and the native reader against the numpy parsers.  Any failed check raises
+and the script exits non-zero.
 The last line of standard output is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -82,6 +88,19 @@ STREAM_UTTERANCES, STREAM_SUBMITTERS = 96, 8
 SERVE_CLIENTS, SERVE_SECONDS, SERVE_KEEP = 16, 5.0, 8
 UTT_MIN, UTT_MAX, MASKED_FRAC, SERVE_DENSITY = 100, 1000, 0.25, 0.08
 SERVE_BOUND = 3e-5  # every streamed or served posterior against serial scoring
+# the multi-process phases (22-25): a coordinator and a worker on cuda:0 over
+# gloo, the flagship net from one checkpoint, the output split over 2 ranks
+SERVICE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_service"
+SERVICE_CALL_TIMEOUT_S = 120.0
+SERVICE_CONFIGS = (  # (name, EngineConfig fields, scatter), built in this order on both ranks
+    ("scatter", {}, True),
+    ("active_only", {"lazy_semantics": "active_only"}, True),
+    ("block_sparse", {"lazy_mode": "block_sparse"}, True),
+    ("broadcast", {}, False),
+)
+SERVICE_CTX_FRAMES = 8  # the LazyContext through the coordinator
+DEATH_TIMEOUT_S = 15.0  # phase 24's call_timeout_s
+MASKED_BOUND = 3e-5  # masked posteriors of the multi-process path against one device
 
 
 def phase(title: str) -> None:
@@ -319,6 +338,191 @@ def tp_rank(rank: int, port: int, results) -> None:
     except BaseException:
         results.put({"rank": rank, "error": traceback.format_exc()})
         raise
+
+
+def service_rank(rank: int, port: int, mode: str, results) -> None:
+    """A spawned rank of phases 22, 24 and 25 on cuda:0 (gloo, mesh 1 x
+    TP_RANKS), its net from the checkpoint in SERVICE_DIR:
+
+      "worker"             phase 22's worker: every SERVICE_CONFIGS scorer's
+                           worker_loop in turn, with each call's launch counts;
+      "death-coordinator"  phase 24's rank 0: a StreamingScorer over the
+                           coordinator, whose worker dies after one call;
+      "death-worker"       phase 24's rank 1: dies after its first call;
+      "gspmd"              phase 25's rank 1: make_gspmd_scorer's two calls.
+
+    Reports through `results`."""
+    import os
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from fastdnn_tpu_torch import EngineConfig, StreamingScorer, load_qnet
+        from fastdnn_tpu_torch.ops import kernels
+        from fastdnn_tpu_torch.parallel.mesh import init_multihost, make_mesh
+        from fastdnn_tpu_torch.parallel.service import MultiHostScorer
+        from fastdnn_tpu_torch.parallel.sharded import make_gspmd_scorer
+
+        dev = torch.device("cuda", 0)
+        torch.zeros(1, device=dev)  # the rank's device, chosen before the mesh
+        init_multihost(f"tcp://localhost:{port}", world_size=TP_RANKS, rank=rank, backend="gloo")
+        mesh = make_mesh(1, TP_RANKS, device_type="cuda")
+        qnet = load_qnet(SERVICE_DIR / "flagship.npz")
+        frames = np.load(SERVICE_DIR / "frames.npy")
+        report = {"rank": rank, "mode": mode}
+        if mode == "worker":
+            report["calls"] = {}
+            for name, fields, scatter in SERVICE_CONFIGS:
+                sc = MultiHostScorer(qnet, EngineConfig(**fields), mesh, device=dev,
+                                     scatter=scatter)
+                calls = report["calls"][name] = []
+                execute = sc._execute
+
+                def counted(*args, execute=execute, calls=calls):
+                    kernels.reset_launch_counts()
+                    out = execute(*args)
+                    calls.append(kernels.launch_counts())
+                    return out
+
+                sc._execute = counted
+                sc.worker_loop()
+                del sc
+        elif mode == "death-worker":
+            sc = MultiHostScorer(qnet, EngineConfig(), mesh, device=dev, heartbeat_s=0,
+                                 call_timeout_s=DEATH_TIMEOUT_S)
+            execute = sc._execute
+
+            def execute_then_die(*args):
+                execute(*args)
+                os._exit(17)  # no stop op: a crash in the middle of the stream
+
+            sc._execute = execute_then_die
+            sc.worker_loop()
+            report["error"] = "the worker loop returned"
+        elif mode == "death-coordinator":
+            sc = MultiHostScorer(qnet, EngineConfig(), mesh, device=dev, heartbeat_s=0,
+                                 call_timeout_s=DEATH_TIMEOUT_S)
+            utt = frames[:UTT_MAX]
+            with StreamingScorer(sc, max_batch_frames=8192, max_wait_ms=3.0) as ss:
+                report["first_shape"] = list(ss.submit(utt).result(300).shape)
+                time.sleep(1.0)  # the worker is dead by now
+                for what in ("dead", "after"):
+                    t0 = time.monotonic()
+                    try:
+                        ss.submit(utt).result(DEATH_TIMEOUT_S + 60)
+                        report[what] = ("no error", "")
+                    except Exception as e:  # the type is the finding; checked by the parent
+                        report[what] = (type(e).__name__, str(e)[:300])
+                    report[f"{what}_s"] = time.monotonic() - t0
+            report["closed"] = sc._closed
+            results.put(report)
+            results.close()
+            results.join_thread()
+            os._exit(0)  # the group has a dead peer: skip its shutdown
+        elif mode == "gspmd":
+            masks = np.load(SERVICE_DIR / "masks.npy")
+            score, score_masked = make_gspmd_scorer(mesh)
+            f, m = torch.from_numpy(frames).to(dev), torch.from_numpy(masks).to(dev)
+            kernels.reset_launch_counts()
+            report["shapes"] = [list(score(qnet, f).shape),
+                                list(score_masked(qnet, f, m).shape)]
+            report["counts"] = kernels.launch_counts()
+        results.put(report)
+        dist.destroy_process_group()
+    except BaseException:
+        results.put({"rank": rank, "mode": mode, "error": traceback.format_exc()})
+        raise
+
+
+def spawn_ranks(modes: dict, port: int):
+    """Start `service_rank` for each {rank: mode} -> (processes, queue)."""
+    import torch.multiprocessing as mp
+
+    spawn = mp.get_context("spawn")
+    results = spawn.Queue()
+    procs = {r: spawn.Process(target=service_rank, args=(r, port, mode, results))
+             for r, mode in modes.items()}
+    for proc in procs.values():
+        proc.start()
+    return procs, results
+
+
+def collect(procs: dict, results, count: int, timeout: float = TP_TIMEOUT_S) -> list:
+    """`count` reports from the spawned ranks, then every rank joined (a
+    rank still alive at the deadline is killed)."""
+    reports = []
+    deadline = time.monotonic() + timeout
+    try:
+        for _ in range(count):
+            reports.append(results.get(timeout=max(deadline - time.monotonic(), 1)))
+        for proc in procs.values():
+            proc.join(max(deadline - time.monotonic(), 1))
+    finally:
+        for proc in procs.values():
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    errors = [r["error"] for r in reports if "error" in r]
+    check(not errors, f"{len(procs)} spawned rank(s) reported" + (
+        "" if not errors else ":\n" + "\n".join(errors)))
+    return reports
+
+
+def split_coordinated(torch, mh, frames, calls: int = 3) -> dict:
+    """Where a coordinated `score` goes on the coordinator, host clock,
+    median of `calls`: the header broadcast, the frames' scatter, this
+    rank's kernels (synchronized), the posteriors' gather, and the rest
+    (padding, the watchdog's thread, the host copy out)."""
+    from fastdnn_tpu_torch.parallel import service
+
+    spans = {"header broadcast": [], "scatter of the frames": [],
+             "this rank's kernels": [], "gather of the posteriors": []}
+
+    def timed(name, fn, sync=False):
+        def run(*args):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if sync:
+                torch.cuda.synchronize()
+            spans[name][-1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    patched = {
+        (service, "_broadcast"): timed("header broadcast", service._broadcast),
+        (service, "gather_blocks"): timed("gather of the posteriors", service.gather_blocks),
+        (mh, "_ship"): timed("scatter of the frames", mh._ship),
+        (mh, "_run_local"): timed("this rank's kernels", mh._run_local, sync=True),
+    }
+    saved = {key: getattr(*key) for key in patched}
+    totals = []
+    try:
+        for obj_name, fn in patched.items():
+            setattr(*obj_name, fn)
+        for _ in range(calls):
+            for v in spans.values():
+                v.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mh.score(frames)
+            totals.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+    out = {name: statistics.median(v) for name, v in spans.items()}
+    out["the whole call"] = statistics.median(totals)
+    out["the rest"] = out["the whole call"] - sum(statistics.median(v) for v in spans.values())
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 def main() -> int:
@@ -1623,6 +1827,290 @@ def main() -> int:
     bitwise = all(np.array_equal(g, w) for g, w in zip(got_l, want_l))
     check(d_l <= SERVE_BOUND, f"4 LazyContexts decoding at once: max |d| = {d_l:.3g} <= "
                               f"{SERVE_BOUND:g} against serial decodes (bitwise: {bitwise})")
+
+    phase(f"22. MultiHostScorer: this process coordinates, one worker rank on cuda:0 (gloo), "
+          f"mesh 1x{TP_RANKS}, B = 8192")
+    import torch.distributed as dist
+
+    from fastdnn_tpu_torch import save_qnet
+    from fastdnn_tpu_torch.parallel.mesh import init_multihost, make_mesh
+    from fastdnn_tpu_torch.parallel.service import MultiHostScorer
+
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    SERVICE_DIR.mkdir(parents=True)
+    ckpt = SERVICE_DIR / "flagship.npz"
+    save_qnet(qnet, ckpt)  # every rank builds the net from these bytes
+    f8, m8, b8 = frames[:8192], masks_host[:8192], bands_host[:8192]
+    np.save(SERVICE_DIR / "frames.npy", f8)
+    np.save(SERVICE_DIR / "masks.npy", m8)
+    want_score = scorer.score(f8)  # the single device, in this process
+    want_masked = {sem: lazy.score_masked(f8, m8) for sem, (lazy, _) in semantics_scorers.items()}
+    want_bands = scorer.score_masked(f8, b8)
+    want_ctx = scorer.score_masked(f8[:SERVICE_CTX_FRAMES], m8[:SERVICE_CTX_FRAMES])
+    per_call = {"input_layer": 1, "hidden_stack": 1, "flash_stats": 1, "normalize_stats": 1}
+    per_call_sparse = {"input_layer": 1, "hidden_stack": 1, "flash_stats_block_sparse": 1,
+                       "normalize_stats": 1}
+    port = free_port()
+    procs, results = spawn_ranks({1: "worker"}, port)
+    got_mh, mh_ms = {}, {}
+    try:
+        init_multihost(f"tcp://localhost:{port}", world_size=TP_RANKS, rank=0, backend="gloo")
+        mesh = make_mesh(1, TP_RANKS, device_type="cuda")
+        for name, fields, scatter in SERVICE_CONFIGS:
+            mh = MultiHostScorer(qnet, EngineConfig(**fields), mesh, device=dev, scatter=scatter,
+                                 call_timeout_s=SERVICE_CALL_TIMEOUT_S)
+            try:
+                check(mh.is_coordinator and mh._multi, f"{name}: rank 0 coordinates two processes")
+                if name in ("scatter", "broadcast"):
+                    got_mh[f"{name} score"] = drive(f"{name}: coordinated score", per_call,
+                                                    lambda: mh.score(f8))
+                if name != "block_sparse":
+                    got_mh[f"{name} masked"] = drive(f"{name}: coordinated score_masked",
+                                                     per_call, lambda: mh.score_masked(f8, m8))
+                else:
+                    got_mh["block_sparse bands"] = drive(
+                        "block_sparse: coordinated score_masked, band masks", per_call_sparse,
+                        lambda: mh.score_masked(f8, b8))
+                if name == "scatter":
+                    def decode():
+                        ctx = mh.new_lazy_context(SERVICE_CTX_FRAMES)
+                        ctx.calculate_until_output(f8[:SERVICE_CTX_FRAMES])
+                        return np.stack([ctx.calculate_for_output_nodes(m)
+                                         for m in m8[:SERVICE_CTX_FRAMES]])
+
+                    got_mh["lazy"] = drive(
+                        f"a {SERVICE_CTX_FRAMES}-frame LazyContext through the coordinator",
+                        {k: SERVICE_CTX_FRAMES for k in per_call}, decode)
+                    mh_ms = in_turns(torch, {"coordinated score": lambda: mh.score(f8),
+                                             "single-device score": lambda: scorer.score(f8)},
+                                     timer=lambda t, fn: host_ms(t, fn, reps=5))
+                    mh_split = split_coordinated(torch, mh, f8)
+            finally:
+                mh.close()
+            del mh
+        reports = collect(procs, results, 1)
+    finally:
+        for proc in procs.values():
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    check(procs[1].exitcode == 0, "the worker rank left its loops at each close() and exited 0")
+    close(got_mh["scatter score"], want_score, "coordinated score n=8192")
+    for sem in ("reference", "active_only"):
+        key = "scatter masked" if sem == "reference" else "active_only masked"
+        close(got_mh[key], want_masked[sem], f"coordinated score_masked {sem} n=8192", MASKED_BOUND)
+    check(bool((got_mh["active_only masked"][7] == 0).all()),
+          "coordinated score_masked active_only: the fully masked row is 0")
+    close(got_mh["block_sparse bands"], want_bands, "coordinated block_sparse n=8192 (band masks)",
+          MASKED_BOUND)
+    close(got_mh["lazy"], want_ctx, f"coordinated LazyContext, {SERVICE_CTX_FRAMES} frames",
+          MASKED_BOUND)
+    check(np.array_equal(got_mh["broadcast score"], got_mh["scatter score"])
+          and np.array_equal(got_mh["broadcast masked"], got_mh["scatter masked"]),
+          "scatter=False (the whole batch broadcast) bitwise the scatter's posteriors")
+    for name, calls in reports[0]["calls"].items():
+        expect = per_call_sparse if name == "block_sparse" else per_call
+        bad = [c for c in calls if any(c.get(k, 0) != expect.get(k, 0) for k in set(c) | set(expect))]
+        check(calls and not bad, f"worker rank, {name}: each of its {len(calls)} calls launched "
+                                 f"{expect} (others 0)" + (f"; first mismatch {bad[0]}" if bad else ""))
+    for name, calls in reports[0]["calls"].items():
+        if name == "scatter":  # the driven calls, not the timed ones after them
+            calls = calls[:2 + SERVICE_CTX_FRAMES]
+        for c in calls:
+            for k, v in c.items():
+                path_launches[k] += v
+    print(f"  coordinated score B=8192 against one device, host clock per call (in turns): "
+          + "; ".join(f"{k} {' / '.join(f'{t:.2f}' for t in v)} ms" for k, v in mh_ms.items())
+          + f"  [{smi}]")
+    print(f"  where one coordinated score B=8192 goes on the coordinator, host clock, median of 3 "
+          f"(ms):  [{smi}]")
+    for what, ms in mh_split.items():
+        print(f"    {ms:9.2f}  {what}")
+
+    phase(f"23. TCP serving over two processes: fastdnn_tpu_torch.cli.serve --mesh-model {TP_RANKS} "
+          f"--coordinator, bench_serve.run_load, {SERVE_CLIENTS} clients, {SERVE_SECONDS:g} s")
+    import signal
+
+    coordinator = f"127.0.0.1:{free_port()}"
+    repo = Path(__file__).resolve().parent
+    serve_cmd = [sys.executable, "-m", "fastdnn_tpu_torch.cli.serve", str(ckpt), "--port", "0",
+                 "--warmup", "--mesh-model", str(TP_RANKS), "--coordinator", coordinator,
+                 "--num-processes", str(TP_RANKS), "--process-id"]
+    servers = [subprocess.Popen(serve_cmd + [str(r)], cwd=repo, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True) for r in range(TP_RANKS)]
+    try:
+        served_port, lines = None, []
+        for line in servers[0].stdout:  # until the coordinator serves
+            lines.append(line)
+            found = re.match(r"serving on [\d.]+:(\d+)", line)
+            if found:
+                served_port = int(found.group(1))
+                break
+        check(served_port is not None, "rank 0 serves TCP" + ("" if served_port else
+                                                            ":\n" + "".join(lines[-30:])))
+        t0 = time.perf_counter()
+        served2 = bench_serve.run_load(
+            served_port, clients=SERVE_CLIENTS, duration_s=SERVE_SECONDS, min_len=UTT_MIN,
+            max_len=UTT_MAX, masked_frac=MASKED_FRAC, mask_density=SERVE_DENSITY, keep=SERVE_KEEP)
+        load_s = time.perf_counter() - t0
+        servers[0].send_signal(signal.SIGTERM)  # shuts rank 0 down, which releases the worker
+        outs = ["".join(lines) + servers[0].communicate(timeout=120)[0],
+                servers[1].communicate(timeout=120)[0]]
+    finally:
+        for proc in servers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    check(servers[0].returncode == 0 and servers[1].returncode == 0
+          and re.search(r"worker 1: Network = ", outs[1]) is not None,
+          f"shut down by SIGTERM: rank 0 exit {servers[0].returncode}, the worker (which printed "
+          f"its role) exit {servers[1].returncode}" + ("" if servers[1].returncode == 0 else
+                                                      ":\n" + outs[1][-3000:] + outs[0][-3000:]))
+    per_client = served2.pop("responses")
+    responses = [r for kept in per_client for r in kept]
+    n_masked = sum(m is not None for _, m, _ in responses)
+    check(len(responses) >= 32 and 0 < n_masked < len(responses),
+          f"{len(responses)} responses kept (at least 32), {n_masked} of them masked, "
+          f"{min(map(len, per_client))} to {max(map(len, per_client))} from each client")
+    d_un, d_m, shapes_ok = 0.0, 0.0, True
+    for f, m, out in responses:
+        want = scorer.score(f) if m is None else scorer.score_masked(f, m)
+        shapes_ok &= out.shape == want.shape and out.dtype == np.float32
+        agree = float((out.argmax(1) == want.argmax(1)).mean())
+        shapes_ok &= agree >= 0.999
+        d = float(np.abs(out - want).max())
+        d_un, d_m = (max(d_un, d), d_m) if m is None else (d_un, max(d_m, d))
+    check(shapes_ok and d_un <= 1e-4 and d_m <= MASKED_BOUND,
+          f"every kept response against the single device: unmasked max |d| = {d_un:.3g} <= 1e-4, "
+          f"masked {d_m:.3g} <= {MASKED_BOUND:g}, argmax agreement >= 0.999 each; no error response")
+    print(f"  two-process bench_serve row ({load_s:.1f} s with its set-up): {json.dumps(served2)}  "
+          f"[{smi}]")
+
+    phase(f"24. a worker dies mid-stream: call_timeout_s = {DEATH_TIMEOUT_S:g} s")
+    procs, results = spawn_ranks({0: "death-coordinator", 1: "death-worker"}, free_port())
+    death = collect(procs, results, 1)[0]
+    check(procs[1].exitcode == 17 and procs[0].exitcode == 0,
+          f"the worker crashed (exit {procs[1].exitcode}), the coordinator exited "
+          f"{procs[0].exitcode}")
+    check(death["first_shape"] == [UTT_MAX, SENONES], "the stream's first utterance scored")
+    print(f"  the next utterance: {death['dead'][0]} after {death['dead_s']:.3f} s: {death['dead'][1]}")
+    check(death["dead"][0] == "RuntimeError" and death["dead_s"] <= DEATH_TIMEOUT_S + 10,
+          f"the dead worker surfaced as RuntimeError in {death['dead_s']:.3f} s <= "
+          f"call_timeout_s + 10 = {DEATH_TIMEOUT_S + 10:g} s")
+    check(death["after"][0] == "RuntimeError" and "closed" in death["after"][1]
+          and death["after_s"] < 1.0 and death["closed"],
+          f"the scorer ended closed and the next call failed fast ({death['after_s']:.4f} s: "
+          f"{death['after'][1][:80]})")
+
+    phase("25. front doors: torchrun score CLI, make_gspmd_scorer on two ranks, the native reader")
+    from fastdnn_tpu_torch import read_features, to_raw, write_features, write_model
+    from fastdnn_tpu_torch.formats import binary as binfmt
+    from fastdnn_tpu_torch.formats import native
+    from fastdnn_tpu_torch.parallel.sharded import make_gspmd_scorer
+
+    feats = SERVICE_DIR / "frames.bin"
+    write_features(f8, feats)
+    score_cmd = ["-m", "fastdnn_tpu_torch.cli.score", str(ckpt), str(feats)]
+    runs = {
+        "torchrun --mesh-model 2": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                    "--nproc-per-node", str(TP_RANKS), *score_cmd,
+                                    str(SERVICE_DIR / "mesh.bin"), "BIN",
+                                    "--mesh-model", str(TP_RANKS), "--iterations", "3"],
+        "--device cuda": [sys.executable, *score_cmd, str(SERVICE_DIR / "single.bin"), "BIN",
+                          "--iterations", "3"],
+    }
+    cli_procs = {k: subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                 for k, cmd in runs.items()}
+    cli_out = {}
+    try:
+        for k, proc in cli_procs.items():
+            cli_out[k] = proc.communicate(timeout=TP_TIMEOUT_S)[0]
+    finally:
+        for proc in cli_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for k, proc in cli_procs.items():
+        check(proc.returncode == 0, f"score {k} exit 0" + ("" if proc.returncode == 0 else
+                                                           ":\n" + cli_out[k][-3000:]))
+        for line in cli_out[k].splitlines():
+            if line.startswith(("Mesh", "Dnn calculation time")):
+                print(f"  {k}: {line.strip()}  [{smi}]")
+    check(cli_out["torchrun --mesh-model 2"].count("Network     =") == 1,
+          "under torchrun, rank 0 alone printed")
+    close(read_features(SERVICE_DIR / "mesh.bin"), read_features(SERVICE_DIR / "single.bin"),
+          "torchrun score --mesh-model 2 against the --device cuda output")
+
+    port = free_port()
+    procs, results = spawn_ranks({1: "gspmd"}, port)
+    try:
+        init_multihost(f"tcp://localhost:{port}", world_size=TP_RANKS, rank=0, backend="gloo")
+        mesh = make_mesh(1, TP_RANKS, device_type="cuda")
+        g_score, g_masked = make_gspmd_scorer(mesh)
+        f_dev, m_dev = torch.from_numpy(f8).to(dev), torch.from_numpy(m8).to(dev)
+        got_g = drive("make_gspmd_scorer score + score_masked (rank 0)",
+                      {k: 2 for k in per_call},
+                      lambda: (g_score(qnet, f_dev).cpu().numpy(),
+                               g_masked(qnet, f_dev, m_dev).cpu().numpy()))
+        g_rank1 = collect(procs, results, 1)[0]
+    finally:
+        for proc in procs.values():
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    check(g_rank1["counts"] == {**dict.fromkeys(kernels.KERNELS, 0), **{k: 2 for k in per_call}}
+          and g_rank1["shapes"] == [[8192, SENONES]] * 2,
+          f"make_gspmd_scorer rank 1: the whole [8192, {SENONES}] posteriors twice, launches "
+          f"{ {k: v for k, v in g_rank1['counts'].items() if v} }")
+    for k, v in g_rank1["counts"].items():
+        path_launches[k] += v
+    close(got_g[0], want_score, "make_gspmd_scorer score n=8192 (rank 0)")
+    close(got_g[1], want_masked["reference"], "make_gspmd_scorer score_masked n=8192 (rank 0)",
+          MASKED_BOUND)
+
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    print(f"  native reader: {native_lib.name} ready in {time.perf_counter() - t0:.1f} s "
+          f"(g++ at its first use)")
+    model_bin = SERVICE_DIR / "flagship.bin"
+    write_model(to_raw(net), model_bin)
+
+    def numpy_model():
+        with open(model_bin, "rb") as fh:  # a file object takes the numpy parser
+            return binfmt.read_model(fh)
+
+    def numpy_features():
+        with open(feats, "rb") as fh:
+            return binfmt.read_features(fh)
+
+    nat_m, np_m = binfmt.read_model(model_bin), numpy_model()
+    check(all(np.array_equal(a.weights.view(np.uint32), b.weights.view(np.uint32))
+              and np.array_equal(a.bias.view(np.uint32), b.bias.view(np.uint32))
+              for a, b in zip(nat_m.layers, np_m.layers, strict=True))
+          and np.array_equal(nat_m.shift, np_m.shift) and np.array_equal(nat_m.scale, np_m.scale),
+          f"the native reader's flagship model ({model_bin.stat().st_size / 1e6:.1f} MB) bitwise "
+          f"the numpy parser's")
+    check(np.array_equal(binfmt.read_features(feats).view(np.uint32),
+                         numpy_features().view(np.uint32)),
+          f"the native reader's {f8.shape[0]} x {INPUT_DIM} features bitwise the numpy parser's")
+    io_ms = {}
+    for what, fns in (("model", (lambda: binfmt.read_model(model_bin), numpy_model)),
+                      ("features", (lambda: binfmt.read_features(feats), numpy_features))):
+        for who, fn in zip(("native", "numpy"), fns):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            io_ms[f"{what} {who}"] = statistics.median(times)
+    print("  host reads, median of 5 (ms): " + "; ".join(f"{k} {v:.2f}" for k, v in io_ms.items())
+          + f"  [{smi}]")
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
 
     rows = [
         {

@@ -28,6 +28,7 @@ from .engine.scorer import (
     score_fn,
     score_masked_fn,
 )
+from .engine.stream import StreamingScorer
 from .formats import kaldi_text
 from .formats.binary import (
     RawNetwork,
@@ -79,6 +80,7 @@ __all__ = [
     "QuantizedNet",
     "RawNetwork",
     "Scorer",
+    "StreamingScorer",
     "align",
     "apply_transform",
     "build_hidden_stack",

@@ -1,10 +1,11 @@
-"""Scorer CLI of the PyTorch/CUDA port, the single-device path of
+"""Scorer CLI of the PyTorch/CUDA port, the counterpart of
 fastdnn_tpu/cli/score.py:
 
     python -m fastdnn_tpu_torch.cli.score MODEL INPUT [OUT] [BIN|TXT]
         [--cutoff F] [--hidden-bits 8|4] [--int4-packed] [--device cuda|cpu]
         [--mask-density F] [--lazy-mode auto|dense|gathered|block_sparse]
-        [--seed N] [--text-input]
+        [--seed N] [--text-input] [--iterations N]
+        [--mesh-model M] [--mesh-data D]
 
 Loads a reference-format binary model (quantized on load, with an int4
 hidden trunk under --hidden-bits 4) or a `.npz` checkpoint and a binary
@@ -16,7 +17,15 @@ as Kaldi text under the utterance ids.  --int4-packed stores an int4 trunk
 two nibbles per byte (EngineConfig.int4_packed), a port option the JAX CLI
 does not have.  `--device cuda` (the default) runs the hand-written
 kernels and fails when no GPU is present; `--device cpu` runs their plain
-PyTorch versions.
+PyTorch versions.  `--iterations N` times N repeats after a warm-up call
+and prints the fastest.
+
+A mesh flag scores tensor-parallel over ranks, as one process does in the
+JAX CLI: start it under torchrun (`torchrun --nproc-per-node R -m
+fastdnn_tpu_torch.cli.score ... --mesh-model M`); every rank joins through
+torchrun's environment, builds `Scorer(mesh=...)` on cuda:(rank % cards)
+and scores the same input, and rank 0 alone prints and writes the output
+(parallel.mesh.join_ranks chooses NCCL or gloo).
 """
 
 from __future__ import annotations
@@ -81,6 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="input is a Kaldi text feature file; every utterance is scored in "
         "one pass and the output keeps utterance ids (text format)",
     )
+    p.add_argument("--iterations", type=int, default=1,
+                   help="timed repeats after a warm-up call (the fastest is printed)")
+    p.add_argument(
+        "--mesh-model", type=int, default=0,
+        help="model-parallel ranks for the senone axis (0 = one device); frames "
+        "go data-parallel over the remaining ranks (run under torchrun)",
+    )
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel ranks (default: all ranks not used by --mesh-model)")
     return p
 
 
@@ -105,45 +123,74 @@ def generate_masks(rng, count, dim, density, churn_frac=0.03):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.text_input and args.mask_density is not None:
+    if args.text_input and (args.mask_density is not None or args.iterations != 1):
         raise ValueError(
             "--text-input scores all utterances in one pass and does not combine "
-            "with --mask-density"
+            "with --mask-density or --iterations"
         )
+    if args.iterations < 1:
+        raise ValueError(f"--iterations must be >= 1, got {args.iterations}")
+    if not (args.mesh_model or args.mesh_data):
+        return _score(args, device=args.device)
+    import torch.distributed as dist
+
+    from ..parallel.mesh import join_ranks, make_mesh, mesh_shape
+
+    device = join_ranks(args.device)
+    try:
+        mesh = make_mesh(data=args.mesh_data, model=args.mesh_model or 1,
+                         device_type=device.type)
+        return _score(args, device=device, mesh=mesh, lead=dist.get_rank() == 0,
+                      mesh_line="data={} x model={}".format(*mesh_shape(mesh)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _score(args, *, device, mesh=None, lead: bool = True, mesh_line: str = "") -> int:
+    """Score on one device, or as one rank of a mesh (every rank scores the
+    same input; only the lead rank prints and writes)."""
+    say = print if lead else (lambda *a, **k: None)
     qnet, topology = load_quantized(args.model, cutoff=args.cutoff, hidden_bits=args.hidden_bits)
-    print(f"Model File  = {args.model}")
-    print(f"Network     = {topology}")
+    say(f"Model File  = {args.model}")
+    say(f"Network     = {topology}")
+    if mesh_line:
+        say(f"Mesh        = {mesh_line}")
     config = EngineConfig(lazy_mode=args.lazy_mode, int4_packed=args.int4_packed)
     if args.text_input:
         utts = load_features_text(args.input)
         n = sum(m.shape[0] for m in utts.values())
-        print(f"Input       = {len(utts)} utterances, {n}x{next(iter(utts.values())).shape[1]}")
-        scorer = Scorer(qnet, config, device=args.device)
+        say(f"Input       = {len(utts)} utterances, {n}x{next(iter(utts.values())).shape[1]}")
+        scorer = Scorer(qnet, config, device=device, mesh=mesh)
         t0 = time.perf_counter()
         scored = scorer.score_utterances(utts)
-        print(f"Dnn calculation time = {(time.perf_counter() - t0) * 1000:.2f} ms.")
-        write_features_text_kaldi(scored, args.out if args.out else sys.stdout)
+        say(f"Dnn calculation time = {(time.perf_counter() - t0) * 1000:.2f} ms.")
+        if lead:
+            write_features_text_kaldi(scored, args.out if args.out else sys.stdout)
         return 0
     frames = read_features(args.input)
-    print(f"Input       = {frames.shape[0]}x{frames.shape[1]}")
-    scorer = Scorer(qnet, config, device=args.device)
+    say(f"Input       = {frames.shape[0]}x{frames.shape[1]}")
+    scorer = Scorer(qnet, config, device=device, mesh=mesh)
 
     masks = None
     if args.mask_density is not None:
         rng = np.random.default_rng(args.seed)
         masks = generate_masks(rng, frames.shape[0], scorer.output_dim, args.mask_density)
 
-    def run(n: int) -> np.ndarray:
+    def run() -> np.ndarray:  # returns host numpy, so the device is done
         if masks is None:
-            return scorer.score(frames[:n])
-        return scorer.score_masked(frames[:n], masks[:n])
+            return scorer.score(frames)
+        return scorer.score_masked(frames, masks)
 
-    run(1)  # warm-up: the first CUDA call builds the kernels
-    t0 = time.perf_counter()
-    output = run(frames.shape[0])  # returns host numpy, so the device is done
-    elapsed_ms = (time.perf_counter() - t0) * 1000
-    device = torch.cuda.get_device_name(scorer.device) if scorer.device.type == "cuda" else "cpu"
-    print(f"Dnn calculation time = {elapsed_ms:.2f} ms. ({device})")
+    output = run()  # warm-up: the first CUDA call builds the kernels
+    times = []
+    for _ in range(args.iterations):
+        t0 = time.perf_counter()
+        output = run()
+        times.append((time.perf_counter() - t0) * 1000)
+    name = torch.cuda.get_device_name(scorer.device) if scorer.device.type == "cuda" else "cpu"
+    say(f"Dnn calculation time = {min(times):.2f} ms. ({name})")
+    if not lead:
+        return 0
 
     if args.out is None:
         np.savetxt(sys.stdout, output, fmt="%f", delimiter=" ")

@@ -1,15 +1,26 @@
 """Scoring server of the PyTorch/CUDA port: a TCP front end over the
-streaming engine, the single-device path of fastdnn_tpu/cli/serve.py.
+streaming engine, the counterpart of fastdnn_tpu/cli/serve.py.
 
     python -m fastdnn_tpu_torch.cli.serve MODEL --port 8477 [--device cuda|cpu]
-        [--cutoff 3.0] [--hidden-bits 8|4] [--int4-packed]
+        [--cutoff 3.0] [--hidden-bits 8|4] [--int4-packed] [--fast-posteriors]
         [--lazy-mode auto|dense|gathered|block_sparse]
         [--max-batch-frames 8192] [--max-wait-ms 3] [--warmup]
+        [--mesh-model M] [--mesh-data D]
+        [--coordinator HOST:PORT --num-processes N --process-id R]
 
 Concurrent clients submit utterances; the StreamingScorer packs them into
 shared batches on the card (engine/stream.py).  `--device cuda` (the
 default) runs the hand-written kernels and fails when no GPU is present;
 `--device cpu` runs their plain PyTorch versions.
+
+A mesh flag or `--coordinator` serves over several processes: every
+process joins one process group (`--coordinator` with `--num-processes`
+and `--process-id`, or torchrun's environment without them), builds the
+same MultiHostScorer (parallel/service.py) on cuda:(rank % cards), and
+rank 0 serves TCP while the other ranks mirror its calls in
+`worker_loop()`.  SIGTERM or Ctrl-C on rank 0 closes the scorer, which
+releases the workers.  The backend is NCCL when each rank on the host has
+a card of its own, else gloo (parallel.mesh.join_ranks).
 
 Wire protocol (all integers little-endian u32 unless noted), byte for byte
 the JAX package's, so either package's client and the native
@@ -31,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import socket
 import socketserver
 import struct
@@ -177,6 +189,29 @@ def build_parser() -> argparse.ArgumentParser:
         "clustered senone ids, engine.cluster)",
     )
     p.add_argument(
+        "--mesh-model", type=int, default=0,
+        help="model-parallel ranks for the senone axis (0 = no mesh: one "
+        "device, one process); with a mesh, frames are data-parallel over "
+        "the remaining ranks",
+    )
+    p.add_argument(
+        "--mesh-data", type=int, default=None,
+        help="data-parallel ranks (default: all ranks not used by --mesh-model)",
+    )
+    p.add_argument(
+        "--coordinator", default=None,
+        help="HOST:PORT of rank 0's rendezvous (torch.distributed, tcp://); "
+        "with --num-processes and --process-id, else from torchrun's "
+        "environment.  Rank 0 serves TCP, the other ranks run the worker loop",
+    )
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument(
+        "--fast-posteriors", action="store_true",
+        help="bf16 posteriors on the device (EngineConfig.fast_posteriors); "
+        "responses still carry f32",
+    )
+    p.add_argument(
         "--warmup",
         action="store_true",
         help="score a few batches before accepting clients (the first CUDA "
@@ -185,20 +220,47 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _multi(args) -> bool:
+    """A mesh flag or --coordinator: serve over several processes."""
+    return bool(getattr(args, "mesh_model", 0) or getattr(args, "mesh_data", None)
+                or getattr(args, "coordinator", None))
+
+
 def build_scorer(args):
-    """Model load + quantize + single-device scorer -> (Scorer, topology)."""
+    """Model load + quantize + scorer -> (scorer, topology): one device,
+    or, with a mesh flag or --coordinator, a MultiHostScorer after joining
+    the process group (whose rank decides the role: see main)."""
     from ..config import EngineConfig
-    from ..engine.scorer import Scorer
     from ..quant.serialize import load_quantized
 
+    device = getattr(args, "device", "cuda")
+    if _multi(args):
+        from ..parallel.mesh import join_ranks
+
+        coordinator = getattr(args, "coordinator", None)
+        if coordinator:
+            device = join_ranks(device, f"tcp://{coordinator}", world_size=args.num_processes,
+                                rank=args.process_id)
+        else:
+            device = join_ranks(device)
     qnet, topology = load_quantized(
         args.model, cutoff=args.cutoff, hidden_bits=getattr(args, "hidden_bits", None),
     )
     cfg = EngineConfig(
         lazy_mode=getattr(args, "lazy_mode", "auto"),
         int4_packed=getattr(args, "int4_packed", False),
+        fast_posteriors=getattr(args, "fast_posteriors", False),
     )
-    return Scorer(qnet, cfg, device=getattr(args, "device", "cuda")), topology
+    if not _multi(args):
+        from ..engine.scorer import Scorer
+
+        return Scorer(qnet, cfg, device=device), topology
+    from ..parallel.mesh import make_mesh
+    from ..parallel.service import MultiHostScorer
+
+    mesh = make_mesh(data=getattr(args, "mesh_data", None),
+                     model=getattr(args, "mesh_model", 0) or 1, device_type=device.type)
+    return MultiHostScorer(qnet, cfg, mesh, device=device), topology
 
 
 def make_server(args, prebuilt=None) -> ScoreServer:
@@ -220,16 +282,44 @@ def make_server(args, prebuilt=None) -> ScoreServer:
     return ScoreServer((args.host, args.port), stream)
 
 
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt  # SIGTERM shuts down as Ctrl-C does
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    server = make_server(args)
+    prebuilt = None
+    if _multi(args):
+        import torch.distributed as dist
+
+        # build first (it joins the process group), then take the role from
+        # the rank, so that a rendezvous from torchrun's environment works
+        scorer, topology = build_scorer(args)
+        try:
+            if not scorer.is_coordinator:
+                # no TCP: mirror the coordinator's calls until it stops
+                print(f"worker {dist.get_rank()}: Network = {topology}", flush=True)
+                scorer.worker_loop()
+                return 0
+            prebuilt = (scorer, topology)
+            return _serve(args, prebuilt)
+        finally:
+            scorer.close()
+            dist.destroy_process_group()
+    return _serve(args, prebuilt)
+
+
+def _serve(args, prebuilt) -> int:
+    server = make_server(args, prebuilt)
     host, port = server.server_address[:2]
     print(f"serving on {host}:{port}", flush=True)
+    previous = signal.signal(signal.SIGTERM, _interrupt)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        signal.signal(signal.SIGTERM, previous)
         server.shutdown()
         server.server_close()
         server.stream.close()

@@ -319,6 +319,8 @@ class Scorer:
         self._output_dim = net.output_dim
         self._input_dim = net.input_dim
         self._padded_output_dim = net.padded_output_dim
+        # host masks are padded to this width (see _pad_masks)
+        self._mask_width = self._padded_output_dim if mesh is not None else self._output_dim
         if mesh is not None:
             from ..parallel.mesh import shard_qnet
 
@@ -378,12 +380,18 @@ class Scorer:
             raise ValueError(
                 f"input vector size {dim} must be <= network input size {self.input_dim}"
             )
-        bucket = aligned_size(max(n, 1), self.config.frame_bucket * self._data_size)
+        bucket = self._bucket(n)
         if (bucket, dim) != (n, self.input_dim):
             padded = np.zeros((bucket, self.input_dim), np.float32)
             padded[:n, :dim] = frames
             frames = padded
         return self._to_device(frames), n
+
+    def _bucket(self, n: int) -> int:
+        """Rows of the padded batch for `n` frames: a multiple of the frame
+        bucket, and under a mesh of the bucket times the data axis, so that
+        every data rank gets whole buckets."""
+        return aligned_size(max(n, 1), self.config.frame_bucket * self._data_size)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
@@ -392,8 +400,7 @@ class Scorer:
         """[n, output_dim] host masks -> u8 [pad_n, output_dim], rows past n
         inactive (the masked program pads the width itself); under a mesh
         the padded output width, whose columns split over the model axis."""
-        width = self._padded_output_dim if self.mesh is not None else self._output_dim
-        out = np.zeros((pad_n, width), dtype=np.uint8)
+        out = np.zeros((pad_n, self._mask_width), dtype=np.uint8)
         out[: masks.shape[0], : self._output_dim] = masks != 0
         return out
 
@@ -419,16 +426,24 @@ class Scorer:
     def _run(self, frames: torch.Tensor) -> torch.Tensor:
         """Posteriors of this rank's block of a padded batch."""
         if self._programs is not None:
-            return self._programs[0](self.net, self._local(frames))
+            return self._run_local(self._local(frames))
         return score_fn(self.net, frames, **self._kw)
 
     def _run_masked(self, frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         if self._programs is not None:
-            return self._programs[1](self.net, self._local(frames), self._local(masks, cols=True))
+            return self._run_local(self._local(frames), self._local(masks, cols=True))
         return score_masked_fn(
             self.net, frames, masks, semantics=self.config.lazy_semantics,
             block_sparse=self.config.lazy_mode == "block_sparse", **self._kw,
         )
+
+    def _run_local(self, frames: torch.Tensor, masks: Optional[torch.Tensor] = None):
+        """Mesh only: this rank's block of posteriors from rows (and mask
+        columns) that are already this rank's, as a multi-process worker
+        receives them (parallel.service)."""
+        if masks is None:
+            return self._programs[0](self.net, frames)
+        return self._programs[1](self.net, frames, masks)
 
     def _hidden(self, frames: torch.Tensor) -> torch.Tensor:
         """Input layer + hidden trunk -> last-hidden s8 activations of the

@@ -25,7 +25,10 @@ built explicitly, with three CUDA streams:
 The worker keeps the newest batch in flight while it resolves older ones,
 so assembly and the host side of batch N+1 overlap batch N's kernels.  On
 a CPU scorer (the caller's choice, not a fallback) every batch is scored
-in place, with no pinned memory and no streams.
+in place, with no pinned memory and no streams.  So is every batch of the
+coordinator of a multi-process `MultiHostScorer` (parallel.service): its
+coordinated call ships the batch to the ranks through the host, which no
+side-stream upload can carry.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..utils.align import aligned_size
 from ..utils.timer import Throughput
 from . import lazy as _lazy
 from .scorer import Scorer
@@ -107,8 +109,9 @@ class StreamingScorer:
     Thread-safe; any number of threads may submit.  Masked and unmasked
     submissions are batched in separate groups (they run different
     kernels).  `throughput` exposes rolling frames/s / audio-s/s.  The
-    scorer must be a single-device one (a mesh scorer needs every rank to
-    make the same calls, which one worker thread cannot).
+    scorer is a single-device one or the coordinator (rank 0) of a
+    MultiHostScorer: every rank of a plain mesh Scorer must make the same
+    calls, which one worker thread on one rank cannot.
     """
 
     def __init__(
@@ -122,7 +125,19 @@ class StreamingScorer:
         if max_batch_frames < 1:
             raise ValueError("max_batch_frames must be >= 1")
         if scorer.mesh is not None:
-            raise ValueError("StreamingScorer takes a single-device Scorer, not a mesh one")
+            from ..parallel.service import MultiHostScorer
+
+            if not isinstance(scorer, MultiHostScorer):
+                raise ValueError(
+                    "StreamingScorer takes a single-device Scorer or the coordinator of a "
+                    "MultiHostScorer, not a plain mesh Scorer: every rank of a mesh must "
+                    "make the same calls, which one worker thread cannot"
+                )
+            if not scorer.is_coordinator:
+                raise ValueError(
+                    "StreamingScorer runs on the coordinator (rank 0) of a "
+                    "MultiHostScorer; the other ranks run worker_loop()"
+                )
         self._scorer = scorer
         self._max_frames = max_batch_frames
         self._max_wait = max_wait_ms / 1e3
@@ -133,7 +148,8 @@ class StreamingScorer:
         self._carry: Optional[_Item] = None  # worker-private push-back slot
         self._pending: deque = deque()  # worker-private: dispatched groups, oldest first
         self._device = scorer.device
-        self._cuda = self._device.type == "cuda"
+        # a multi-process coordinator's batches go through the host
+        self._cuda = self._device.type == "cuda" and not getattr(scorer, "_multi", False)
         if self._cuda:
             if self._device.index is None:  # the worker sets its device by index
                 self._device = torch.device("cuda", torch.cuda.current_device())
@@ -281,7 +297,7 @@ class StreamingScorer:
         # the current device, the streams and inference mode are per thread
         if self._cuda:
             torch.cuda.set_device(self._device)
-            rows = aligned_size(self._max_frames, self._scorer.config.frame_bucket)
+            rows = self._scorer._bucket(self._max_frames)
             self._slots = [_Slot(rows, self.input_dim) for _ in range(2)]
             self._copy_stream = torch.cuda.Stream(self._device)
             self._download_stream = torch.cuda.Stream(self._device)
@@ -319,14 +335,17 @@ class StreamingScorer:
 
     def _assemble(self, group: List[_Item], frames: np.ndarray, masks: Optional[np.ndarray]):
         """Write the group's frames (zero-padded to the input width) and
-        masks into the batch buffers, rows past the group zero."""
+        masks (zero-padded to the scorer's mask width) into the batch
+        buffers, rows past the group zero."""
         row = 0
         for it in group:
             n, dim = it.frames.shape
             frames[row:row + n, :dim] = it.frames
             frames[row:row + n, dim:] = 0
             if masks is not None:
-                masks[row:row + n] = it.masks
+                out = it.masks.shape[1]
+                masks[row:row + n, :out] = it.masks
+                masks[row:row + n, out:] = 0
             row += n
         frames[row:] = 0
         if masks is not None:
@@ -338,16 +357,16 @@ class StreamingScorer:
         posteriors themselves on the CPU."""
         sc = self._scorer
         n = sum(it.frames.shape[0] for it in group)
-        rows = aligned_size(max(n, 1), sc.config.frame_bucket)
+        rows = sc._bucket(n)
         masked = group[0].masks is not None
         if self._cuda:
             buf = self._slots[slot]
             buf.uploaded.synchronize()  # this buffer's last upload is done
             frames = buf.frames[:rows]
-            masks = buf.mask_buffer(sc.output_dim)[:rows] if masked else None
+            masks = buf.mask_buffer(sc._mask_width)[:rows] if masked else None
         else:
             frames = torch.empty((rows, sc.input_dim), dtype=torch.float32)
-            masks = torch.empty((rows, sc.output_dim), dtype=torch.uint8) if masked else None
+            masks = torch.empty((rows, sc._mask_width), dtype=torch.uint8) if masked else None
         self._assemble(group, frames.numpy(), None if masks is None else masks.numpy())
         index = None
         if masked and sc._use_gathered(masks.numpy()):

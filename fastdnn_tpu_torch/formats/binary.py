@@ -20,6 +20,11 @@ Feature-matrix stream:
 
 Readers trust the header frame count (the reference writer emits one extra
 trailing frame, which its own readers ignore too).
+
+`read_model` and `read_features` parse a big-endian file given by path with
+the native reader (formats/native.py, built from native/fastdnn_io.cc at
+first use) unless FASTDNN_NATIVE=0, as the JAX package does; file objects
+and little-endian files take the numpy parsers below.
 """
 
 from __future__ import annotations
@@ -92,8 +97,22 @@ def _emit(data: bytes, f: PathOrFile) -> None:
             fh.write(data)
 
 
+def _native_path(f: PathOrFile, little_endian: bool) -> bool:
+    """True when the native reader takes this input: a big-endian file by
+    path, with FASTDNN_NATIVE not 0."""
+    if hasattr(f, "read") or little_endian:
+        return False
+    from . import native
+
+    return native.enabled()
+
+
 def read_model(f: PathOrFile, *, little_endian: bool = False) -> RawNetwork:
     """Parse a reference-format binary model file."""
+    if _native_path(f, little_endian):
+        from . import native
+
+        return native.read_model(f)
     buf = _slurp(f)
     i4 = np.dtype("<i4") if little_endian else _BE_I4
     f4 = np.dtype("<f4") if little_endian else _BE_F4
@@ -148,6 +167,10 @@ def write_model(net: RawNetwork, f: PathOrFile, *, little_endian: bool = False) 
 
 def read_features(f: PathOrFile, *, little_endian: bool = False) -> np.ndarray:
     """Read a binary feature matrix -> float32 [frames, dim]."""
+    if _native_path(f, little_endian):
+        from . import native
+
+        return native.read_features(f)
     buf = _slurp(f)
     i4, f4 = ("<i4", "<f4") if little_endian else (_BE_I4, _BE_F4)
     if len(buf) < 8:

@@ -14,9 +14,10 @@ Three text formats, those the reference's Java layer accepts:
 
 The parsers give the JAX package's results on the same text: the same
 float conversions (network rows through Python floats, feature tokens
-through libc strtof) and the same rejections.  The JAX package's optional
-C++ reader (formats/native.py) is not ported; `load_features_text` always
-runs the Python parser, which that reader is held equal to.
+through libc strtof) and the same rejections.  `load_features_text` keeps
+the Python parser, which mirrors the native loop statement for statement,
+as the JAX package keeps it beside its native reader; the port's native
+text reader (formats/native.read_features_text) is held equal to it.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ device).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -48,6 +49,33 @@ def init_multihost(init_method: Optional[str] = None, *, world_size: Optional[in
     dist.init_process_group(backend, init_method=init_method,
                             world_size=-1 if world_size is None else world_size,
                             rank=-1 if rank is None else rank, **kwargs)
+
+
+def join_ranks(device: str = "cuda", init_method: str = "env://", *,
+               world_size: Optional[int] = None, rank: Optional[int] = None) -> torch.device:
+    """Join the process group as one rank of a command-line tool and
+    return the device the rank scores on: cuda:(local rank % cards) for
+    "cuda" (raising without a card), the CPU for "cpu".
+
+    The backend follows the rule above: NCCL when every rank on this host
+    has a card of its own, gloo for CPU ranks or ranks sharing a card.  The
+    ranks on this host are torchrun's LOCAL_WORLD_SIZE, else the world size
+    (a rendezvous given by address is taken to be on one host)."""
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: CUDA is not available; pass --device cpu")
+        here = int(os.environ.get("LOCAL_WORLD_SIZE")
+                   or world_size or os.environ.get("WORLD_SIZE") or 1)
+        backend = "nccl" if here <= torch.cuda.device_count() else "gloo"
+    else:
+        backend = "gloo"
+    init_multihost(init_method, world_size=world_size, rank=rank, backend=backend)
+    if device != "cuda":
+        return torch.device("cpu")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    dev = torch.device("cuda", local % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, *,

@@ -1,19 +1,17 @@
 """Sharded scoring: data-parallel frames x tensor-parallel output layer, on
 torch.distributed.  The counterpart of fastdnn_tpu/parallel/sharded.py.
 
-Two layers of API, both giving posteriors equal to one device:
+Three layers of API, all giving posteriors equal to one device:
 
   * `make_mesh_programs`, the production path behind
     `engine.Scorer(..., mesh=...)`: per-rank callables that run the
     configured kernels on the rank's rows and output columns, with the
     softmax collectives placed by hand over the model group;
+  * `make_gspmd_scorer`, the JAX function's surface over those programs:
+    the whole net and batch in on every rank, the whole posteriors out;
   * `score_shard_map`, the explicit-collective scorer over a whole net and
     batch (the logits kernel and the collective softmax), the same surface
     as the JAX function of that name.
-
-The JAX package's third path, `make_gspmd_scorer` (jit with shardings, the
-partitioner inserting collectives), has no counterpart here: torch has no
-partitioner that sees through the hand-written kernels.
 
 Softmax over an output layer split by columns needs a global max and a
 global sum.  With logits z split over the model ranks,
@@ -30,14 +28,17 @@ reference's zero logit for an inactive senone is just another z.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..config import EngineConfig
 from ..engine import cuda_backend
 from ..engine.scorer import (
+    build_hidden_stack,
     hidden_forward,
     masked_posteriors_from_acts,
     output_logits,
@@ -46,7 +47,8 @@ from ..engine.scorer import (
 )
 from ..ops import kernels
 from ..ops import matmul as xops
-from ..quant.quantize import QuantizedNet
+from ..quant.quantize import QuantizedNet, pad_qnet
+from ..utils.align import aligned_size
 from .mesh import (
     MODEL_AXIS,
     gather_blocks,
@@ -236,6 +238,81 @@ def make_mesh_programs(mesh: DeviceMesh, *, out_dim: int, backend: str,
         return out(net, _pad_rows(acts, frame_tile), _pad_rows(masks, frame_tile))[:b]
 
     return score, score_masked, hidden, masked_from_acts
+
+
+def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
+                      semantics: str = "reference", fused_softmax: bool = True,
+                      fast_posteriors: bool = False, backend: str = "cuda"):
+    """(score, score_masked) over the mesh, the surface of the JAX function
+    of that name:
+
+      score(qnet, frames)               -> posteriors [B, out_dim]
+      score_masked(qnet, frames, masks) -> posteriors [B, out_dim]
+
+    Every rank passes the whole net (as quant.quantize_net gives it) and
+    the whole batch: frames f32 [B, <= input dim] on the rank's device,
+    masks [B, out] (nonzero = active), any B.  Each rank scores its rows
+    and its output columns with `make_mesh_programs` and every rank gets
+    the whole posteriors back on the frames' device, as the JAX function's
+    out_sharding P(DATA_AXIS, None) gives them.  The JAX function jits
+    through the partitioner; torch has none that sees through the
+    hand-written kernels, so the collectives are make_mesh_programs' own.
+
+    backend "cuda" runs the kernels on CUDA tensors (their plain versions
+    on CPU tensors), "torch" the plain versions.  The rank's padded,
+    sharded and prepared net and its programs are kept for the last net
+    object passed: a repeat call with the same net moves no weights.
+    JAX caches its executables per net structure instead; a prepared torch
+    net holds the weights, so it is keyed on the net itself.
+    """
+    data, model = mesh_shape(mesh)
+    defaults = EngineConfig()
+    rows_multiple = defaults.frame_bucket * data
+    cached: list = [None]  # (weakref to the net, device, rank net, programs)
+
+    def prepared(qnet: QuantizedNet, device):
+        hit = cached[0]
+        if hit is not None and hit[0]() is qnet and hit[1] == device:
+            return hit[2], hit[3]
+        lanes = kernels.TILE_N if backend == "cuda" else 1
+        net = pad_qnet(qnet, lanes=lanes, out_lanes=kernels.TILE_N * model)
+        net = shard_qnet(net, mesh).to(device)
+        if backend == "cuda":
+            net = cuda_backend.prepare(net)
+        programs = make_mesh_programs(
+            mesh, out_dim=qnet.output_dim if out_dim is None else out_dim, backend=backend,
+            semantics=semantics, fused_softmax=fused_softmax,
+            fast_posteriors=fast_posteriors, hstack=build_hidden_stack(net),
+            stack_max_frames=defaults.stack_hidden_max_frames)
+        cached[0] = (weakref.ref(qnet), device, net, programs)
+        return net, programs
+
+    def run(qnet, frames, masks=None):
+        net, programs = prepared(qnet, frames.device)
+        b = frames.shape[0]
+        rows = aligned_size(max(b, 1), rows_multiple)
+        frames = torch.nn.functional.pad(
+            frames.float(), (0, net.input_dim - frames.shape[1], 0, rows - b))
+        with torch.inference_mode():
+            if masks is None:
+                p = programs[0](net, local_rows(frames, mesh))
+            else:
+                width = net.biases[-1].shape[0] * model  # the padded output width
+                masks = torch.nn.functional.pad(
+                    masks.to(device=frames.device, dtype=torch.uint8),
+                    (0, width - masks.shape[1], 0, rows - b))
+                p = programs[1](net, local_rows(frames, mesh),
+                                local_cols(local_rows(masks, mesh), mesh))
+            n = qnet.output_dim if out_dim is None else out_dim
+            return gather_blocks(p, mesh)[:b, :n].to(frames.device)
+
+    def score(qnet, frames):
+        return run(qnet, frames)
+
+    def score_masked(qnet, frames, masks):
+        return run(qnet, frames, masks)
+
+    return score, score_masked
 
 
 def score_shard_map(qnet: QuantizedNet, frames: torch.Tensor, mesh: DeviceMesh, *,

@@ -465,13 +465,16 @@ def test_serve_protocol_garbage_fuzz(nets, rng):
 
 class TestCommandLine:
     def test_parser_is_single_device(self):
+        """Without a mesh flag or --coordinator the server is single-device
+        (the multi-process flags are tests/test_torch_service.py's); the JAX
+        CLI's --backend has no counterpart."""
         args = serve.build_parser().parse_args(["m.bin"])
         assert (args.device, args.port, args.max_batch_frames, args.max_wait_ms) == (
             "cuda", 8477, 8192, 3.0)
-        for flag in ("--mesh-model", "--mesh-data", "--coordinator", "--num-processes",
-                     "--process-id", "--backend"):
-            with pytest.raises(SystemExit):
-                serve.build_parser().parse_args(["m.bin", flag, "1"])
+        assert (args.mesh_model, args.mesh_data, args.coordinator) == (0, None, None)
+        assert not serve._multi(args)
+        with pytest.raises(SystemExit):
+            serve.build_parser().parse_args(["m.bin", "--backend", "1"])
 
     def test_serve_device_cuda_without_cuda_fails(self, model_path, monkeypatch, capsys):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
