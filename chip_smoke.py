@@ -36,8 +36,15 @@ MultiHostScorer coordinated from this process with one worker rank (every
 case against the single device, each rank's launches per call), the
 serve CLI as two processes under bench_serve's load, a worker that dies
 mid-stream, the score CLI under torchrun, make_gspmd_scorer on two ranks,
-and the native reader against the numpy parsers.  Any failed check raises
-and the script exits non-zero.
+and the native reader against the numpy parsers.  Then the measurement
+layer, each piece as a user runs it: the autotuner (`cli.autotune --batch
+8192 --commit`) into a temporary registry, whose entry must steer a default
+Scorer's launches with bitwise the same posteriors; every profiler
+campaign (`cli.profile all`), whose trace must name exactly the kernels
+the default path launches; and the four demos (`examples.*`) on the card.
+Phases 1-25 run with the registry off (FASTDNN_TUNED=0), so that their
+launch counts are the defaults'.  Any failed check raises and the script
+exits non-zero.
 The last line of standard output is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
@@ -49,6 +56,7 @@ fails before printing any result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import socket
@@ -101,6 +109,19 @@ SERVICE_CONFIGS = (  # (name, EngineConfig fields, scatter), built in this order
 SERVICE_CTX_FRAMES = 8  # the LazyContext through the coordinator
 DEATH_TIMEOUT_S = 15.0  # phase 24's call_timeout_s
 MASKED_BOUND = 3e-5  # masked posteriors of the multi-process path against one device
+# the measurement layer (phases 26-28): the autotuner's batch and reps, the
+# profiler's reps, its temporary registry (removed after), and the demos
+# with the line each must print
+TUNE_BATCH, TUNE_REPS, PROFILE_REPS = 8192, 3, 3
+TUNE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_tuning"
+DEMOS = {
+    "pipeline": "server stats",
+    "mesh_scoring": "masked   max |mesh - single-device|",
+    # bitwise on the plain versions; on the card K4 against K5 + the masked
+    # softmax, within 3e-5 (the demo asserts it)
+    "lazy_decoder": "max |batch - streaming| =",
+    "beam_decoder": "word sequences agree: True",
+}
 
 
 def phase(title: str) -> None:
@@ -170,27 +191,6 @@ def back_to_back_ms(torch, fn, calls: int = 20) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / calls
-
-
-def profile_device(torch, fn, calls: int = 10):
-    """`fn` called `calls` times under torch.profiler (CUPTI), after one
-    warm-up call -> (host window in ms per call, [(kernel name, device ms
-    per call)]); the list is empty when the profiler recorded no device
-    time.  Launch counts come from the wrappers' counters, not from here."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3 / calls
-    device = [(e.key, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    return window_ms, device
 
 
 def in_turns(torch, fns: dict, timer=time_ms) -> dict:
@@ -540,6 +540,10 @@ def main() -> int:
         random_lexicon,
         random_net,
     )
+    # no registry for phases 1-25 and the processes they start: their launch
+    # counts are the defaults' (phase 26 commits an entry to a registry of its own)
+    os.environ["FASTDNN_TUNED"] = "0"
+    from fastdnn_tpu_torch.cli.profile import CAMPAIGNS, profile_device
     from fastdnn_tpu_torch.engine import cuda_backend
     from fastdnn_tpu_torch.ops import _build, kernels
     from fastdnn_tpu_torch.ops import matmul as plain
@@ -817,7 +821,7 @@ def main() -> int:
     report["bias_sigmoid_i8"]["ms"] = time_ms(torch, k1_fn)
     report["bias_sigmoid_i8"]["plain_ms"] = time_ms(torch, lambda: plain.bias_sigmoid_i8(lin, r.input_b))
     k1_queued = back_to_back_ms(torch, k1_fn)
-    _, device = profile_device(torch, k1_fn, 20)
+    _, device = profile_device(k1_fn, 20)
     k1_traced = (f"{sum(row[1] for row in device):.4f} ms under the profiler"
                  if device else "profiler: no device time recorded")
     k1_fn()
@@ -841,7 +845,7 @@ def main() -> int:
     calls = 10
     for frames_in in (batch, frames_dev):
         b = frames_in.shape[0]
-        window_ms, device = profile_device(torch, lambda: scorer.score_device(frames_in), calls)
+        window_ms, device = profile_device(lambda: scorer.score_device(frames_in), calls)
         if not device:
             print(f"  score_device B={b} under torch.profiler: no device time recorded; idle share "
                   "not measured")
@@ -1034,7 +1038,7 @@ def main() -> int:
         plain_fn = lambda b=b: plain.output_logits(p3[:b], *plain_out_padded)
         ms, plain_ms = time_ms(torch, kernel_fn), time_ms(torch, plain_fn)
         queued_ms = back_to_back_ms(torch, kernel_fn)
-        _, device = profile_device(torch, kernel_fn, 20)
+        _, device = profile_device(kernel_fn, 20)
         traced = (f"{sum(row[1] for row in device):.4f} ms under the profiler ({len(device)} kernel)"
                   if device else "profiler: no device time recorded")
         report["output_logits"]["ms"], report["output_logits"]["plain_ms"] = ms, plain_ms
@@ -1510,7 +1514,7 @@ def main() -> int:
           f"{audio_s / wide_ms * 1e3:.1f} audio-s/s; plain {wide_plain_ms:.4f} ms/batch  [{smi}]")
     # the wide net's device work: K9, K2, K8 and the normalize kernel, one
     # launch each per call, and nothing else (no torch elementwise pass)
-    window_ms, device = profile_device(torch, lambda: wide.score_device(batch), 10)
+    window_ms, device = profile_device(lambda: wide.score_device(batch), 10)
     check(bool(device), f"wide score_device B=8192 under torch.profiler: device time recorded "
                         f"({len(device)} kernels)")
     busy = sum(row[1] for row in device) / window_ms
@@ -2111,6 +2115,120 @@ def main() -> int:
     print("  host reads, median of 5 (ms): " + "; ".join(f"{k} {v:.2f}" for k, v in io_ms.items())
           + f"  [{smi}]")
     shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+
+    phase(f"26. autotune: fastdnn_tpu_torch.cli.autotune --batch {TUNE_BATCH} --commit into a "
+          f"temporary registry")
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    TUNE_DIR.mkdir(parents=True)
+    registry = TUNE_DIR / "tuned.json"
+    t0 = time.perf_counter()
+    tune = subprocess.run(
+        [sys.executable, "-m", "fastdnn_tpu_torch.cli.autotune", "--batch", str(TUNE_BATCH),
+         "--reps", str(TUNE_REPS), "--commit"],
+        cwd=repo, env={**os.environ, "FASTDNN_TUNED": str(registry)},
+        capture_output=True, text=True, timeout=600)
+    tune_s = time.perf_counter() - t0
+    for line in tune.stdout.splitlines():
+        if line.strip():
+            print(f"  | {line}")
+    check(tune.returncode == 0, f"autotune exit 0 in {tune_s:.1f} s" + (
+        "" if tune.returncode == 0 else ":\n" + (tune.stdout + tune.stderr)[-3000:]))
+    entry = json.loads([ln for ln in tune.stdout.splitlines() if ln.startswith("{")][-1])
+    check("disqualified" not in tune.stdout
+          and all(re.search(rf"^  {name} .*: bitwise the default", tune.stdout, re.M)
+                  for name in ("stack", "per_layer")),
+          "both candidates passed the gate: bitwise the default Scorer, within 3e-5 of the plain "
+          "path")
+    check(json.loads(registry.read_text()) == {"entries": [entry]}
+          and entry["net"] == f"{INPUT_DIM}-{DEPTH}x{HIDDEN}-{SENONES}"
+          and entry["device_kind"] == kind and entry["platform"] == "cuda",
+          f"the entry for ({entry['net']}, {entry['device_kind']}, {entry['batch']}) was committed")
+    threshold = entry["knobs"]["stack_hidden_max_frames"]
+    print(f"  entry: default {entry['default_ms']:.4f} ms, best {entry['best_ms']:.4f} ms, "
+          f"stack_hidden_max_frames {threshold}  [{smi}]")
+    os.environ["FASTDNN_TUNED"] = str(registry)
+    try:
+        tuned = Scorer(qnet, EngineConfig(), device="cuda")
+    finally:
+        os.environ["FASTDNN_TUNED"] = "0"
+    check(tuned.config.stack_hidden_max_frames == threshold,
+          f"a default Scorer under the registry reads stack_hidden_max_frames = {threshold}")
+    trunk = {"hidden_stack": 1} if threshold >= TUNE_BATCH else {"hidden_layer": DEPTH - 1}
+    tuned_p = drive(f"a default Scorer under the registry, {TUNE_BATCH} frames",
+                    {"input_layer": 1, **trunk, "resident_softmax": 1},
+                    lambda: tuned.score(frames[:TUNE_BATCH]))
+    check(np.array_equal(tuned_p, Scorer(qnet, EngineConfig(autotuned=False), device="cuda")
+                         .score(frames[:TUNE_BATCH])),
+          "its posteriors are bitwise those of autotuned=False")
+    untuned = Scorer(qnet, EngineConfig(), device="cuda")
+    drive(f"a default Scorer under FASTDNN_TUNED=0, {TUNE_BATCH} frames",
+          {"input_layer": 1, "hidden_stack": 1, "resident_softmax": 1},
+          lambda: untuned.score(frames[:TUNE_BATCH]))
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+
+    # one process for all ten campaigns: on an H100 machine each in a
+    # process of its own took 16-22 s, ten of them more than the 180 s
+    # that phases 26-28 may take together
+    phase(f"27. profiler: python -m fastdnn_tpu_torch.cli.profile all --reps {PROFILE_REPS} "
+          f"(every campaign once, one process; card: {smi})")
+    t0 = time.perf_counter()
+    prof = subprocess.run(
+        [sys.executable, "-m", "fastdnn_tpu_torch.cli.profile", "all", "--reps", str(PROFILE_REPS)],
+        cwd=repo, capture_output=True, text=True, timeout=900)
+    prof_s = time.perf_counter() - t0
+    check(prof.returncode == 0, f"profile all exit 0 in {prof_s:.1f} s" + (
+        "" if prof.returncode == 0 else ":\n" + (prof.stdout + prof.stderr)[-3000:]))
+    sections = re.split(r"^== campaign \S+ \(", prof.stdout, flags=re.M)[1:]
+    check(len(sections) == len(CAMPAIGNS), f"{len(sections)} campaigns ran of {len(CAMPAIGNS)}")
+    verdicts = {}
+    for name, section in zip(CAMPAIGNS, sections):
+        lines = section.splitlines()
+        records = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        seconds = [ln[len("== campaign "):] for ln in lines
+                   if ln.startswith(f"== campaign {name}: ")]
+        check(len(records) == 1 and len(seconds) == 1,
+              f"{name}: verdict {next(iter(records[0])) if records else None!r}, "
+              f"{seconds[0] if seconds else 'no seconds line'}")
+        verdicts[name] = next(iter(records[0].values()))
+        if name in ("trace", "stack"):
+            for line in lines[1:]:
+                if line and not line.startswith(("{", "==")):
+                    print(f"    | {line}")
+        print(f"    {json.dumps(records[0])}")
+    trace = verdicts["trace"]
+    default_path = {"input_layer", "hidden_stack", "resident_softmax"}
+    check(set(trace["kernels"]) == set(trace["launched"]) == default_path and not trace["other"],
+          f"trace names exactly the kernels the default path launches: {sorted(trace['kernels'])}"
+          f" (other device work: {sorted(trace['other']) or 'none'}); busy {trace['busy']:.1%} of "
+          f"a {trace['window_ms']:.4f} ms window")
+    mesh_trace = verdicts["trace-mesh"]
+    check(not mesh_trace["extra"], f"trace-mesh: no kernel only in the 1 x 1 mesh program "
+                                   f"(only in the plain one: {mesh_trace['missing'] or 'none'})")
+    check(all("error" not in verdicts["int4"][v] for v in ("int8", "int4", "int4_packed")),
+          "int4: all three variants measured")
+
+    phase("28. examples: the four demos with --device cuda, at once")
+    t0 = time.perf_counter()
+    demo_procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"fastdnn_tpu_torch.examples.{name}", "--device", "cuda"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in DEMOS}
+    demo_out = {}
+    try:
+        for name, proc in demo_procs.items():
+            demo_out[name] = proc.communicate(timeout=TP_TIMEOUT_S)[0]
+            demo_out[name + " s"] = time.perf_counter() - t0
+    finally:
+        for proc in demo_procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name, needle in DEMOS.items():
+        out_lines = [ln for ln in demo_out[name].splitlines() if needle in ln]
+        check(demo_procs[name].returncode == 0 and bool(out_lines),
+              f"{name} exit 0 by {demo_out[name + ' s']:.1f} s: {out_lines[0].strip()}"
+              if out_lines and demo_procs[name].returncode == 0 else
+              f"{name}: rc {demo_procs[name].returncode}, no {needle!r}:\n"
+              f"{demo_out[name][-3000:]}")
 
     rows = [
         {

@@ -2,9 +2,11 @@
 
 The constants are the reference's (see fastdnn_tpu/config.py:23-31); the
 `EngineConfig` keeps only the knobs the port's scoring path reads, with the
-JAX package's names, defaults and meaning.  The TPU block sizes (the
-block-sparse kernel skips at its own tile), `input_precision`, `interpret`
-and the tuning fields of the JAX package have no counterpart here.
+JAX package's names, defaults and meaning, the registry switches
+`autotuned` and `tuned_batch` among them (tuning.py; the registry fills in
+`stack_hidden_max_frames`).  The TPU block sizes (the block-sparse kernel
+skips at its own tile), `input_precision` and `interpret` have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -37,9 +39,22 @@ class EngineConfig:
     #: frame counts are padded up to a multiple of this, which is also a
     #: multiple of every kernel's frame tile
     frame_bucket: int = 128
+    #: consult the measured launch-knob registry (fastdnn_tpu_torch/tuned.json,
+    #: written by cli/autotune --commit) at Scorer construction: knobs left
+    #: at their defaults (tuning.TUNED_KEYS) are replaced by the recorded
+    #: best for this (net topology, device kind); explicitly set knobs always
+    #: win.  See tuning.py for the lookup policy.
+    autotuned: bool = True
+    #: typical per-call frame count, used ONLY as the registry-lookup hint:
+    #: with several batches recorded for a (net, device kind), the entry
+    #: with the nearest batch wins.  None = the largest-batch entry (the
+    #: throughput regime the engine optimizes for); latency deployments
+    #: scoring small fixed batches should set their batch here.
+    tuned_batch: "int | None" = None
     #: batches of at most this many frames run the whole hidden trunk as one
     #: kernel (ops.kernels.hidden_stack); larger ones run one kernel per
-    #: layer.  0 disables the stack.
+    #: layer.  0 disables the stack.  A schedule only: either route gives
+    #: bitwise the same activations, so the registry may set it (tuning.py).
     stack_hidden_max_frames: int = 8192
     #: output layer and softmax in one kernel (ops.kernels.resident_softmax)
     #: instead of the logits kernel (ops.kernels.output_logits) followed by

@@ -243,6 +243,23 @@ def masked_posteriors_from_acts(net, acts, masks, *, backend, semantics, out_dim
     return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
 
 
+def tuned_config(config: EngineConfig, net: QuantizedNet, backend: str, device) -> EngineConfig:
+    """`config` with the registry's knobs for this net and card filled in
+    (tuning.apply_tuned) on the CUDA backend in a process that is not one
+    of several ranks; unchanged otherwise.  Ranks skip the registry, as the
+    JAX package's multi-process pods do: the file is per-host state, and
+    ranks resolving different knobs would run different schedules."""
+    if backend != "cuda" or not config.autotuned:
+        return config
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return config
+    from .. import tuning
+
+    return tuning.apply_tuned(config, net, tuning.device_kind(device))
+
+
 class Scorer:
     """User-facing engine around one QuantizedNet on one device.
 
@@ -254,7 +271,10 @@ class Scorer:
     the kernels take them by value, so scoring never waits on the device to
     read one.  With `config.int4_packed` an int4 trunk is packed after the
     padding and before the layout change.  The gathered lazy path reads the
-    mask union on the host, as the JAX package does.
+    mask union on the host, as the JAX package does.  On the CUDA backend,
+    in a process that is not one of several ranks, the measured launch-knob
+    registry (tuning.py) fills in knobs left at their defaults
+    (`tuned_config`).
 
     `mesh` (a ("data", "model") DeviceMesh, parallel.mesh.make_mesh) makes
     the same API tensor-parallel across the ranks of a process group: every
@@ -283,6 +303,9 @@ class Scorer:
                 "to score with the plain PyTorch versions"
             )
         self._backend = self.config.resolve_backend(self.device)
+        # measured launch knobs for this (net topology, card) replace those
+        # left at their defaults; explicit knobs win (tuning.py)
+        self.config = tuned_config(self.config, net, self._backend, self.device)
         if self.config.lazy_mode == "block_sparse" and not (
             self._backend == "cuda" and self.config.fused_softmax
         ):

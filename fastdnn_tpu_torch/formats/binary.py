@@ -23,8 +23,9 @@ trailing frame, which its own readers ignore too).
 
 `read_model` and `read_features` parse a big-endian file given by path with
 the native reader (formats/native.py, built from native/fastdnn_io.cc at
-first use) unless FASTDNN_NATIVE=0, as the JAX package does; file objects
-and little-endian files take the numpy parsers below.
+first use) unless FASTDNN_NATIVE=0 or no compiler can build it, as the JAX
+package does; file objects and little-endian files take the numpy parsers
+below.
 """
 
 from __future__ import annotations
@@ -99,12 +100,13 @@ def _emit(data: bytes, f: PathOrFile) -> None:
 
 def _native_path(f: PathOrFile, little_endian: bool) -> bool:
     """True when the native reader takes this input: a big-endian file by
-    path, with FASTDNN_NATIVE not 0."""
+    path, with FASTDNN_NATIVE not 0 and the reader loaded or a compiler to
+    build it (native.available)."""
     if hasattr(f, "read") or little_endian:
         return False
     from . import native
 
-    return native.enabled()
+    return native.enabled() and native.available()
 
 
 def read_model(f: PathOrFile, *, little_endian: bool = False) -> RawNetwork:

@@ -12,14 +12,18 @@ use: one `g++ -O3 -std=c++17 -fPIC -shared` into
 the flags, the compiler's version and the platform, so neither a stale
 build nor one from another machine is ever loaded.  It never loads the JAX
 package's build.  A failed build or load raises with the compiler's
-output; there is no silent fallback.  FASTDNN_NATIVE=0 (the JAX package's
-switch) makes formats/binary.py use its numpy parsers instead.
+output.  Where no compiler is found and the library is not loaded
+already (`available`), formats/binary.py takes its numpy parsers and logs
+one warning per process, as the JAX package does when its library is
+missing; FASTDNN_NATIVE=0 (the JAX package's switch) asks for them
+outright.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import platform
 import shutil
@@ -27,7 +31,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -39,11 +43,29 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _lock = threading.Lock()
 _lib = None
+_warned = False  # the missing compiler is logged once per process
 
 
 def enabled() -> bool:
     """False when FASTDNN_NATIVE=0 asks for the numpy parsers."""
     return os.environ.get("FASTDNN_NATIVE", "1") != "0"
+
+
+def available() -> bool:
+    """True when the reader can be had: loaded already, or a compiler to
+    build it.  Without either it logs one warning per process and returns
+    False, and the caller takes the numpy parsers."""
+    global _warned
+    if _lib is not None:
+        return True
+    try:
+        compiler()
+    except RuntimeError as e:
+        if not _warned:
+            _warned = True
+            logging.getLogger(__name__).warning("%s; using the numpy parsers", e)
+        return False
+    return True
 
 
 def compiler() -> str:
@@ -92,12 +114,13 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
-def load(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
-    """The library, built on first call; later calls return the same one."""
+def load(build_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """The library, built on first call (into BUILD_DIR unless `build_dir`
+    is given); later calls return the same one."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build(build_dir))))
+            _lib = _bind(ctypes.CDLL(str(build(build_dir or BUILD_DIR))))
         return _lib
 
 

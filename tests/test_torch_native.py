@@ -7,7 +7,9 @@ loaded) and skips only when no compiler exists.  Features and models must
 be bitwise the numpy parsers' (the port's and the JAX package's), corrupt
 files rejected with ValueError, formats/binary.py must dispatch path
 arguments to the native reader unless FASTDNN_NATIVE=0, and a failed
-build must raise with the compiler's output rather than fall back.
+build must raise with the compiler's output rather than fall back.  With
+the compiler hidden (no $CXX, no g++ on the path) and no reader loaded,
+paths take the numpy parsers bitwise, with one warning per process.
 """
 
 import os
@@ -213,3 +215,65 @@ class TestBuild:
         assert native.library_path(tmp_path) != first
         assert first.parent == tmp_path and first.suffix == ".so"
 
+
+
+class TestNoCompiler:
+    """Without a compiler and with no reader loaded, paths take the numpy
+    parsers with one warning per process (the JAX package's contract);
+    a compiler whose build fails still raises."""
+
+    @pytest.fixture
+    def hidden_compiler(self, monkeypatch):
+        monkeypatch.delenv("CXX", raising=False)
+        monkeypatch.setattr(native.shutil, "which", lambda name: None)
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_warned", False)
+        monkeypatch.delenv("FASTDNN_NATIVE", raising=False)
+
+    @pytest.mark.parametrize("name", ["parity_model.bin", "divergence_model.bin"])
+    def test_model_by_path_is_the_numpy_parsers(self, hidden_compiler, name, caplog):
+        path = os.path.join(GOLDEN, name)
+        with caplog.at_level("WARNING", logger=native.__name__):
+            got = tbin.read_model(path)
+            again = fdt.read_model(path)
+        _assert_models_equal(got, _numpy_model(path))
+        _assert_models_equal(again, got)
+        with open(path, "rb") as f:
+            _assert_models_equal(got, jbin.read_model(f))
+        warnings = [r for r in caplog.records if "numpy parsers" in r.getMessage()]
+        assert len(warnings) == 1 and "g++ not found" in warnings[0].getMessage()
+        assert native._lib is None
+
+    def test_features_by_path_are_the_numpy_parsers(self, hidden_compiler, feature_file):
+        path, data = feature_file
+        got = tbin.read_features(path)
+        assert got.dtype == np.float32 and got.shape == data.shape
+        assert np.array_equal(got.view(np.uint32), _numpy_features(path).view(np.uint32))
+        with open(path, "rb") as f:
+            assert np.array_equal(got.view(np.uint32), jbin.read_features(f).view(np.uint32))
+        assert np.array_equal(tbin.read_features(str(path)).view(np.uint32), data.view(np.uint32))
+        assert not native.available()
+
+    def test_a_loaded_reader_serves_without_a_compiler(self, lib, feature_file, monkeypatch):
+        path, data = feature_file
+        monkeypatch.setattr(native, "_lib", lib)
+        monkeypatch.delenv("CXX", raising=False)
+        monkeypatch.setattr(native.shutil, "which", lambda name: None)
+        calls = []
+        read = native.read_features
+        monkeypatch.setattr(native, "read_features", lambda p: calls.append(p) or read(p))
+        np.testing.assert_array_equal(tbin.read_features(path), data)
+        assert calls == [path]
+
+    def test_a_present_compiler_whose_build_fails_raises(self, lib, tmp_path, monkeypatch,
+                                                          feature_file):
+        broken = tmp_path / "broken.cc"
+        broken.write_text("int main( {\n")
+        monkeypatch.setattr(native, "SOURCE", broken)
+        monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "out")
+        monkeypatch.setattr(native, "_lib", None)
+        with pytest.raises(RuntimeError, match="building the native reader failed"):
+            tbin.read_model(os.path.join(GOLDEN, "parity_model.bin"))
+        with pytest.raises(RuntimeError, match="building the native reader failed"):
+            tbin.read_features(feature_file[0])
+        assert not list((tmp_path / "out").glob("*.so"))
