@@ -42,6 +42,12 @@ layer, each piece as a user runs it: the autotuner (`cli.autotune --batch
 Scorer's launches with bitwise the same posteriors; every profiler
 campaign (`cli.profile all`), whose trace must name exactly the kernels
 the default path launches; and the four demos (`examples.*`) on the card.
+Last, the input layer's precision knob: K9's 1-pass bf16 variant
+(`input_precision="default"`) against its plain version, Scorers under
+"high" and "highest" bitwise the default one, "default" end to end and
+under the reference's float-oracle gate, timed in turns with K9, and the
+serve CLI under the JAX package's serving configuration
+(`--input-precision default --fast-posteriors`).
 Phases 1-25 run with the registry off (FASTDNN_TUNED=0), so that their
 launch counts are the defaults'.  Any failed check raises and the script
 exits non-zero.
@@ -85,7 +91,7 @@ WIDE_HIDDEN, WIDE_DEPTH = 3072, 2  # wider than K4's K and K3's H
 TP_RANKS = 2  # tensor-parallel ranks on the one card
 TP_TIMEOUT_S = 300  # per-rank join timeout of phase 16
 # published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
-PEAK_OPS_PER_S = {"int8": 1979e12, "tf32": 494.7e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989.4e12, "tf32": 494.7e12}
 HBM_BYTES_PER_S = 3.35e12
 COUNT_FLIP_RATE = 1e-4  # the input layer's gate: <= 1 count on <= 1e-4 of the entries
 SMOKE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_cli"
@@ -114,6 +120,12 @@ MASKED_BOUND = 3e-5  # masked posteriors of the multi-process path against one d
 # with the line each must print
 TUNE_BATCH, TUNE_REPS, PROFILE_REPS = 8192, 3, 3
 TUNE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_tuning"
+# phase 29: the serve CLI's checkpoint (removed after), the reference's
+# float-oracle gate (summed |d| per senone over 100 frames) and the requests
+# to the served configuration (frame ranges)
+PRECISION_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_precision"
+ORACLE_GATE = 0.1
+PRECISION_REQUESTS = ((0, 100), (100, 357), (357, 1357))
 DEMOS = {
     "pipeline": "server stats",
     "mesh_scoring": "masked   max |mesh - single-device|",
@@ -124,8 +136,12 @@ DEMOS = {
 }
 
 
+_START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print(f"\n== {title}  [at {time.perf_counter() - _START:.1f} s]", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -168,7 +184,7 @@ def host_ms(torch, fn, reps: int = TIMED_REPS) -> float:
 
 def bound(ops: float, kind: str, nbytes: float) -> tuple[float, str]:
     """The least time (ms) the card could take for work of `ops` operations
-    on tensor-core type `kind` ("int8" or "tf32") moving `nbytes` bytes
+    on tensor-core type `kind` ("int8", "bf16" or "tf32") moving `nbytes` bytes
     (each input read once, each output written once), and which of the two
     bounds it."""
     ops_ms, bytes_ms = ops / PEAK_OPS_PER_S[kind] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -2229,6 +2245,150 @@ def main() -> int:
               if out_lines and demo_procs[name].returncode == 0 else
               f"{name}: rc {demo_procs[name].returncode}, no {needle!r}:\n"
               f"{demo_out[name][-3000:]}")
+
+    phase('29. input precision: K9\'s 1-pass bf16 variant (input_precision="default") on the '
+          f"{INPUT_DIM}-{DEPTH}x{HIDDEN}-{SENONES} net")
+    from fastdnn_tpu_torch.models.feedforward import forward as float_forward
+
+    # (a) the kernel against its plain version (both operands rounded to
+    # bf16, the f64 product rounded once to f32): the flagship input layer at
+    # B = 8192, 1 and 8320; K_in = 429 (frames padded to 432) and 96 (the
+    # last stage's second frame box lies wholly past K and is not copied)
+    op16 = kernels.input_layer_operand(q.input_w, "default")
+    shares16 = []
+    for b in (8192, 1, 8320):
+        got = kernels.input_layer_bf16(frames_dev[:b], q.input_w, op16, q.input_b)
+        want = plain.input_layer_step(frames_dev[:b], r.input_w, r.input_b, "default")
+        shares16.append(count_gate(got, want, f"input_layer_bf16 [{b}, {INPUT_DIM}] x "
+                                              f"[{INPUT_DIM}, {HIDDEN}]"))
+        if b == 8192:  # what the 1-pass product moves against K9's
+            d = (got.int() - kernels.input_layer(frames_dev[:b], q.input_w, q.input_operand,
+                                                 q.input_b).int()).abs()
+            print(f"  input_layer_bf16 against K9 at B = 8192: {float((d > 0).float().mean()):.3g} "
+                  f"of the counts differ, max |d| = {int(d.max())}")
+    in16_rng = np.random.default_rng(SEED + 29)
+    for k_in in (429, 96):
+        w_in = torch.from_numpy(in16_rng.standard_normal((k_in, HIDDEN), dtype=np.float32)
+                                * np.float32(k_in ** -0.5)).to(dev)
+        b_in = torch.from_numpy((in16_rng.standard_normal(HIDDEN) * 0.1).astype(np.float32)).to(dev)
+        x_in = torch.from_numpy(in16_rng.standard_normal((8192, k_in), dtype=np.float32)).to(dev)
+        got = kernels.input_layer_bf16(x_in, w_in, kernels.input_layer_operand(w_in, "default"), b_in)
+        shares16.append(count_gate(got, plain.input_layer_step(x_in, w_in, b_in, "default"),
+                                   f"input_layer_bf16 [8192, {k_in}] x [{k_in}, {HIDDEN}]"))
+    report["input_layer_bf16"]["max_abs_err"] = 1.0 if max(shares16) > 0 else 0.0
+
+    # (b) "high" and "highest" run K9 and give bitwise today's default
+    # Scorer; "default" runs the bf16 kernel in its place
+    by_precision = {p: Scorer(qnet, EngineConfig(input_precision=p), device="cuda")
+                    for p in ("high", "highest", "default")}
+    want_acts, want_post = scorer._hidden(batch), scorer.score_device(batch)
+    for p in ("high", "highest"):
+        sc_p = by_precision[p]
+        check(torch.equal(sc_p._hidden(batch), want_acts)
+              and torch.equal(sc_p.score_device(batch), want_post),
+              f'input_precision="{p}": bitwise the default Scorer\'s activations and posteriors '
+              "(B = 8192)")
+        drive(f'score_device under input_precision="{p}"',
+              {"input_layer": 1, "hidden_stack": 1, "resident_softmax": 1},
+              lambda sc_p=sc_p: sc_p.score_device(batch))
+    sc16 = by_precision["default"]
+    route16 = {"input_layer_bf16": 1, "hidden_stack": 1, "resident_softmax": 1}
+    drive('score_device under input_precision="default"', route16,
+          lambda: sc16.score_device(batch))
+
+    # (c) "default" end to end against its plain path
+    plain16 = Scorer(qnet, EngineConfig(backend="torch", input_precision="default"), device="cuda")
+    got16 = drive('Scorer.score under input_precision="default", n=8192', route16,
+                  lambda: sc16.score(frames[:8192]))
+    close(got16, plain16.score(frames[:8192]),
+          'input_precision="default" n=8192 against its plain path')
+    high_dp = float(np.abs(got16 - scorer.score(frames[:8192])).max())
+    print(f'  "default" against "high" at n=8192: max |dp| = {high_dp:.3g}')
+
+    # (d) the JAX serving campaign's numbers against the parity Scorer on 100
+    # frames: the reference's float-oracle gate, max |dp|, argmax agreement
+    serving = Scorer(qnet, EngineConfig(input_precision="default", fast_posteriors=True),
+                     device="cuda")
+    f100 = np.random.default_rng(3).standard_normal((100, INPUT_DIM), dtype=np.float32)
+    oracle = float_forward(net, torch.from_numpy(f100)).numpy()
+    p_parity = scorer.score(f100)
+    for name, sc_s in (("parity", scorer), ("fast_in", sc16), ("serving", serving)):
+        p100 = sc_s.score(f100)
+        gate = float(np.abs(p100 - oracle).sum(axis=0).max())
+        dp = float(np.abs(p100 - p_parity).max())
+        agree = float((p100.argmax(1) == p_parity.argmax(1)).mean())
+        check(gate < ORACLE_GATE, f"{name:8s} float-oracle gate {gate:.4f} < {ORACLE_GATE:g}; "
+                                  f"max |dp| against parity {dp:.3g}, argmax agreement {agree:.4f}")
+
+    # (e) times in turns: the bf16 kernel against K9 and its plain version,
+    # then score_device under "high" and "default", each beside its bound
+    x16_bf, w16_bf = batch.to(torch.bfloat16), r.input_w.to(torch.bfloat16)
+    times = in_turns(torch, {
+        "plain": lambda: plain.input_layer_step(batch, r.input_w, r.input_b, "default"),
+        "K9": lambda: kernels.input_layer(batch, q.input_w, q.input_operand, q.input_b),
+        "bf16": lambda: kernels.input_layer_bf16(batch, q.input_w, op16, q.input_b)})
+    t16 = {name: sum(t) / len(t) for name, t in times.items()}
+    row16 = report["input_layer_bf16"]
+    row16["ms"], row16["plain_ms"] = t16["bf16"], t16["plain"]
+    row16["bound_ms"], row16["bound_by"] = bound(
+        2 * 8192 * INPUT_DIM * HIDDEN, "bf16",
+        8192 * INPUT_DIM * 4 + op16.numel() * 2 + HIDDEN * 4 + 8192 * HIDDEN)
+    row16["product_ms"] = time_ms(torch, lambda: torch.matmul(x16_bf, w16_bf))
+    print(f"  input layer [8192, {INPUT_DIM}] x [{INPUT_DIM}, {HIDDEN}] in turns: " + ", ".join(
+        f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in times.items()) + f" ms  [{smi}]")
+    for name, key in (("K9", "input_layer"), ("bf16", "input_layer_bf16")):
+        print(f"  {name:4s} {t16[name]:.4f} ms, bound {report[key]['bound_ms']:.4f} ms "
+              f"({report[key]['bound_by']}), {report[key]['bound_ms'] / t16[name]:.1%} of it  [{smi}]")
+    print(f"  input_layer_bf16 product alone (torch.matmul bf16) {row16['product_ms']:.4f} ms"
+          f"  [{smi}]")
+    trunk_out = report["hidden_stack"]["bound_ms"] + report["resident_softmax"]["bound_ms"]
+    sd_bounds = {"high": report["input_layer"]["bound_ms"] + trunk_out,
+                 "default": row16["bound_ms"] + trunk_out}
+    times = in_turns(torch, {"high": lambda: scorer.score_device(batch),
+                             "default": lambda: sc16.score_device(batch)})
+    for name, t in times.items():
+        ms = sum(t) / len(t)
+        print(f'  score_device B=8192 input_precision="{name}" in turns {t[0]:.4f} / {t[1]:.4f} '
+              f"ms, {8192 / FRAMES_PER_AUDIO_SECOND / ms * 1e3:.1f} audio-s/s; bound (its three "
+              f"kernels' bounds summed) {sd_bounds[name]:.4f} ms, {sd_bounds[name] / ms:.1%} of it"
+              f"  [{smi}]")
+
+    # (f) the serve CLI under the JAX package's serving configuration,
+    # answered through the port's client
+    shutil.rmtree(PRECISION_DIR, ignore_errors=True)
+    PRECISION_DIR.mkdir(parents=True)
+    save_qnet(qnet, PRECISION_DIR / "flagship.npz")
+    serve_proc = subprocess.Popen(
+        [sys.executable, "-m", "fastdnn_tpu_torch.cli.serve", str(PRECISION_DIR / "flagship.npz"),
+         "--port", "0", "--input-precision", "default", "--fast-posteriors"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        served_port, lines = None, []
+        for line in serve_proc.stdout:
+            lines.append(line)
+            found = re.match(r"serving on [\d.]+:(\d+)", line)
+            if found:
+                served_port = int(found.group(1))
+                break
+        check(served_port is not None, "serve --input-precision default --fast-posteriors serves "
+                                       "TCP" + ("" if served_port else ":\n" + "".join(lines[-30:])))
+        client = serve.ScoreClient("127.0.0.1", served_port)
+        answers = [client.score(frames[lo:hi]) for lo, hi in PRECISION_REQUESTS]
+        client.close()
+        serve_proc.send_signal(signal.SIGTERM)
+        serve_proc.communicate(timeout=120)
+    finally:
+        if serve_proc.poll() is None:
+            serve_proc.kill()
+            serve_proc.communicate()
+    shutil.rmtree(PRECISION_DIR, ignore_errors=True)
+    check(serve_proc.returncode == 0, f"the server exited {serve_proc.returncode} on SIGTERM")
+    d_sv = max(float(np.abs(a - serving.score(frames[lo:hi])).max())
+               for a, (lo, hi) in zip(answers, PRECISION_REQUESTS))
+    check(all(a.shape == (hi - lo, SENONES) and a.dtype == np.float32
+              for a, (lo, hi) in zip(answers, PRECISION_REQUESTS)) and d_sv <= 1e-4,
+          f"{len(answers)} responses of the served configuration within 1e-4 of the in-process "
+          f'Scorer(input_precision="default", fast_posteriors=True) (max |d| = {d_sv:.3g})')
 
     rows = [
         {

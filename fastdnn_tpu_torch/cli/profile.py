@@ -11,8 +11,10 @@ Campaigns (each ends in one JSON line whose key names it):
     trace-mesh   a 1 x 1 mesh Scorer against the plain one on one card: the
                  kernel sets must be equal (no extra copy or collective)
                                                              {"trace_mesh"}
-    variants     fused_softmax x fast_posteriors on the full pass {"variants"}
-    stages       input (K9) / trunk (K3, or one K2 per layer) / output (K4),
+    variants     the full pass under fused_softmax x input_precision x
+                 fast_posteriors, tools/profile.py's six rows  {"variants"}
+    stages       input (K9 for "highest" and "high", its bf16 variant for
+                 "default") / trunk (K3, or one K2 per layer) / output (K4),
                  each alone                                       {"stages"}
     dots         torch._int_mm (s8) and bf16 torch.matmul at the hidden and
                  output shapes beside K2's and K4's own time, as TOP/s
@@ -24,8 +26,10 @@ Campaigns (each ends in one JSON line whose key names it):
     int4         int8 / int4 unpacked / int4 packed: device ms and the
                  float-oracle gate (summed |d| per node over 100 frames)
                                                                     {"int4"}
-    serving      the parity default against fast_posteriors=True: device ms,
-                 max |dp|, argmax agreement               {"serving_config"}
+    serving      the parity default against the serving knobs, bf16
+                 posteriors (fast_out), the 1-pass bf16 input layer
+                 (fast_in) and both (serving): device ms, the float-oracle
+                 gate, max |dp|, argmax agreement         {"serving_config"}
     stack        K3 against one K2 per layer over B, and the threshold the
                  registry would record (tuning.py)          {"hidden_stack"}
     all          every campaign above, in that order, in one process
@@ -56,7 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..config import EngineConfig
+from ..config import INPUT_PRECISIONS, EngineConfig
 from ..engine import cuda_backend
 from ..engine import scorer as scoring
 from ..ops import kernels
@@ -136,6 +140,7 @@ def kernel_of(symbol: str) -> Optional[str]:
         skip = _template_flag(symbol, "flash_stats_kernel", 2)
         return "flash_stats_block_sparse" if skip else "flash_stats"
     for name, kernel in (("input_layer", "input_layer_kernel"),
+                         ("input_layer_bf16", "input_layer_bf16_kernel"),
                          ("bias_sigmoid_i8", "bias_sigmoid_kernel"),
                          ("hidden_stack", "hidden_stack_wgmma_kernel"),
                          ("hidden_layer_packed", "hidden_layer_packed_kernel"),
@@ -289,20 +294,34 @@ def cmd_trace_mesh(ctx: Context) -> dict:
                                 "mesh_ms": mesh_rec["total_ms"]})
 
 
+#: tools/profile.py's variant rows: (fused_softmax, input_precision,
+#: fast_posteriors)
+VARIANTS = (
+    (False, "highest", False),
+    (False, "high", False),
+    (True, "high", False),
+    (True, "high", True),
+    (True, "default", False),
+    (True, "default", True),
+)
+
+
 def cmd_variants(ctx: Context) -> dict:
-    """The full pass under the output-layer switches: the logits kernel and
-    a library softmax, the fused softmax, and the fused softmax writing
-    bf16 (`input_precision` has no counterpart: K9 is 3xTF32)."""
+    """The full pass under the switches of tools/profile.py's variants:
+    the logits kernel and a library softmax, or the fused softmax; K9
+    ("highest", "high") or its bf16 variant ("default") for the input
+    layer; f32 or bf16 posteriors.  Rows are named
+    fused{0|1}_{precision}_fast{0|1}."""
     frames = ctx.frames(ctx.batch)
     qnet = ctx.qnet()
     out = {}
-    for name, fused, fast in (("logits_softmax", False, False), ("fused", True, False),
-                              ("fused_fast", True, True)):
-        sc = ctx.scorer(qnet, fused_softmax=fused, fast_posteriors=fast)
+    for fused, prec, fast in VARIANTS:
+        name = f"fused{int(fused)}_{prec}_fast{int(fast)}"
+        sc = ctx.scorer(qnet, fused_softmax=fused, input_precision=prec, fast_posteriors=fast)
         ms = ctx.ms(lambda sc=sc: sc.score_device(frames))
         out[name] = {"ms": ms, "audio_s_per_s": _audio_s(ctx.batch, ms)}
-        print(f"fused={int(fused)} fast={int(fast)}  {ms:8.4f} ms/batch  audio-s/s "
-              f"{out[name]['audio_s_per_s']:9.0f}", flush=True)
+        print(f"fused={int(fused)} prec={prec:8s} fast={int(fast)}  {ms:8.4f} ms/batch  "
+              f"audio-s/s {out[name]['audio_s_per_s']:9.0f}", flush=True)
     return _emit("variants", {"batch": ctx.batch, **out})
 
 
@@ -312,11 +331,14 @@ def _steps(sc):
     return cuda_backend if sc.backend == "cuda" else xops
 
 
-def _input(sc, frames):
+def _input(sc, frames, precision: str, operand):
+    """The input layer alone under `precision`; `operand` is the input
+    weight as that precision's kernel reads it (unused on the plain
+    versions)."""
     net = sc.net
     if sc.backend == "cuda":
-        return cuda_backend.input_layer_step(frames, net.input_w, net.input_b, net.input_operand)
-    return xops.input_layer_step(frames, net.input_w, net.input_b)
+        return cuda_backend.input_layer_step(frames, net.input_w, net.input_b, operand, precision)
+    return xops.input_layer_step(frames, net.input_w, net.input_b, precision)
 
 
 def _per_layer(sc, acts):
@@ -332,15 +354,27 @@ def _output(sc, acts, masks=None):
 
 
 def cmd_stages(ctx: Context) -> dict:
-    """Each stage of the pass alone: the input layer (K9), the trunk (K3,
-    and one K2 per layer) and the output layer with its softmax (K4)."""
+    """Each stage of the pass alone: the input layer under each input
+    precision (K9 for "highest" and "high", counted as TF32 operations; its
+    bf16 variant for "default", as bf16 operations), the trunk (K3, and one
+    K2 per layer) and the output layer with its softmax (K4)."""
     sc = ctx.scorer()
     frames = ctx.frames(ctx.batch)
     b, (d_in, hidden, layers, out_dim) = ctx.batch, NET_SHAPE
-    acts0 = _input(sc, frames)
+    # the input weight as each precision's kernel reads it ("highest" and
+    # "high" share K9's operand)
+    operands = {}
+    if sc.backend == "cuda":
+        operands = {"highest": sc.net.input_operand, "high": sc.net.input_operand,
+                    "default": kernels.input_layer_operand(sc.net.input_w, "default")}
+    acts0 = _input(sc, frames, "high", operands.get("high"))
     acts = _per_layer(sc, acts0)
     rows = {
-        "input": (lambda: _input(sc, frames), 2 * b * d_in * hidden, "tf32"),
+        f"input_{p}": (lambda p=p: _input(sc, frames, p, operands.get(p)), 2 * b * d_in * hidden,
+                       "bf16" if p == "default" else "tf32")
+        for p in INPUT_PRECISIONS
+    }
+    rows |= {
         "trunk_per_layer": (lambda: _per_layer(sc, acts0),
                             2 * b * hidden * hidden * (layers - 1), "int8"),
         "output": (lambda: _output(sc, acts), 2 * b * hidden * out_dim, "int8"),
@@ -519,12 +553,23 @@ def cmd_int4(ctx: Context) -> dict:
     return _emit("int4", out)
 
 
+#: tools/profile.py's serving configs: name -> EngineConfig fields
+SERVING_CONFIGS = {
+    "parity": {},
+    "fast_out": {"fast_posteriors": True},
+    "fast_in": {"input_precision": "default"},
+    "serving": {"input_precision": "default", "fast_posteriors": True},
+}
+
+
 def cmd_serving(ctx: Context) -> dict:
-    """The serving switch: the parity default against fast_posteriors=True
-    (bf16 posteriors): device ms, the float-oracle gate, max |dp| and argmax
+    """The serving knobs against the parity default, as tools/profile.py's
+    serving campaign: bf16 posteriors (fast_out), the 1-pass bf16 input
+    layer (fast_in) and both (serving, the JAX package's documented serving
+    configuration): device ms, the float-oracle gate, max |dp| and argmax
     agreement against the parity config on 100 frames."""
     qnet = ctx.qnet()
-    scorers = {"parity": ctx.scorer(qnet), "fast_out": ctx.scorer(qnet, fast_posteriors=True)}
+    scorers = {name: ctx.scorer(qnet, **fields) for name, fields in SERVING_CONFIGS.items()}
     f100 = np.random.default_rng(3).standard_normal((100, NET_SHAPE[0]), dtype=np.float32)
     fl = _oracle(ctx, f100)
     p_parity = scorers["parity"].score(f100)

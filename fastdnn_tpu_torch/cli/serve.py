@@ -3,6 +3,7 @@ streaming engine, the counterpart of fastdnn_tpu/cli/serve.py.
 
     python -m fastdnn_tpu_torch.cli.serve MODEL --port 8477 [--device cuda|cpu]
         [--cutoff 3.0] [--hidden-bits 8|4] [--int4-packed] [--fast-posteriors]
+        [--input-precision highest|high|default]
         [--lazy-mode auto|dense|gathered|block_sparse]
         [--max-batch-frames 8192] [--max-wait-ms 3] [--warmup]
         [--mesh-model M] [--mesh-data D]
@@ -212,6 +213,14 @@ def build_parser() -> argparse.ArgumentParser:
         "responses still carry f32",
     )
     p.add_argument(
+        "--input-precision",
+        default="high",
+        choices=["highest", "high", "default"],
+        help="the float input layer's product (EngineConfig.input_precision): "
+        "'high' and 'highest' run the 3xTF32 kernel; 'default' (1-pass bf16) "
+        "is the throughput setting and can flip a few sigmoid counts",
+    )
+    p.add_argument(
         "--warmup",
         action="store_true",
         help="score a few batches before accepting clients (the first CUDA "
@@ -250,6 +259,7 @@ def build_scorer(args):
         lazy_mode=getattr(args, "lazy_mode", "auto"),
         int4_packed=getattr(args, "int4_packed", False),
         fast_posteriors=getattr(args, "fast_posteriors", False),
+        input_precision=getattr(args, "input_precision", "high"),
     )
     if not _multi(args):
         from ..engine.scorer import Scorer

@@ -2,11 +2,12 @@
 
 The constants are the reference's (see fastdnn_tpu/config.py:23-31); the
 `EngineConfig` keeps only the knobs the port's scoring path reads, with the
-JAX package's names, defaults and meaning, the registry switches
+JAX package's names, defaults and meaning: the registry switches
 `autotuned` and `tuned_batch` among them (tuning.py; the registry fills in
-`stack_hidden_max_frames`).  The TPU block sizes (the block-sparse kernel
-skips at its own tile), `input_precision` and `interpret` have no
-counterpart here.
+`stack_hidden_max_frames`), and `input_precision`, which picks the input
+layer's product (K9's 3xTF32 for "high" and "highest", its 1-pass bf16
+variant for "default").  The TPU block sizes (the block-sparse kernel
+skips at its own tile) and `interpret` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ DEFAULT_CUTOFF = 3.0
 DEFAULT_INPUT_ALIGNMENT = 4
 DEFAULT_HIDDEN_ALIGNMENT = 16
 
+#: the values of EngineConfig.input_precision
+INPUT_PRECISIONS = ("highest", "high", "default")
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -36,6 +40,17 @@ class EngineConfig:
     #: CPU device is an error; "torch": the plain versions on any device
     #: (the reference the kernels are checked against).
     backend: Literal["auto", "cuda", "torch"] = "auto"
+    #: the float input layer's product, the JAX package's knob of that name
+    #: (the only product that is not int8).  "high" (the default) and
+    #: "highest" run K9 (ops.kernels.input_layer), whose 3xTF32 product is
+    #: within the spread of any f32 summation order, so the TPU's 6-pass
+    #: "highest" could not be told apart from it at the sigmoid's counts;
+    #: "default" runs its 1-pass bf16 variant
+    #: (ops.kernels.input_layer_bf16): both operands rounded to bf16, f32
+    #: sums, which can flip a few sigmoid counts.  Not a registry knob: it
+    #: changes results, not a schedule.  Any other value raises when a
+    #: Scorer is built.
+    input_precision: Literal["highest", "high", "default"] = "high"
     #: frame counts are padded up to a multiple of this, which is also a
     #: multiple of every kernel's frame tile
     frame_bucket: int = 128

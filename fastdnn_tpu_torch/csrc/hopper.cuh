@@ -1,13 +1,14 @@
-// Hopper (sm_90a) building blocks of every int8 and TF32 kernel of the port:
-// K2 and K5 (csrc/hidden_layer.cu, csrc/output_logits.cu, one kernel
+// Hopper (sm_90a) building blocks of every int8, TF32 and bf16 kernel of the
+// port: K2 and K5 (csrc/hidden_layer.cu, csrc/output_logits.cu, one kernel
 // template below, streamed_layer_kernel), K3 (csrc/hidden_stack.cu), K4,
 // K6 (csrc/resident_softmax.cu), K7 (csrc/hidden_layer_packed.cu), K8
-// (csrc/flash_stats.cu) and K9 (csrc/input_layer.cu): mbarriers, TMA tensor
-// copies (multicast across a thread-block cluster), int8 wgmma from
-// shared-memory descriptors and TF32 wgmma with A from registers, register
-// reallocation, the quantized-sigmoid epilogue of a hidden layer's tile,
-// and the host side of a launch (tensor maps, cluster launches).  The
-// row-softmax pieces K4, K6 and K8 share are in csrc/row_stats.cuh.
+// (csrc/flash_stats.cu) and K9 with its bf16 variant (csrc/input_layer.cu):
+// mbarriers, TMA tensor copies (multicast across a thread-block cluster),
+// int8 wgmma from shared-memory descriptors and TF32 and bf16 wgmma with A
+// from registers, register reallocation, the quantized-sigmoid epilogue of a
+// hidden layer's tile, and the host side of a launch (tensor maps, cluster
+// launches).  The row-softmax pieces K4, K6 and K8 share are in
+// csrc/row_stats.cuh.
 //
 // Shape of the int8 kernels (K2-K8).  A block is three warpgroups and owns
 // kFrames = 64 frames.  Their int8 activations sit whole in shared memory as
@@ -26,15 +27,15 @@
 // its own (a ring of CS = 1); K6 and K8 SKIP stream only the tiles their
 // mask leaves active.  K7's stages are packed int4, which the producer
 // warpgroup's other three warps widen to s8 in shared memory before the
-// consumers read them.  K9 (f32 frames, TF32 products) keeps the three
-// warpgroups and the barriers but runs a ring of its own: both consumers
-// read every stage, for 64 frames each.
+// consumers read them.  K9 (f32 frames, TF32 or bf16 products) keeps the
+// three warpgroups and the barriers but runs a ring of its own: both
+// consumers read every stage, for 64 frames each.
 //
 // Layout: both operands K-major in the 128-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1): a [rows x 128-byte] block
 // keeps row r at r * 128 bytes with its 16-byte chunk c at chunk c ^ (r % 8),
-// 8-row groups 1024 bytes apart; a 32-deep int8 (8-deep TF32) wgmma step is
-// a 32-byte offset into the row.  The resident activations ([64 x K]) are
+// 8-row groups 1024 bytes apart; a 32-deep int8 (8-deep TF32, 16-deep bf16)
+// wgmma step is a 32-byte offset into the row.  The resident activations ([64 x K]) are
 // K / 128 such blocks, written by the consumers themselves.
 #pragma once
 
@@ -288,6 +289,41 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(accumulate)));
 }
 
+// d (64 x 128 f32) += A (64 x 16 bf16, registers) * B^T (B: 128 x 16 bf16,
+// K-major in shared memory), or = with accumulate == false.  Each register
+// of a[] holds two bf16 of one row, the lower column in its low half: for
+// thread t of the warpgroup, row r = 16 (t / 32) + (t % 32) / 4 and column
+// c = 2 (t % 4), a[0] = (r, c .. c + 1), a[1] = (r + 8, c .. c + 1), a[2] =
+// (r, c + 8 .. c + 9), a[3] = (r + 8, c + 8 .. c + 9); d as in wgmma_s8.
+// The registers of a[] are read asynchronously, as in wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                           bool accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(static_cast<int>(accumulate)));
+}
+
 // the f32 and register-operand counterparts of fence_acc
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
@@ -304,6 +340,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// (lo, hi) rounded to bf16, to nearest, ties to even (as torch's cast),
+// packed with lo in the low half: one register of wgmma_bf16's A
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
 }
 

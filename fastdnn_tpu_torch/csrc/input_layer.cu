@@ -38,6 +38,23 @@
 // frames [64 w, 64 w + 64) of every stage.  The epilogue adds the bias, looks
 // the sigmoid up in the block's table and stores 16-byte rows through a
 // shared-memory tile.
+//
+// The 1-pass bf16 variant (input_layer_bf16_kernel, input precision
+// "default"): both operands rounded to the nearest bf16 (ties to even), the
+// products accumulated in f32.  The weight is rounded once, on the host side
+// (ops/kernels.py:input_layer_operand(w, "default"): bf16 [H, K16], K-major,
+// K zero-padded to a multiple of 16); the frames arrive as f32 through TMA
+// and each consumer rounds them in registers (cvt.rn.bf16x2.f32) into
+// wgmma m64n128k16's A fragments.  A stage is one 64-deep slice of K: two
+// f32 boxes of frames (32 each) and one box of the operand (64 bf16 per
+// 128-byte row), the same 48 KB as K9's; each stage's four products go into
+// a fresh accumulator that is added to the running f32 sum, as in K9.  A
+// product of two bf16 is exact in f32, so against its plain version
+// (ops/matmul.py:input_layer_step(..., "default"), the f64 product of the
+// rounded operands rounded once) it differs only by summation order.
+// Bound: at B = 8192, K = 432, H = 2048 its products are 14.5 G bf16
+// operations (0.0147 ms at the H100's 989.4 TFLOP/s) against 32.8 MB of
+// device-memory traffic (0.0098 ms).
 #include <algorithm>
 
 #include "common.cuh"
@@ -213,6 +230,146 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
   }
 }
 
+constexpr int kSliceK16 = 64;  // bf16 per 128-byte row of the operand
+
+// warpgroup wg's A fragments of a stage's two frame boxes for its four
+// 16-deep steps, rounded to bf16 (wgmma_bf16's layout); with `second` false
+// the second box was not loaded (it lies past K) and its steps read zeros
+__device__ __forceinline__ void load_bf16(uint32_t (&a)[4][4], const unsigned char* frames,
+                                          bool second, int wg, int thread_in_wg) {
+  const int warp = thread_in_wg / 32, lane = thread_in_wg % 32;
+  const int r = 64 * wg + 16 * warp + lane / 4;  // r % 8 == lane / 4
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    if (ks >= 2 && !second) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[ks][e] = 0;
+      continue;
+    }
+    const unsigned char* top = frames + (ks >> 1) * kBoxBytes + r * 128;
+    const unsigned char* bottom = top + 8 * 128;
+    const int c = 16 * (ks & 1) + 2 * (lane % 4);  // f32 column of the box row
+    const int o0 = (((c >> 2) ^ (lane / 4)) << 4) + 4 * (c & 3);        // columns c, c + 1
+    const int o1 = ((((c >> 2) + 2) ^ (lane / 4)) << 4) + 4 * (c & 3);  // c + 8, c + 9
+    const float2 v0 = *reinterpret_cast<const float2*>(top + o0);
+    const float2 v1 = *reinterpret_cast<const float2*>(bottom + o0);
+    const float2 v2 = *reinterpret_cast<const float2*>(top + o1);
+    const float2 v3 = *reinterpret_cast<const float2*>(bottom + o1);
+    a[ks][0] = hp::bf16x2_rn(v0.x, v0.y);
+    a[ks][1] = hp::bf16x2_rn(v1.x, v1.y);
+    a[ks][2] = hp::bf16x2_rn(v2.x, v2.y);
+    a[ks][3] = hp::bf16x2_rn(v3.x, v3.y);
+  }
+}
+
+// K9's shape with the bf16 stage: x_map views the frames as f32 [B, K],
+// w_map the operand as bf16 [H, K16].
+__global__ void __launch_bounds__(hp::kThreads, 1)
+    input_layer_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
+                            const __grid_constant__ CUtensorMap w_map,
+                            const float* __restrict__ bias, int8_t* __restrict__ out, int B, int K,
+                            int H, int frame_blocks, int splits) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* stages = hp::align_smem(smem_raw);
+  int8_t* out_tile = reinterpret_cast<int8_t*>(stages + kStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_tile + kOutTileBytes);
+  uint64_t* empty = full + kStages;
+  int8_t* table = reinterpret_cast<int8_t*>(empty + kStages);
+
+  const int wg = threadIdx.x / 128;
+  const int m0 = blockIdx.x % frame_blocks * kRows;
+  const int split = blockIdx.x / frame_blocks;
+  const int tiles = H / hp::kTileN;
+  const int first_tile = split * tiles / splits;
+  const int my_tiles = (split + 1) * tiles / splits - first_tile;
+  const int steps = (K + kSliceK16 - 1) / kSliceK16;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(full + s, 1);
+      hp::mbar_init(empty + s, hp::kConsumers);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == hp::kConsumers) {
+    hp::reg_dealloc<hp::kProducerRegs>();
+    if (threadIdx.x % 128 == 0) {
+      for (int g = 0; g < my_tiles; ++g) {
+        const int n0 = (first_tile + g) * hp::kTileN;
+        for (int t = 0; t < steps; ++t) {
+          const int i = g * steps + t, slot = i % kStages;
+          const int k0 = t * kSliceK16;
+          // a box wholly past the frames' K extent is not copied
+          const bool second = k0 + kSliceK < K;
+          hp::mbar_wait(empty + slot, ((i / kStages) & 1) ^ 1);
+          hp::mbar_arrive_expect_tx(full + slot, second ? kStageBytes : kStageBytes - kBoxBytes);
+          unsigned char* dst = stages + slot * kStageBytes;
+          hp::tma_load(dst + 2 * kBoxBytes, &w_map, full + slot, k0, n0);
+          hp::tma_load(dst, &x_map, full + slot, k0, m0);
+          if (second) hp::tma_load(dst + kBoxBytes, &x_map, full + slot, k0 + kSliceK, m0);
+        }
+      }
+    }
+  } else {
+    hp::reg_alloc<hp::kConsumerRegs>();
+    const int tw = threadIdx.x % 128;
+    fdn::fill_sigmoid_table(table, threadIdx.x, hp::kConsumerThreads);
+    hp::consumer_sync();
+    float acc[64], sum[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int g = 0; g < my_tiles; ++g) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] = 0.0f;
+      for (int t = 0; t < steps; ++t) {
+        const int i = g * steps + t, slot = i % kStages;
+        const unsigned char* st = stages + slot * kStageBytes;
+        hp::mbar_wait(full + slot, (i / kStages) & 1);
+        uint32_t a[4][4];
+        load_bf16(a, st, t * kSliceK16 + kSliceK < K, wg, tw);
+        const unsigned char* w = st + 2 * kBoxBytes;
+        hp::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) hp::wgmma_bf16(acc, a[ks], hp::desc_sw128(w + 32 * ks), ks > 0);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_acc(acc);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) hp::fence_regs(a[ks]);
+        if (tw == 0) hp::mbar_arrive(empty + slot);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+      }
+      store_tile(sum, bias, out_tile, table, out, B, H, m0, (first_tile + g) * hp::kTileN, wg, tw);
+    }
+  }
+}
+
+// One launch of either kernel: the frames' map (f32 [b, k], boxes of kRows
+// rows) and the operand's ([w_rows, w_cols] of w_type), then the grid.
+template <typename Kernel>
+int launch(Kernel kernel, const void* frames, const void* w, CUtensorMapDataType w_type,
+           uint32_t w_elem_bytes, uint64_t w_rows, uint64_t w_cols, const void* bias, void* out,
+           int b, int k, int h, int device, void* stream) {
+  int sms = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  CUtensorMap x_map, w_map;
+  if (err == cudaSuccess)
+    err = hp::tensor_map(&x_map, frames, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, k, kRows);
+  if (err == cudaSuccess)
+    err = hp::tensor_map(&w_map, w, w_type, w_elem_bytes, w_rows, w_cols, hp::kTileN);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int frame_blocks = (b + kRows - 1) / kRows;
+  const int tiles = h / hp::kTileN;
+  const int splits = frame_blocks >= sms ? 1 : std::min(tiles, sms / frame_blocks);
+  return static_cast<int>(hp::launch_clustered(kernel, frame_blocks * splits, 1, kSmemBytes, stream,
+                                               x_map, w_map, static_cast<const float*>(bias),
+                                               static_cast<int8_t*>(out), b, k, h, frame_blocks,
+                                               splits));
+}
+
 }  // namespace
 
 // Requires H % 128 == 0, K % 4 == 0 (16-byte rows for TMA), 16-byte aligned
@@ -221,21 +378,16 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
 // wrapper).  Any B.
 extern "C" int fdn_input_layer(const void* frames, const void* w, const void* bias, void* out,
                                int b, int k, int h, int device, void* stream) {
-  int sms = 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  CUtensorMap x_map, w_map;
-  if (err == cudaSuccess)
-    err = hp::tensor_map(&x_map, frames, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, k, kRows);
-  if (err == cudaSuccess)
-    err = hp::tensor_map(&w_map, w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2ull * h, k, hp::kTileN);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int frame_blocks = (b + kRows - 1) / kRows;
-  const int tiles = h / hp::kTileN;
-  const int splits = frame_blocks >= sms ? 1 : std::min(tiles, sms / frame_blocks);
-  return static_cast<int>(hp::launch_clustered(
-      input_layer_kernel, frame_blocks * splits, 1, kSmemBytes, stream, x_map, w_map,
-      static_cast<const float*>(bias), static_cast<int8_t*>(out), b, k, h, frame_blocks, splits));
+  return launch(input_layer_kernel, frames, w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2ull * h, k,
+                bias, out, b, k, h, device, stream);
+}
+
+// The bf16 variant: w the operand bf16 [H, K16], K16 = k rounded up to a
+// multiple of 16; otherwise as fdn_input_layer, with the same shared memory.
+extern "C" int fdn_input_layer_bf16(const void* frames, const void* w, const void* bias, void* out,
+                                    int b, int k, int h, int device, void* stream) {
+  return launch(input_layer_bf16_kernel, frames, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h,
+                (k + 15) / 16 * 16, bias, out, b, k, h, device, stream);
 }
 
 extern "C" long long fdn_input_layer_smem_bytes() { return static_cast<long long>(kSmemBytes); }

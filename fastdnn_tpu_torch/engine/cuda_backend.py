@@ -10,28 +10,34 @@ import dataclasses
 import torch
 
 from ..ops import kernels
+from ..ops import matmul as xops
 from ..quant.quantize import QuantizedNet
 
 
-def prepare(net: QuantizedNet) -> QuantizedNet:
+def prepare(net: QuantizedNet, input_precision: str = "high") -> QuantizedNet:
     """The net with its int8 weights in the kernels' layout (transposed,
     [out, in], K contiguous: ops.kernels.kernel_layout; a packed int4
     layer [K/2, N] becomes [N, K/2]) and its input weight also as the input
-    kernel's operand (ops.kernels.input_layer_operand; input_w stays as it
-    is).  Done once, when a Scorer loads the net; the layer steps below
-    take weights so prepared.  The shape properties of the result
-    (layer_dims, padded_output_dim) no longer read as for the JAX layout."""
+    kernel's operand for `input_precision`
+    (ops.kernels.input_layer_operand; input_w stays as it is).  Done once,
+    when a Scorer loads the net; the layer steps below take weights so
+    prepared.  The shape properties of the result (layer_dims,
+    padded_output_dim) no longer read as for the JAX layout."""
     return dataclasses.replace(
         net,
         weights=tuple(kernels.kernel_layout(w) for w in net.weights),
-        input_operand=kernels.input_layer_operand(net.input_w),
+        input_operand=kernels.input_layer_operand(net.input_w, input_precision),
     )
 
 
 def input_layer_step(frames_f32: torch.Tensor, w_f32: torch.Tensor, b_f32: torch.Tensor,
-                     operand: torch.Tensor):
-    """Float first layer -> shifted int8, in one K9 launch; `operand` is the
-    prepared net's input_operand."""
+                     operand: torch.Tensor, precision: str = "high"):
+    """Float first layer -> shifted int8, in one launch: K9 for "high" and
+    "highest", its bf16 variant for "default"; `operand` is the prepared
+    net's input_operand, made for the same precision."""
+    xops.check_input_precision(precision)
+    if precision == "default":
+        return kernels.input_layer_bf16(frames_f32, w_f32, operand, b_f32)
     return kernels.input_layer(frames_f32, w_f32, operand, b_f32)
 
 

@@ -10,11 +10,12 @@ The counterpart of fastdnn_tpu/engine/scorer.py on one device:
   * `LazyContext`                 frame-by-frame lazy scoring for decoders
 
 The pass has three stages: the float input layer (one K9 launch: the
-product and the quantized sigmoid), the hidden trunk (one K3 launch for batches of
-at most `stack_hidden_max_frames` when the layers are at most
-HIDDEN_STACK_MAX_H wide, else one K2 launch per layer; an int4 trunk packed
-under `config.int4_packed` runs one K7 launch per layer) and the output
-layer.  With `fused_softmax` (the default) the output layer and its softmax
+product and the quantized sigmoid; with config.input_precision "default",
+one launch of its 1-pass bf16 variant instead), the hidden trunk (one K3
+launch for batches of at most `stack_hidden_max_frames` when the layers
+are at most HIDDEN_STACK_MAX_H wide, else one K2 launch per layer; an int4
+trunk packed under `config.int4_packed` runs one K7 launch per layer) and
+the output layer.  With `fused_softmax` (the default) the output layer and its softmax
 are one K4 launch, masked under the lazy semantics for `score_masked`, or
 one K6 launch (tile skipping) for lazy_mode="block_sparse"; an output layer
 wider than K4 takes (uses_resident_output) runs one K8 stats launch, plain
@@ -80,24 +81,28 @@ def hidden_forward(
     backend: str,
     hstack=None,
     stack_max_frames: int = 0,
+    input_precision: str = "high",
 ) -> torch.Tensor:
     """Input layer + all hidden layers -> shifted-int8 activations [B, H].
 
-    No process-wide TF32 switch reaches the input layer: its plain version
-    takes the product in float64 (`ops.matmul.matmul_f32`), its kernel (K9,
-    on a net made by cuda_backend.prepare) as three TF32 products per term
-    (3xTF32) in f32 sums.
+    The input layer's product follows `input_precision`
+    (config.EngineConfig.input_precision).  No process-wide TF32 switch
+    reaches it: for "high" and "highest" its plain version takes the
+    product in float64 (`ops.matmul.matmul_f32`), its kernel (K9, on a net
+    made by cuda_backend.prepare for that precision) as three TF32 products
+    per term (3xTF32) in f32 sums; for "default" both round the operands to
+    bf16 first (K9's bf16 variant: one bf16 product in f32 sums).
     When `hstack` (see build_hidden_stack) is given and the frame count is
     within `stack_max_frames`, all hidden layers run as one launch.  A
     packed int4 trunk (net.packed_int4) runs the packed layer step.
     """
     if backend == "torch":
         steps = xops
-        acts = xops.input_layer_step(frames, net.input_w, net.input_b)
+        acts = xops.input_layer_step(frames, net.input_w, net.input_b, input_precision)
     else:
         steps = cuda_backend
         acts = cuda_backend.input_layer_step(frames, net.input_w, net.input_b,
-                                             net.input_operand)
+                                             net.input_operand, input_precision)
     if hstack is not None and frames.shape[0] <= stack_max_frames:
         return steps.hidden_stack_step(acts, hstack)
     layer_step = steps.hidden_layer_step_packed if net.packed_int4 else steps.hidden_layer_step
@@ -176,13 +181,14 @@ def score_fn(
     fast_posteriors: bool = False,
     hstack=None,
     stack_max_frames: int = 0,
+    input_precision: str = "high",
 ) -> torch.Tensor:
     """Full forward pass -> posteriors [B, out_dim] (bf16 only with
     fused_softmax and fast_posteriors).  `out_dim` defaults to the net's
     true senone count; padding columns never join the softmax."""
     if out_dim is None:
         out_dim = net.output_dim
-    acts = hidden_forward(net, frames, backend, hstack, stack_max_frames)
+    acts = hidden_forward(net, frames, backend, hstack, stack_max_frames, input_precision)
     if fused_softmax:
         return _fused_posteriors(
             net, acts, None, backend=backend, out_dim=out_dim, semantics="reference",
@@ -204,6 +210,7 @@ def score_masked_fn(
     hstack=None,
     stack_max_frames: int = 0,
     block_sparse: bool = False,
+    input_precision: str = "high",
 ) -> torch.Tensor:
     """Lazy/masked forward pass -> posteriors [B, out_dim].
 
@@ -214,7 +221,7 @@ def score_masked_fn(
     """
     if out_dim is None:
         out_dim = net.output_dim
-    acts = hidden_forward(net, frames, backend, hstack, stack_max_frames)
+    acts = hidden_forward(net, frames, backend, hstack, stack_max_frames, input_precision)
     if fused_softmax:
         # the kernels read masks at the tile-padded width (padding columns
         # are excluded by the out_dim cutoff anyway); the CUDA backend keeps
@@ -267,9 +274,10 @@ class Scorer:
     when CUDA is absent; `device="cpu"` runs the plain versions.  The
     weights are moved to the device once, here; for the CUDA backend they
     are also padded to the kernels' tiles and transposed into the kernels'
-    layout (cuda_backend.prepare).  The per-layer scales stay host scalars:
-    the kernels take them by value, so scoring never waits on the device to
-    read one.  With `config.int4_packed` an int4 trunk is packed after the
+    layout, the input weight also as the operand of the input kernel that
+    `config.input_precision` picks (cuda_backend.prepare).  The per-layer
+    scales stay host scalars: the kernels take them by value, so scoring
+    never waits on the device to read one.  With `config.int4_packed` an int4 trunk is packed after the
     padding and before the layout change.  The gathered lazy path reads the
     mask union on the host, as the JAX package does.  On the CUDA backend,
     in a process that is not one of several ranks, the measured launch-knob
@@ -297,6 +305,7 @@ class Scorer:
         self.config = config or EngineConfig()
         self.device = torch.device(device)
         self.mesh = mesh
+        xops.check_input_precision(self.config.input_precision)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Scorer(device='cuda'): CUDA is not available; pass device='cpu' "
@@ -350,7 +359,7 @@ class Scorer:
             net = shard_qnet(net, mesh)
         self.net = net.to(self.device)
         if self._backend == "cuda":
-            self.net = cuda_backend.prepare(self.net)
+            self.net = cuda_backend.prepare(self.net, self.config.input_precision)
         # under a mesh too: a rank holds the whole trunk, so the stack
         # kernel serves it as on one device
         self._hstack = (
@@ -363,6 +372,7 @@ class Scorer:
             fast_posteriors=self.config.fast_posteriors,
             hstack=self._hstack,
             stack_max_frames=self.config.stack_hidden_max_frames,
+            input_precision=self.config.input_precision,
         )
         self._programs = None
         if mesh is not None:
@@ -477,7 +487,8 @@ class Scorer:
             acts = self._programs[2](self.net, self._local(frames))
             return gather_rows(acts, self.mesh).to(self.device)
         return hidden_forward(
-            self.net, frames, self._backend, self._hstack, self.config.stack_hidden_max_frames
+            self.net, frames, self._backend, self._hstack, self.config.stack_hidden_max_frames,
+            self.config.input_precision,
         )
 
     def _gathered(self, acts, masks, idx) -> torch.Tensor:

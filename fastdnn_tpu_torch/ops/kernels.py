@@ -15,7 +15,10 @@ A wrapper given CPU tensors transposes back for its plain version.
 
     K1 bias_sigmoid_i8                the quantized-sigmoid epilogue as its own kernel
     K9 input_layer                    the float input layer: 3xTF32 product + K1's
-                                      epilogue, frames f32 in, s8 out
+                                      epilogue, frames f32 in, s8 out (input
+                                      precision "high" and "highest")
+       input_layer_bf16               K9 with a 1-pass bf16 product (input
+                                      precision "default")
     K2 hidden_layer                   one int8 hidden layer with the fused epilogue
                                       (activations streamed: any K)
     K3 hidden_stack                   all equal-width hidden layers in one launch
@@ -42,7 +45,9 @@ of 2 blocks that share 64 frames and split the output columns.  K9 takes
 128 frames per block.
 
 K9 reads the input weight as `input_layer_operand(w)`: W transposed and
-split into two TF32 halves, made once (cuda_backend.prepare).
+split into two TF32 halves; its bf16 variant as `input_layer_operand(w,
+"default")`: W transposed and rounded to bf16.  Either is made once, for
+the configured precision (cuda_backend.prepare).
 """
 
 from __future__ import annotations
@@ -83,6 +88,8 @@ HIDDEN_STACK_MAX_H = 2304
 #: K9 reads frame and weight rows by TMA, whose rows start on 16-byte
 #: boundaries: the operand's K is padded to a multiple of 4 f32
 INPUT_K_MULTIPLE = 4
+#: the bf16 operand's K is padded to a multiple of one bf16 wgmma step
+INPUT_BF16_K_MULTIPLE = 16
 #: blocks per thread-block cluster of K2, K3 and K7: each weight stage
 #: leaves L2 once per cluster and is multicast to its blocks.  On the H100
 #: clusters of 2 beat 1, and clusters of 4 lost to both (PERF.md)
@@ -104,6 +111,10 @@ KERNELS = {
         "fastdnn_tpu_torch/csrc/bias_sigmoid.cu", "fastdnn_tpu/ops/pallas_kernels.py:50"
     ),
     "input_layer": Kernel(
+        "fastdnn_tpu_torch/csrc/input_layer.cu",
+        "fastdnn_tpu/ops/pallas_kernels.py:50, fastdnn_tpu/ops/matmul.py:39",
+    ),
+    "input_layer_bf16": Kernel(
         "fastdnn_tpu_torch/csrc/input_layer.cu",
         "fastdnn_tpu/ops/pallas_kernels.py:50, fastdnn_tpu/ops/matmul.py:39",
     ),
@@ -172,12 +183,20 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def input_layer_operand(w: torch.Tensor) -> torch.Tensor:
-    """K9's weight operand: f32 w [K, H] -> f32 [2, H, K4] with W_hi =
+def input_layer_operand(w: torch.Tensor, precision: str = "high") -> torch.Tensor:
+    """The input kernel's weight operand for an input precision.  "high"
+    and "highest" (K9): f32 w [K, H] -> f32 [2, H, K4] with W_hi =
     tf32_round(w) and W_lo = tf32_round(w - W_hi), each transposed (K
-    contiguous) and zero-padded to K4, K rounded up to INPUT_K_MULTIPLE."""
+    contiguous) and zero-padded to K4, K rounded up to INPUT_K_MULTIPLE.
+    "default" (input_layer_bf16): -> bf16 [H, K16], w transposed, rounded
+    to the nearest bf16 (ties to even) and zero-padded to K16, K rounded up
+    to INPUT_BF16_K_MULTIPLE."""
+    plain.check_input_precision(precision)
     k = w.shape[0]
     wt = w.t().to(torch.float32)
+    if precision == "default":
+        wt = torch.nn.functional.pad(wt, (0, -k % INPUT_BF16_K_MULTIPLE))
+        return wt.to(torch.bfloat16).contiguous()
     wt = torch.nn.functional.pad(wt, (0, -k % INPUT_K_MULTIPLE))
     hi = tf32_round(wt)
     return torch.stack([hi, tf32_round(wt - hi)])
@@ -279,16 +298,53 @@ def input_layer(frames, w, operand, bias) -> torch.Tensor:
     )
     _require_multiples("input_layer", H=(h, TILE_N))
     _check_tma_weight("input_layer", operand, "the operand")
-    if k4 != k:
-        frames = torch.nn.functional.pad(frames, (0, k4 - k))
-    elif frames.data_ptr() % 16:
-        frames = frames.clone()
+    frames = _tma_frames(frames)
     out = torch.empty((b, h), dtype=torch.int8, device=device)
     if b:
         lib = _build.load()
         _require_smem("input_layer", device, lib.fdn_input_layer_smem_bytes())
         _launch("input_layer", device, lib.fdn_input_layer,
                 frames.data_ptr(), operand.data_ptr(), bias.data_ptr(), out.data_ptr(), b, k4, h)
+    return out
+
+
+def _tma_frames(frames: torch.Tensor) -> torch.Tensor:
+    """f32 frames [B, K] as the input kernels read them by TMA: rows of a
+    multiple of INPUT_K_MULTIPLE f32 from a 16-byte boundary (a zero-padded
+    or aligned copy when they are not)."""
+    k = frames.shape[1]
+    if k % INPUT_K_MULTIPLE:
+        return torch.nn.functional.pad(frames, (0, -k % INPUT_K_MULTIPLE))
+    return frames.clone() if frames.data_ptr() % 16 else frames
+
+
+def input_layer_bf16(frames, w, operand, bias) -> torch.Tensor:
+    """K9's 1-pass bf16 variant: quantized_sigmoid_shifted_i8(f32(bf16(frames)
+    @ bf16(w)) + bias), f32 [B, K] x f32 [K, H] -> shifted s8 [B, H], in one
+    launch; the kernel reads the weight as operand =
+    input_layer_operand(w, "default"), bf16 [H, K16], and rounds the frames
+    itself.  Frames are padded as for K9.  Within 1 count, on at most 1e-4
+    of the entries, of its plain version, ops.matmul.input_layer_step(...,
+    "default") (the f64 product of the rounded operands rounded once to
+    f32)."""
+    if frames.device.type == "cpu":
+        return plain.input_layer_step(frames, w, bias, "default")
+    b, k = frames.shape
+    h = w.shape[1]
+    device = _check(
+        "input_layer_bf16", (frames, w, operand, bias),
+        (torch.float32, torch.float32, torch.bfloat16, torch.float32),
+        ((b, k), (k, h), (h, k + -k % INPUT_BF16_K_MULTIPLE), (h,)),
+    )
+    _require_multiples("input_layer_bf16", H=(h, TILE_N))
+    _check_tma_weight("input_layer_bf16", operand, "the operand")
+    frames = _tma_frames(frames)
+    out = torch.empty((b, h), dtype=torch.int8, device=device)
+    if b:
+        lib = _build.load()
+        _require_smem("input_layer_bf16", device, lib.fdn_input_layer_smem_bytes())
+        _launch("input_layer_bf16", device, lib.fdn_input_layer_bf16, frames.data_ptr(),
+                operand.data_ptr(), bias.data_ptr(), out.data_ptr(), b, frames.shape[1], h)
     return out
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import INPUT_PRECISIONS
 from .sigmoid import quantized_sigmoid_shifted_i8
 
 
@@ -52,12 +53,34 @@ def bias_sigmoid_i8(lin_f32: torch.Tensor, bias_f32: torch.Tensor) -> torch.Tens
     return quantized_sigmoid_shifted_i8(lin_f32 + bias_f32)
 
 
-def input_layer_step(frames_f32, w_f32, b_f32):
+def check_input_precision(precision: str) -> None:
+    """Raise ValueError unless `precision` is an input precision
+    (config.INPUT_PRECISIONS)."""
+    if precision not in INPUT_PRECISIONS:
+        raise ValueError(
+            f"input_precision={precision!r}: choose one of {', '.join(INPUT_PRECISIONS)}"
+        )
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (ties to even), as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def input_layer_step(frames_f32, w_f32, b_f32, precision: str = "high"):
     """Float first layer -> shifted-int8 quantized sigmoid activations.
 
     The input layer is not quantized; the feature shift/scale is already
-    fused into (w, b).
+    fused into (w, b).  precision (config.EngineConfig.input_precision):
+    "high" and "highest" take the f64 product rounded once to f32
+    (matmul_f32); "default" rounds both operands to bf16 first, the 1-pass
+    bf16 product, whose f32 sums then differ from any f32-accumulating
+    kernel's only by summation order (a product of two bf16 is exact in
+    f32).
     """
+    check_input_precision(precision)
+    if precision == "default":
+        frames_f32, w_f32 = bf16_round(frames_f32), bf16_round(w_f32)
     return bias_sigmoid_i8(matmul_f32(frames_f32, w_f32), b_f32)
 
 

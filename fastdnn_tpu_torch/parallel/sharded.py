@@ -164,7 +164,7 @@ def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
 def make_mesh_programs(mesh: DeviceMesh, *, out_dim: int, backend: str,
                        semantics: str = "reference", fused_softmax: bool = True,
                        fast_posteriors: bool = False, block_sparse: bool = False,
-                       hstack=None, stack_max_frames: int = 0):
+                       hstack=None, stack_max_frames: int = 0, input_precision: str = "high"):
     """Per-rank programs of a mesh-backed Scorer, each over this rank's net
     (mesh.shard_qnet, then on its device and, for the CUDA backend, in the
     kernels' layout) and this rank's rows:
@@ -182,7 +182,8 @@ def make_mesh_programs(mesh: DeviceMesh, *, out_dim: int, backend: str,
     the padded width, padding columns 0.  Every rank of a model group must
     make the same calls.  The trunk keeps the one-launch stack kernel when
     `hstack` is given: a torch rank can hold it, where JAX's shard_map could
-    not capture it.
+    not capture it.  `input_precision` picks the input layer's product, as
+    on one device; the rank's net must be prepared for it.
     """
     _, model = mesh_shape(mesh)
     model_rank = mesh_coords(mesh)[1]
@@ -195,19 +196,21 @@ def make_mesh_programs(mesh: DeviceMesh, *, out_dim: int, backend: str,
     frame_tile = kernels.FLASH_STATS_FRAMES if backend == "cuda" else 1
 
     def hidden(net, frames):
-        return hidden_forward(net, frames, backend, hstack, stack_max_frames)
+        return hidden_forward(net, frames, backend, hstack, stack_max_frames, input_precision)
 
     if model == 1:
         def score(net, frames):
             return score_fn(net, frames, backend=backend, out_dim=out_dim,
                             fused_softmax=fused_softmax, fast_posteriors=fast_posteriors,
-                            hstack=hstack, stack_max_frames=stack_max_frames)
+                            hstack=hstack, stack_max_frames=stack_max_frames,
+                            input_precision=input_precision)
 
         def score_masked(net, frames, masks):
             return score_masked_fn(net, frames, masks, backend=backend, semantics=semantics,
                                    out_dim=out_dim, fused_softmax=fused_softmax,
                                    fast_posteriors=fast_posteriors, hstack=hstack,
-                                   stack_max_frames=stack_max_frames, block_sparse=block_sparse)
+                                   stack_max_frames=stack_max_frames, block_sparse=block_sparse,
+                                   input_precision=input_precision)
 
         def masked_from_acts(net, acts, masks):
             return masked_posteriors_from_acts(net, acts, masks, backend=backend,
@@ -242,7 +245,8 @@ def make_mesh_programs(mesh: DeviceMesh, *, out_dim: int, backend: str,
 
 def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
                       semantics: str = "reference", fused_softmax: bool = True,
-                      fast_posteriors: bool = False, backend: str = "cuda"):
+                      fast_posteriors: bool = False, backend: str = "cuda",
+                      input_precision: str = "high"):
     """(score, score_masked) over the mesh, the surface of the JAX function
     of that name:
 
@@ -259,13 +263,15 @@ def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
     hand-written kernels, so the collectives are make_mesh_programs' own.
 
     backend "cuda" runs the kernels on CUDA tensors (their plain versions
-    on CPU tensors), "torch" the plain versions.  The rank's padded,
+    on CPU tensors), "torch" the plain versions; `input_precision` picks
+    the input layer's product (config.EngineConfig).  The rank's padded,
     sharded and prepared net and its programs are kept for the last net
     object passed: a repeat call with the same net moves no weights.
     JAX caches its executables per net structure instead; a prepared torch
     net holds the weights, so it is keyed on the net itself.
     """
     data, model = mesh_shape(mesh)
+    xops.check_input_precision(input_precision)
     defaults = EngineConfig()
     rows_multiple = defaults.frame_bucket * data
     cached: list = [None]  # (weakref to the net, device, rank net, programs)
@@ -278,12 +284,12 @@ def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
         net = pad_qnet(qnet, lanes=lanes, out_lanes=kernels.TILE_N * model)
         net = shard_qnet(net, mesh).to(device)
         if backend == "cuda":
-            net = cuda_backend.prepare(net)
+            net = cuda_backend.prepare(net, input_precision)
         programs = make_mesh_programs(
             mesh, out_dim=qnet.output_dim if out_dim is None else out_dim, backend=backend,
             semantics=semantics, fused_softmax=fused_softmax,
             fast_posteriors=fast_posteriors, hstack=build_hidden_stack(net),
-            stack_max_frames=defaults.stack_hidden_max_frames)
+            stack_max_frames=defaults.stack_hidden_max_frames, input_precision=input_precision)
         cached[0] = (weakref.ref(qnet), device, net, programs)
         return net, programs
 
@@ -317,8 +323,8 @@ def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
 
 def score_shard_map(qnet: QuantizedNet, frames: torch.Tensor, mesh: DeviceMesh, *,
                     masks: Optional[torch.Tensor] = None, backend: str = "torch",
-                    semantics: str = "reference",
-                    out_dim: Optional[int] = None) -> torch.Tensor:
+                    semantics: str = "reference", out_dim: Optional[int] = None,
+                    input_precision: str = "high") -> torch.Tensor:
     """Explicit-collective scoring of a whole batch on every rank.
 
     qnet: the whole net in the JAX layout, its output width divisible by the
@@ -327,16 +333,16 @@ def score_shard_map(qnet: QuantizedNet, frames: torch.Tensor, mesh: DeviceMesh, 
     this rank's device, B divisible by the data axis (and by the kernels'
     64-frame tile on the CUDA backend); masks None or [B, N_padded].  Each
     rank scores its rows and columns with the logits kernel (K5) and the
-    collective softmax.  Returns the posteriors [B, N_padded], gathered on
-    every rank (columns at or beyond out_dim exactly 0), on the frames'
-    device."""
+    collective softmax; `input_precision` picks the input layer's product.
+    Returns the posteriors [B, N_padded], gathered on every rank (columns
+    at or beyond out_dim exactly 0), on the frames' device."""
     if out_dim is None:
         out_dim = qnet.output_dim
     model_rank = mesh_coords(mesh)[1]
     net = shard_qnet(qnet, mesh).to(frames.device)
     if backend == "cuda":
-        net = cuda_backend.prepare(net)
-    acts = hidden_forward(net, local_rows(frames, mesh), backend)
+        net = cuda_backend.prepare(net, input_precision)
+    acts = hidden_forward(net, local_rows(frames, mesh), backend, input_precision=input_precision)
     z = output_logits(net, acts, backend)
     local_masks = None if masks is None else local_cols(local_rows(masks, mesh), mesh)
     p = _sharded_posteriors_from_logits(

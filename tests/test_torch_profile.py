@@ -75,9 +75,16 @@ def test_campaign_runs_and_ends_in_its_verdict(runs, campaign):
             assert "error" not in row, row
             assert row["oracle_gate"] < profile.ORACLE_GATE
     if campaign == "serving":
-        for variant in ("parity", "fast_out"):
+        for variant in ("parity", "fast_out", "fast_in", "serving"):
             assert body[variant]["argmax_agree"] == 1.0
+            assert body[variant]["oracle_gate"] < profile.ORACLE_GATE
         assert body["parity"]["max_dp_vs_parity"] == 0.0
+    if campaign == "variants":  # tools/profile.py's six rows
+        assert set(body) - {"batch"} == {
+            f"fused{int(f)}_{p}_fast{int(x)}" for f, p, x in profile.VARIANTS}
+        assert len(profile.VARIANTS) == 6
+    if campaign == "stages":
+        assert {"input_highest", "input_high", "input_default"} <= set(body)
     if campaign == "trace":
         # the plain versions launch no kernel and record no device time
         assert body["launched"] == {} and body["kernels"] == {} and body["total_ms"] == 0
@@ -131,6 +138,8 @@ SYMBOLS = [
      "flash_stats_block_sparse"),
     ("void (anonymous namespace)::normalize_stats_kernel<false, 4>(float const*, float const*)",
      "normalize_stats"),
+    ("(anonymous namespace)::input_layer_bf16_kernel(CUtensorMap_st, CUtensorMap_st, float "
+     "const*, signed char*, int, int, int, int, int)", "input_layer_bf16"),
     ("ampere_sgemm_128x64_nn", None),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
      None),

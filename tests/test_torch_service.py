@@ -185,6 +185,33 @@ def test_stream_refuses_plain_mesh_and_worker(ranks):
     assert bool(worker["stream_refuses_worker"])
 
 
+def test_input_precision_reaches_every_rank(ranks, j_q, inputs):
+    """MultiHostScorers built with input_precision="default" on every rank:
+    the coordinator's posteriors are bitwise the plain mesh Scorer's under
+    the same knob, make_gspmd_scorer carries it too, and all are within
+    1e-4 of JAX scoring bf16-rounded frames with a bf16-rounded input weight
+    (JAX on the CPU ignores the knob)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    _, _, res, _ = ranks
+    frames, masks = inputs["frames"], inputs["masks"]
+    np.testing.assert_array_equal(res["bf16_input_score"], res["plain_bf16_input_score"])
+    np.testing.assert_array_equal(res["bf16_input_masked"], res["plain_bf16_input_masked"])
+
+    def bf16(x):
+        return jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32)
+
+    rounded = _jax_scorer(dataclasses.replace(j_q, input_w=bf16(j_q.input_w)))
+    want = rounded.score(np.asarray(bf16(frames)))
+    _assert_close(res["bf16_input_score"], want)
+    _assert_close(res["gspmd_bf16_input_score"], want)
+    _assert_close(res["bf16_input_masked"], rounded.score_masked(np.asarray(bf16(frames)), masks),
+                  MASKED_ATOL)
+    assert np.abs(res["bf16_input_score"] - res["reference_score"]).max() > 0
+
+
 def test_make_gspmd_scorer_matches_jax(ranks, j_q, inputs):
     """make_gspmd_scorer: the whole posteriors on every rank (rank 0's
     shown), against JAX's make_gspmd_scorer on the virtual devices and the
@@ -397,7 +424,7 @@ def files(j_q, inputs, tmp_path_factory):
     return work
 
 
-def test_serve_parser_mesh_and_multi_process_flags():
+def test_serve_parser_mesh_and_multi_process_flags(files):
     args = serve.build_parser().parse_args(
         ["m.npz", "--mesh-model", "2", "--mesh-data", "1", "--coordinator", "h:29500",
          "--num-processes", "2", "--process-id", "1", "--fast-posteriors"])
@@ -405,8 +432,14 @@ def test_serve_parser_mesh_and_multi_process_flags():
             args.process_id, args.fast_posteriors) == (2, 1, "h:29500", 2, 1, True)
     assert serve._multi(args)
     assert serve._multi(serve.build_parser().parse_args(["m.npz", "--mesh-data", "2"]))
-    with pytest.raises(SystemExit):  # no counterpart in the port
-        serve.build_parser().parse_args(["m.npz", "--input-precision", "high"])
+    assert args.input_precision == "high"
+    # --input-precision reaches the EngineConfig, as tests/test_cli.py holds
+    # the JAX CLI's flag to
+    args = serve.build_parser().parse_args(
+        [str(files / "q.npz"), "--device", "cpu", "--input-precision", "default",
+         "--fast-posteriors"])
+    scorer, _ = serve.build_scorer(args)
+    assert scorer.config.input_precision == "default" and scorer.config.fast_posteriors is True
 
 
 def test_serve_role_on_a_one_process_group(files, inputs, monkeypatch):

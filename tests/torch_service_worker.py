@@ -4,8 +4,9 @@ Started once per rank with torch.multiprocessing (spawn) by the test's
 fixtures: the ranks join a gloo process group through a rendezvous file in
 `workdir`, build a ("data", "model") mesh of CPU ranks and load the net and
 inputs the test wrote there (`q.npz`, `inputs.npz`).  In mode "cases"
-rank 0 coordinates a MultiHostScorer through every case (then serves it
-over TCP through a StreamingScorer) while the other ranks run
+rank 0 coordinates a MultiHostScorer through every case, the 1-pass bf16
+input layer (input_precision="default") among them (then serves it over
+TCP through a StreamingScorer) while the other ranks run
 `worker_loop()`; then every rank runs the plain SPMD `Scorer(mesh=...)`
 and `make_gspmd_scorer` on the same inputs.  In mode "death" rank 1 dies
 after its first call and rank 0 times what the watchdog reports.  Rank 0
@@ -36,6 +37,7 @@ def _configs():
         ("reference", {}, True),
         ("active_only", {"lazy_semantics": "active_only"}, True),
         ("broadcast", {}, False),
+        ("bf16_input", {"input_precision": "default"}, True),
     ]
 
 
@@ -102,11 +104,16 @@ def _spmd(q, mesh, inputs, out) -> None:
     out["plain_lazy_rows"] = np.stack([ctx.calculate_for_output_nodes(masks[i])
                                        for i in range(3)])
     out["stream_refuses_plain_mesh"] = np.array(_refused(lambda: StreamingScorer(plain)))
+    bf16_input = Scorer(q, EngineConfig(input_precision="default"), device="cpu", mesh=mesh)
+    out["plain_bf16_input_score"] = bf16_input.score(frames)
+    out["plain_bf16_input_masked"] = bf16_input.score_masked(frames, masks)
     score, score_masked = make_gspmd_scorer(mesh)
     f, m = torch.from_numpy(frames), torch.from_numpy(masks)
     out["gspmd_score"] = score(q, f).numpy()
     out["gspmd_score_again"] = score(q, f).numpy()  # the prepared net, kept
     out["gspmd_masked"] = score_masked(q, f, m).numpy()
+    score, _ = make_gspmd_scorer(mesh, input_precision="default")
+    out["gspmd_bf16_input_score"] = score(q, f).numpy()
 
 
 def _cases(rank, q, mesh, inputs) -> dict:
