@@ -47,7 +47,11 @@ Last, the input layer's precision knob: K9's 1-pass bf16 variant
 "high" and "highest" bitwise the default one, "default" end to end and
 under the reference's float-oracle gate, timed in turns with K9, and the
 serve CLI under the JAX package's serving configuration
-(`--input-precision default --fast-posteriors`).
+(`--input-precision default --fast-posteriors`).  Then the grid of
+EngineConfig knobs that tests/test_torch_config_grid.py holds to the JAX
+package on the CPU, here the kernel route against the plain route on the
+flagship net and the 432 -> 2x3072 -> 8000 net, one table line per
+combination.
 Phases 1-25 run with the registry off (FASTDNN_TUNED=0), so that their
 launch counts are the defaults'.  Any failed check raises and the script
 exits non-zero.
@@ -126,6 +130,25 @@ TUNE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "s
 PRECISION_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_precision"
 ORACLE_GATE = 0.1
 PRECISION_REQUESTS = ((0, 100), (100, 357), (357, 1357))
+# phase 30: the grid of EngineConfig knobs, the kernel route against the plain
+# route.  Each row is (trunk, lazy_mode, lazy_semantics, input_precision);
+# every pair of values of two of these knobs is in some row, and the rows
+# without block_sparse still hold every pair of the others.  Dense rows score
+# GRID_DENSE_B frames on the device, the lazy modes GRID_LAZY_B through the
+# host entry points; bf16 posteriors are held within rtol 2e-2, atol 1e-3.
+GRID_ROWS = (
+    ("int8", "dense", "reference", "high"),
+    ("int8", "gathered", "active_only", "default"),
+    ("int8", "block_sparse", "reference", "default"),
+    ("int4", "dense", "active_only", "default"),
+    ("int4", "gathered", "reference", "high"),
+    ("int4", "block_sparse", "active_only", "high"),
+    ("int4_packed", "dense", "active_only", "high"),
+    ("int4_packed", "gathered", "reference", "default"),
+    ("int4_packed", "block_sparse", "reference", "high"),
+)
+GRID_DENSE_B, GRID_LAZY_B, GRID_CTX_FRAMES = 8192, 1000, 4
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-3
 DEMOS = {
     "pipeline": "server stats",
     "mesh_scoring": "masked   max |mesh - single-device|",
@@ -533,6 +556,182 @@ def split_coordinated(torch, mh, frames, calls: int = 3) -> dict:
     out["the whole call"] = statistics.median(totals)
     out["the rest"] = out["the whole call"] - sum(statistics.median(v) for v in spans.values())
     return out
+
+
+def config_grid(torch, dev, smi: str, flagship: dict, frames: np.ndarray) -> None:
+    """Phase 30: the grid of EngineConfig knobs (GRID_ROWS crossed with
+    fused_softmax, fast_posteriors and the net) on the flagship net
+    (`flagship`: hidden bits -> quantized net) and a 432 -> 2x3072 -> 8000
+    net, the kernel route (backend "cuda") against the plain route (backend
+    "torch", on the card): score and score_masked from the same frames
+    (1e-4, argmax agreement >= 0.999) and from the same last-hidden
+    activations (3e-5), bf16 within rtol 2e-2, atol 1e-3, a 4-frame
+    LazyContext on the flagship net, and each kernel-route call's launches
+    exactly.  Prints one line per combination; raises after the table if
+    any combination failed."""
+    from fastdnn_tpu_torch import EngineConfig, Scorer, quantize_net, random_net
+    from fastdnn_tpu_torch.engine import scorer as scorer_mod
+    from fastdnn_tpu_torch.ops import kernels
+
+    t30 = time.perf_counter()
+    pairs = {(a[i], a[j]) for a in GRID_ROWS for i in range(4) for j in range(i + 1, 4)}
+    levels = [sorted({a[i] for a in GRID_ROWS}) for i in range(4)]
+    check(all((x, y) in pairs for i in range(4) for j in range(i + 1, 4)
+              for x in levels[i] for y in levels[j]),
+          f"the {len(GRID_ROWS)} grid rows hold every pair of values of every two knobs")
+    grid_rng = np.random.default_rng(SEED + 30)
+    wide_float = random_net(grid_rng, INPUT_DIM, [WIDE_HIDDEN] * WIDE_DEPTH, SENONES)
+    grid_nets = {  # net -> bits -> the quantized net, on the card once
+        "flagship": {bits: q.to(dev) for bits, q in flagship.items()},
+        "wide": {bits: quantize_net(wide_float, hidden_bits=bits).to(dev) for bits in (8, 4)},
+    }
+    dense_frames = torch.from_numpy(frames[:GRID_DENSE_B]).to(dev)
+    lazy_frames = frames[:GRID_LAZY_B]
+    masks_dense = (grid_rng.random((GRID_DENSE_B, SENONES), dtype=np.float32)
+                   < LAZY_DENSITY).astype(np.uint8)
+    masks_dense[3] = 0  # a frame with no active senone
+    masks_dense = torch.from_numpy(masks_dense).to(dev)
+    masks_lazy = (grid_rng.random((GRID_LAZY_B, SENONES)) < LAZY_DENSITY).astype(np.uint8)
+    masks_lazy[3] = 0
+    bands_lazy = band_masks(grid_rng, GRID_LAZY_B)
+    bands_lazy[3] = 0
+    real_hidden = scorer_mod.hidden_forward
+
+    def run_pair(sc, mode, masks, acts=None):
+        """(score, score_masked) of `sc` on the mode's frames and masks,
+        as torch tensors; with `acts`, every hidden pass returns those
+        last-hidden activations instead (the same int8 input to both
+        routes' output stages)."""
+        if acts is not None:
+            scorer_mod.hidden_forward = lambda *a, **kw: acts
+        try:
+            if mode == "dense":
+                with torch.inference_mode():
+                    return sc.score_device(dense_frames), sc._run_masked(dense_frames, masks)
+            return (torch.from_numpy(sc.score(lazy_frames)),
+                    torch.from_numpy(sc.score_masked(lazy_frames, masks)))
+        finally:
+            scorer_mod.hidden_forward = real_hidden
+
+    def grid_diff(got, want, bf16, atol):
+        """max |got - want| and whether it meets the gate: bf16 within rtol
+        2e-2, atol 1e-3; f32 within `atol` with argmax agreement >= 0.999."""
+        got, want = got.float(), want.float().to(got.device)
+        d = (got - want).abs()
+        ok = got.shape == want.shape and bool(torch.isfinite(got).all())
+        if bf16:
+            ok = ok and bool((d <= BF16_ATOL + BF16_RTOL * want.abs()).all())
+        else:
+            agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+            ok = ok and float(d.max()) <= atol and agree >= 0.999
+        return float(d.max()), ok
+
+    def grid_expect(net_name, fused, trunk, mode, precision):
+        """The kernel route's launches for one score and one score_masked."""
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        flagship = net_name == "flagship"
+        for masked in (False, True):
+            want["input_layer_bf16" if precision == "default" else "input_layer"] += 1
+            if trunk == "int4_packed":
+                want["hidden_layer_packed"] += (DEPTH if flagship else WIDE_DEPTH) - 1
+            elif flagship:
+                want["hidden_stack"] += 1
+            else:
+                want["hidden_layer"] += WIDE_DEPTH - 1
+            if masked and mode == "gathered":
+                continue  # the gathered columns' logits and softmax are plain ops
+            if not fused:
+                want["output_logits"] += 1
+            elif masked and mode == "block_sparse":
+                want["resident_softmax_block_sparse" if flagship
+                     else "flash_stats_block_sparse"] += 1
+            else:
+                want["resident_softmax" if flagship else "flash_stats"] += 1
+            if fused and not flagship:
+                want["normalize_stats"] += 1
+        return want
+
+    short = {"input_layer": "K9", "input_layer_bf16": "K9bf", "hidden_stack": "K3",
+             "hidden_layer": "K2", "hidden_layer_packed": "K7", "resident_softmax": "K4",
+             "resident_softmax_block_sparse": "K6", "output_logits": "K5", "flash_stats": "K8",
+             "flash_stats_block_sparse": "K8s", "normalize_stats": "norm"}
+    print(f"  {'net':8s} {'fused':5s} {'fast':5s} {'trunk':11s} {'mode':12s} {'semantics':11s} "
+          f"{'precision':9s} {'B':>5s} {'out':4s} {'|d| frames':>10s} {'masked':>9s} "
+          f"{'|d| acts':>9s} {'masked':>9s} {'ctx':>9s}  kernel-route launches")
+    failures, combos = [], 0
+    for net_name in ("flagship", "wide"):
+        for fused in (False, True):
+            for fast in (False, True):
+                for trunk, mode, sem, precision in GRID_ROWS:
+                    if mode == "block_sparse" and not fused:
+                        continue  # the tile skipping lives inside the fused kernels
+                    combos += 1
+                    q_g = grid_nets[net_name][8 if trunk == "int8" else 4]
+                    knobs = dict(fused_softmax=fused, fast_posteriors=fast, lazy_semantics=sem,
+                                 lazy_capacity=1.0, int4_packed=trunk == "int4_packed",
+                                 input_precision=precision)
+                    sc_k = Scorer(q_g, EngineConfig(lazy_mode=mode, **knobs), device=dev)
+                    sc_p = Scorer(q_g, EngineConfig(
+                        backend="torch", lazy_mode="dense" if mode == "block_sparse" else mode,
+                        **knobs), device=dev)
+                    masks = {"dense": masks_dense, "gathered": masks_lazy,
+                             "block_sparse": bands_lazy}[mode]
+                    b = GRID_DENSE_B if mode == "dense" else GRID_LAZY_B
+                    what = (f"{net_name} fused={fused} fast={fast} {trunk} {mode} {sem} "
+                            f"{precision} B={b}")
+                    kernels.reset_launch_counts()
+                    got = run_pair(sc_k, mode, masks)
+                    counts = kernels.launch_counts()
+                    kernels.reset_launch_counts()
+                    want = run_pair(sc_p, mode, masks)
+                    if any(kernels.launch_counts().values()):
+                        failures.append(f"{what}: the plain route launched a kernel")
+                    if counts != grid_expect(net_name, fused, trunk, mode, precision):
+                        failures.append(f"{what}: launches {counts}")
+                    # the same last-hidden activations into both output stages
+                    padded = dense_frames if mode == "dense" else sc_p._prepare(lazy_frames)[0]
+                    with torch.inference_mode():
+                        acts = sc_p._hidden(padded)
+                    got_a, want_a = run_pair(sc_k, mode, masks, acts), run_pair(sc_p, mode, masks,
+                                                                              acts)
+                    bf16 = fused and fast
+                    bf16_masked = bf16 and mode != "gathered"
+                    if mode == "dense":
+                        out_types = (got[0].dtype, got[1].dtype, want[0].dtype, want[1].dtype)
+                        wanted = ((torch.bfloat16 if bf16 else torch.float32),) * 2
+                        if out_types != wanted * 2:
+                            failures.append(f"{what}: dtypes {out_types}")
+                    diffs = [grid_diff(got[0], want[0], bf16, 1e-4),
+                             grid_diff(got[1], want[1], bf16_masked, 1e-4),
+                             grid_diff(got_a[0], want_a[0], bf16, 3e-5),
+                             grid_diff(got_a[1], want_a[1], bf16_masked, 3e-5)]
+                    ctx_d = None
+                    if net_name == "flagship":
+                        rows_kp = []
+                        for sc in (sc_k, sc_p):
+                            ctx = sc.new_lazy_context(GRID_CTX_FRAMES)
+                            ctx.calculate_until_output(lazy_frames[:GRID_CTX_FRAMES])
+                            rows_kp.append(torch.from_numpy(np.stack(
+                                [ctx.calculate_for_output_nodes(m)
+                                 for m in masks_lazy[:GRID_CTX_FRAMES]])))
+                        ctx_d = grid_diff(*rows_kp, False, 1e-4)
+                        diffs.append(ctx_d)
+                    bad = [i for i, (_, ok) in enumerate(diffs) if not ok]
+                    if bad:
+                        failures.append(f"{what}: outside the gate at {bad}: {diffs}")
+                    launched = " ".join(f"{short[k]} {v}" for k, v in counts.items() if v)
+                    print(f"  {net_name:8s} {fused!s:5s} {fast!s:5s} {trunk:11s} {mode:12s} "
+                          f"{sem:11s} {precision:9s} {b:5d} {'bf16' if bf16 else 'f32':4s} "
+                          + " ".join(f"{d:9.3g}{'' if ok else '!'}" for d, ok in diffs[:4])
+                          + (f" {ctx_d[0]:9.3g}" if ctx_d else f" {'-':>9s}")
+                          + f"  {launched}", flush=True)
+                    del sc_k, sc_p, got, want, got_a, want_a, acts
+    # the wide net's fused fast rows include the plain route's fast stats at
+    # 8000 senones, not a multiple of 128, which raised before they were padded
+    check(not failures, f"{combos} combinations of the grid within their gates on the card, "
+          f"the plain route's fused fast posteriors on the wide net ({SENONES} senones) among them"
+          + ("" if not failures else ":\n    " + "\n    ".join(failures)))
+    print(f"  phase 30: {combos} combinations in {time.perf_counter() - t30:.1f} s  [{smi}]")
 
 
 def free_port() -> int:
@@ -2389,6 +2588,11 @@ def main() -> int:
               for a, (lo, hi) in zip(answers, PRECISION_REQUESTS)) and d_sv <= 1e-4,
           f"{len(answers)} responses of the served configuration within 1e-4 of the in-process "
           f'Scorer(input_precision="default", fast_posteriors=True) (max |d| = {d_sv:.3g})')
+
+    phase(f"30. the grid of EngineConfig knobs, kernel route against plain route, on the "
+          f"{INPUT_DIM}-{DEPTH}x{HIDDEN}-{SENONES} and {INPUT_DIM}-{WIDE_DEPTH}x{WIDE_HIDDEN}-"
+          f"{SENONES} nets (card: {smi})")
+    config_grid(torch, dev, smi, {8: qnet, 4: q4}, frames)
 
     rows = [
         {

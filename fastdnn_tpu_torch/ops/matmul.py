@@ -270,8 +270,11 @@ def flash_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks=None, *
     columns at or beyond `valid_count` are NEG_CAP and add exp(NEG_CAP - m)
     (0 unless the whole row is capped).  `fast` returns (z_rel, m, s,
     tile_max): z_rel bf16 [B, N] is z minus the max of its 128-column tile,
-    rounded once, and tile_max f32 [B, N / 128] holds those maxes; m and s
-    come from the f32 z."""
+    rounded once, and tile_max f32 [B, ceil(N / 128)] holds those maxes; m
+    and s come from the f32 z.  N need not be a multiple of 128: a ragged
+    last tile is filled out with NEG_CAP columns, so its max is that of its
+    real columns, and the fill is cut from z_rel.  K8 takes only multiples
+    of 128, where there is no fill and the tiles are z's own."""
     z = _capped_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks, valid_count,
                        semantics)
     m = z.amax(dim=1, keepdim=True)
@@ -279,11 +282,10 @@ def flash_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks=None, *
     if not fast:
         return z, m, s
     b, n = z.shape
-    if n % STATS_TILE_N:
-        raise ValueError(f"fast stats need N a multiple of {STATS_TILE_N}, got {n}")
-    tiles = z.view(b, n // STATS_TILE_N, STATS_TILE_N)
+    fill = -n % STATS_TILE_N
+    tiles = torch.nn.functional.pad(z, (0, fill), value=NEG_CAP).view(b, -1, STATS_TILE_N)
     tile_max = tiles.amax(dim=2)
-    z_rel = (tiles - tile_max[:, :, None]).view(b, n).to(torch.bfloat16)
+    z_rel = (tiles - tile_max[:, :, None]).view(b, n + fill)[:, :n].to(torch.bfloat16)
     return z_rel, m, s, tile_max
 
 
@@ -328,7 +330,8 @@ def normalize_stats(z, m, s, *, out_dim=None, tile_max=None):
     the rows whose max stayed at the cap (no active senone) as zeros: the
     normalize the JAX package ran in XLA after its stats kernels
     (pallas_kernels.py:571-584, 842-846; parallel/sharded.py:181-186).
-    `tile_max` (fast stats) restores z from z_rel and returns bf16."""
+    `tile_max` (fast stats, [B, ceil(N / 128)]) restores z from z_rel and
+    returns bf16."""
     if out_dim is None:
         out_dim = z.shape[1]
     zc = z[:, :out_dim]
