@@ -51,7 +51,12 @@ serve CLI under the JAX package's serving configuration
 EngineConfig knobs that tests/test_torch_config_grid.py holds to the JAX
 package on the CPU, here the kernel route against the plain route on the
 flagship net and the 432 -> 2x3072 -> 8000 net, one table line per
-combination.
+combination.  Last, the headline benchmark as a user runs it
+(`fastdnn_tpu_torch.cli.bench`, called in this process so that its
+launches count): the headline line at B = 8192, `--config midsize-lazy`
+and `--config scaling` (up to eight ranks sharing the card over gloo),
+each line's keys and values, each run's launches, one headline call
+against the plain route, and `score_device_ms` against phase 6's time.
 Phases 1-25 run with the registry off (FASTDNN_TUNED=0), so that their
 launch counts are the defaults'.  Any failed check raises and the script
 exits non-zero.
@@ -130,6 +135,9 @@ TUNE_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "s
 PRECISION_DIR = Path(__file__).resolve().parent / "fastdnn_tpu_torch" / "_build" / "smoke_precision"
 ORACLE_GATE = 0.1
 PRECISION_REQUESTS = ((0, 100), (100, 357), (357, 1357))
+# phase 31: the headline benchmark (fastdnn_tpu_torch.cli.bench) at its defaults
+BENCH_BATCH = 8192
+BENCH_ITERS = 7
 # phase 30: the grid of EngineConfig knobs, the kernel route against the plain
 # route.  Each row is (trunk, lazy_mode, lazy_semantics, input_precision);
 # every pair of values of two of these knobs is in some row, and the rows
@@ -732,6 +740,150 @@ def config_grid(torch, dev, smi: str, flagship: dict, frames: np.ndarray) -> Non
           f"the plain route's fused fast posteriors on the wide net ({SENONES} senones) among them"
           + ("" if not failures else ":\n    " + "\n    ".join(failures)))
     print(f"  phase 30: {combos} combinations in {time.perf_counter() - t30:.1f} s  [{smi}]")
+
+
+def bench_phase(torch, dev, smi: str, drive, score_device_ms: float) -> None:
+    """Phase 31: the headline benchmark (fastdnn_tpu_torch.cli.bench) as a
+    user runs it, called in this process so that its launches count: one
+    headline call's and one masked call's launches and the headline's
+    posteriors, masked and not, and midsize-lazy's masked posteriors at both
+    densities against the plain route first, then the headline line at B =
+    BENCH_BATCH, midsize-lazy and scaling, each line's keys and values
+    checked, each run's launches exactly (every chained or timed call
+    launches K9, K3 and K4 once; the scaling ranks' launches are their own,
+    reported per grid point, and the ranks hold the grid's first point to
+    the plain route and every other point to the first)."""
+    import contextlib
+    import io
+
+    from fastdnn_tpu_torch import EngineConfig, Scorer
+    from fastdnn_tpu_torch.cli import bench
+
+    per_call = {"input_layer": 1, "hidden_stack": 1, "resident_softmax": 1}
+    b = BENCH_BATCH
+
+    def held(title, got, want, n_out):
+        """The kernel route's posteriors against the plain route's, as the
+        headline's gate: 1e-4, argmax agreement >= 0.999."""
+        got, want = got[:, :n_out], want[:, :n_out]
+        d = float((got - want).abs().max())
+        agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+        check(d <= 1e-4 and agree >= 0.999,
+              f"{title}: max |dp| = {d:.3g} <= 1e-4 from the plain route, argmax agreement "
+              f"{agree:.4f} >= 0.999")
+
+    with torch.inference_mode():
+        qnet = bench.seeded_qnet(bench.FLAGSHIP, cutoff=3.0)
+        scorer = Scorer(qnet, EngineConfig(), device=dev)
+        plain_scorer = Scorer(qnet, EngineConfig(backend="torch"), device=dev)
+        frames = scorer._to_device(bench.seeded_frames(b, INPUT_DIM))
+        host_masks = bench.uniform_masks(b, SENONES, LAZY_DENSITY)
+        masks = bench.device_masks(scorer, host_masks)
+        got = drive("one headline score_device", per_call, lambda: scorer.score_device(frames))
+        held(f"headline B={b}", got, plain_scorer.score_device(frames), SENONES)
+        got = drive("one headline masked call (Scorer._run_masked)", per_call,
+                    lambda: scorer._run_masked(frames, masks))
+        held(f"headline masked at {LAZY_DENSITY:.0%}, B={b}", got,
+             plain_scorer._run_masked(frames, bench.device_masks(plain_scorer, host_masks)),
+             SENONES)
+        del scorer, plain_scorer, got
+
+        mid_in, _, mid_out, mid_b = bench.MIDSIZE
+        mid_qnet = bench.seeded_qnet(bench.MIDSIZE)
+        mid = Scorer(mid_qnet, EngineConfig(), device=dev)
+        mid_plain = Scorer(mid_qnet, EngineConfig(backend="torch"), device=dev)
+        mid_frames = mid._to_device(bench.seeded_frames(mid_b, mid_in))
+        for density in (0.3, 0.5):
+            mid_host = bench.uniform_masks(mid_b, mid_out, density)
+            mid_masks = bench.device_masks(mid, mid_host)
+            got = drive(f"one midsize-lazy masked call at {density:.0%}", per_call,
+                        lambda: mid._run_masked(mid_frames, mid_masks))
+            held(f"midsize-lazy {mid_in}-{len(bench.MIDSIZE[1])}x{bench.MIDSIZE[1][0]}-{mid_out} "
+                 f"masked at {density:.0%}, B={mid_b}", got,
+                 mid_plain._run_masked(mid_frames, bench.device_masks(mid_plain, mid_host)),
+                 mid_out)
+        del mid, mid_plain, got
+
+    def run(argv, expect):
+        out, err = io.StringIO(), io.StringIO()
+
+        def call():
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                return bench.main(argv)
+
+        t0 = time.perf_counter()
+        rc = drive("bench " + " ".join(argv), expect, call)
+        lines = out.getvalue().splitlines()
+        check(rc == 0 and len(lines) == 1,
+              f"bench {' '.join(argv)}: exit 0, one line, {time.perf_counter() - t0:.1f} s")
+        print(f"    {lines[0]}  [{smi}]")
+        return json.loads(lines[0]), err.getvalue()
+
+    def positive(line, keys):
+        bad = {k: line.get(k) for k in keys if not (
+            isinstance(line.get(k), (int, float)) and np.isfinite(line[k]) and line[k] > 0)}
+        check(not bad, f"{', '.join(keys)}: finite and > 0" + (f" (not: {bad})" if bad else ""))
+
+    iters = BENCH_ITERS
+    chain_calls = 1 + (1 + iters) * (bench.REPS_LO + bench.REPS_HI)  # the probe, then two windows
+    # two chains (plain and masked), the timed score_device calls, and the
+    # call whose posteriors time the feedback
+    head, _ = run(["--batch", str(b), "--iters", str(iters)],
+                  dict.fromkeys(per_call, 2 * chain_calls + (1 + iters) + 1))
+    want_keys = {"metric", "value", "unit", "vs_baseline", "frames_per_s",
+                 "lazy_frames_per_s_40pct", "backend", "platform", "batch", "method",
+                 "score_device_ms", "device", "power_limit"}
+    check(set(head) == want_keys, f"headline keys: bench.py's and score_device_ms, device, "
+                                  f"power_limit ({sorted(set(head) ^ want_keys) or 'no difference'})")
+    positive(head, ("value", "vs_baseline", "frames_per_s", "lazy_frames_per_s_40pct",
+                    "score_device_ms"))
+    check(head["platform"] == "gpu" and head["backend"] == "cuda" and head["batch"] == b
+          and f"{head['device']}, {head['power_limit']}" == smi,
+          f"platform gpu, backend cuda, batch {b}, card {head['device']}, {head['power_limit']}")
+    ratio = head["score_device_ms"] / score_device_ms
+    check(abs(ratio - 1) <= 0.15,
+          f"score_device_ms {head['score_device_ms']:.4f} against phase 6's in-turn "
+          f"{score_device_ms:.4f} ms: ratio {ratio:.3f} within 15%  [{smi}]")
+    marginal_ms = b / head["frames_per_s"] * 1e3
+    ratio = marginal_ms / head["score_device_ms"]
+    check(abs(ratio - 1) <= 0.15,
+          f"the chain's marginal {marginal_ms:.4f} ms per {b} frames against score_device_ms: "
+          f"ratio {ratio:.3f} within 15%  [{smi}]")
+    print(f"  headline: {head['value']} audio-s/s ({head['frames_per_s']} frames/s), lazy 40% "
+          f"{head['lazy_frames_per_s_40pct']} frames/s ({b / head['lazy_frames_per_s_40pct'] * 1e3:.4f}"
+          f" ms per batch), score_device {head['score_device_ms']:.4f} ms  [{smi}]")
+
+    mid_line, _ = run(["--config", "midsize-lazy", "--iters", str(iters)],
+                      dict.fromkeys(per_call, 2 * chain_calls))
+    check(set(mid_line) == {"config", "lazy_frames_per_s_30pct", "lazy_frames_per_s_50pct"},
+          "midsize-lazy keys: config, lazy_frames_per_s_30pct, lazy_frames_per_s_50pct")
+    positive(mid_line, ("lazy_frames_per_s_30pct", "lazy_frames_per_s_50pct"))
+
+    # the ranks launch in their own processes: none here
+    scale, err = run(["--config", "scaling", "--iters", str(iters)], {})
+    grid_keys = {f"frames_per_s_dp{d}_tp{m}" for d, m in bench.SCALING_GRID}
+    check(set(scale) == {"config", "devices", "cards", "note"} | grid_keys
+          and scale["devices"] == max(d * m for d, m in bench.SCALING_GRID)
+          and scale["cards"] == torch.cuda.device_count(),
+          f"scaling keys: {sorted(grid_keys)}, devices {scale['devices']}, cards {scale['cards']}")
+    positive(scale, sorted(grid_keys))
+    launched = dict(re.findall(r"^# scaling (dp\d+ tp\d+): rank 0 launches per call (\{.*?\});",
+                               err, re.M))
+    for d, m in bench.SCALING_GRID:
+        want_counts = per_call if m == 1 else {
+            "input_layer": 1, "hidden_stack": 1, "flash_stats": 1, "normalize_stats": 1}
+        got_counts = json.loads(launched.get(f"dp{d} tp{m}", "null"))
+        check(got_counts == want_counts,
+              f"scaling dp{d} tp{m}: rank 0 launches per call {got_counts} (expected {want_counts})")
+    # the ranks raise on a point that strays; what they held each point to
+    d0, m0 = bench.SCALING_GRID[0]
+    held_lines = re.findall(r"^# scaling (dp\d+ tp\d+): .*?; (.*)$", err, re.M)
+    for point, what in held_lines:
+        print(f"  scaling {point}: {what}  [{smi}]")
+    check(len(held_lines) == len(bench.SCALING_GRID)
+          and "from the plain route" in held_lines[0][1],
+          f"scaling: dp{d0} tp{m0} held to the plain route, the other "
+          f"{len(bench.SCALING_GRID) - 1} points to it")
 
 
 def free_port() -> int:
@@ -2593,6 +2745,10 @@ def main() -> int:
           f"{INPUT_DIM}-{DEPTH}x{HIDDEN}-{SENONES} and {INPUT_DIM}-{WIDE_DEPTH}x{WIDE_HIDDEN}-"
           f"{SENONES} nets (card: {smi})")
     config_grid(torch, dev, smi, {8: qnet, 4: q4}, frames)
+
+    phase(f"31. the headline benchmark: python -m fastdnn_tpu_torch.cli.bench at B = {BENCH_BATCH}, "
+          f"then --config midsize-lazy and --config scaling (card: {smi})")
+    bench_phase(torch, dev, smi, drive, turn_ms["score_device"]["kernels"])
 
     rows = [
         {

@@ -40,18 +40,13 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel.spawn import free_port as _free_port
 from .serve import ScoreClient
 
 #: the directory that holds the package, the working directory of a spawned server
 ROOT = Path(__file__).resolve().parents[2]
 DEFAULT_MODEL = Path(__file__).resolve().parents[1] / "_build" / "bench_serve_model.bin"
 MODEL_SEED = 7  # the default net's weights
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _wait_for_server(port: int, proc, timeout_s: float) -> None:

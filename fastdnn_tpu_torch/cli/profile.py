@@ -266,12 +266,12 @@ def cmd_trace_mesh(ctx: Context) -> dict:
     import torch.distributed as dist
 
     from ..parallel.mesh import init_multihost, make_mesh
-    from .bench_serve import _free_port
+    from ..parallel.spawn import free_port
 
     frames = ctx.frames(ctx.batch)
     qnet = ctx.qnet()
     plain = _trace(ctx, ctx.scorer(qnet), frames, "single device")
-    init_multihost(f"tcp://localhost:{_free_port()}", world_size=1, rank=0, backend="gloo")
+    init_multihost(f"tcp://localhost:{free_port()}", world_size=1, rank=0, backend="gloo")
     try:
         mesh = make_mesh(1, 1, device_type=ctx.device.type)
         from ..engine.scorer import Scorer

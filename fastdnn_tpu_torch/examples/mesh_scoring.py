@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import tempfile
+import traceback
 
 import numpy as np
 
@@ -28,8 +29,18 @@ MESH_ATOL = 1e-4
 RANK_TIMEOUT_S = 300
 
 
-def _rank(rank: int, world: int, port: int, args: dict, frames_path: str) -> None:
-    """One rank: join, build the mesh Scorer, score; rank 0 reports."""
+def _rank(rank: int, port: int, world: int, args: dict, frames_path: str, results) -> None:
+    """One rank: join, build the mesh Scorer, score; rank 0 prints and
+    checks.  Each rank puts its report (or its traceback) on `results`."""
+    try:
+        _score_rank(rank, port, world, args, frames_path)
+    except BaseException:
+        results.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    results.put({"rank": rank})
+
+
+def _score_rank(rank: int, port: int, world: int, args: dict, frames_path: str) -> None:
     import torch
     import torch.distributed as dist
 
@@ -83,30 +94,16 @@ def main(argv=None) -> int:
     if world % args.tp:
         raise SystemExit(f"{world} ranks not divisible by tp={args.tp}")
 
-    import torch.multiprocessing as mp
-
-    from ..cli.bench_serve import _free_port
+    from ..parallel.spawn import run_ranks
 
     with tempfile.TemporaryDirectory(prefix="fastdnn_torch_demo_") as td:
         frames_path = str(_common.frames_file(args.features, td))
-        spawn = mp.get_context("spawn")
-        port = _free_port()
-        procs = [spawn.Process(target=_rank, args=(r, world, port, vars(args), frames_path))
-                 for r in range(world)]
-        for proc in procs:
-            proc.start()
         try:
-            for proc in procs:
-                proc.join(RANK_TIMEOUT_S)
-        finally:
-            for proc in procs:
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join()
-    codes = [proc.exitcode for proc in procs]
-    if any(codes):
-        print(f"a rank failed: exit codes {codes}")
-        return 1
+            run_ranks(_rank, world, (world, vars(args), frames_path), timeout=RANK_TIMEOUT_S,
+                      what=f"{world} mesh ranks")
+        except (RuntimeError, TimeoutError) as e:
+            print(f"a rank failed: {e}")
+            return 1
     return 0
 
 
