@@ -26,6 +26,9 @@ package did in XLA, and lazy_mode="gathered" runs engine.lazy's library
 product.  With backend "torch" every kernel's plain PyTorch version
 (ops/matmul.py) runs instead, through the same routes.
 
+Each public entry, and the host stages inside them, record a span while a
+torch.profiler runs (utils.timer.span; SPANS below lists the names).
+
 `Scorer(mesh=...)` (parallel.mesh.make_mesh) splits frames over the mesh's
 data ranks and the output layer's columns over its model ranks
 (parallel.sharded).
@@ -46,8 +49,22 @@ from ..ops import kernels
 from ..ops import matmul as xops
 from ..quant.quantize import QuantizedNet, pack_int4_trunk, pad_qnet
 from ..utils.align import aligned_size
+from ..utils.timer import span
 from . import cuda_backend
 from . import lazy as _lazy
+
+#: every span this module records: the public entries, then the stages
+#: inside them
+SPANS = (
+    "fastdnn.score",
+    "fastdnn.score_device",
+    "fastdnn.score_masked",
+    "fastdnn.lazy.until_output",
+    "fastdnn.lazy.frame",
+    "fastdnn.masks",  # the caller's masks to the u8 device masks
+    "fastdnn.output_lazy",  # a frame's output layer: row padding, K5, the masked softmax
+    "fastdnn.finish",  # the gather under a mesh, the wait, the download and numpy
+)
 
 
 def build_hidden_stack(net: QuantizedNet):
@@ -437,6 +454,13 @@ class Scorer:
         out[: masks.shape[0], : self._output_dim] = masks != 0
         return out
 
+    def _masks(self, masks: np.ndarray, pad_n: int) -> tuple[np.ndarray, torch.Tensor]:
+        """The caller's masks -> (the padded u8 masks on the host
+        (_pad_masks), the same on the device)."""
+        with span("fastdnn.masks"):
+            padded = self._pad_masks(masks, pad_n)
+            return padded, self._to_device(padded)
+
     def _local(self, x: torch.Tensor, cols: bool = False) -> torch.Tensor:
         """This rank's rows (and, for masks, columns) of a batch; the batch
         itself on one device."""
@@ -450,11 +474,12 @@ class Scorer:
     def _finish(self, out: torch.Tensor, n: int) -> np.ndarray:
         """Device posteriors -> host [n, output_dim] f32 (bf16 widened);
         under a mesh, every rank's block gathered first."""
-        if self.mesh is not None:
-            from ..parallel.mesh import gather_blocks
+        with span("fastdnn.finish"):
+            if self.mesh is not None:
+                from ..parallel.mesh import gather_blocks
 
-            out = gather_blocks(out, self.mesh)[:, : self._output_dim]
-        return out[:n].float().cpu().numpy()
+                out = gather_blocks(out, self.mesh)[:, : self._output_dim]
+            return out[:n].float().cpu().numpy()
 
     def _run(self, frames: torch.Tensor) -> torch.Tensor:
         """Posteriors of this rank's block of a padded batch."""
@@ -501,12 +526,13 @@ class Scorer:
 
     def score(self, frames) -> np.ndarray:
         """Posteriors f32 [n, out] for a frame batch."""
-        frames = np.asarray(frames, dtype=np.float32)
-        if frames.ndim == 2 and frames.shape[0] == 0:
-            return np.zeros((0, self.output_dim), np.float32)
-        padded, n = self._prepare(frames)
-        with torch.inference_mode():
-            return self._finish(self._run(padded), n)
+        with span("fastdnn.score"):
+            frames = np.asarray(frames, dtype=np.float32)
+            if frames.ndim == 2 and frames.shape[0] == 0:
+                return np.zeros((0, self.output_dim), np.float32)
+            padded, n = self._prepare(frames)
+            with torch.inference_mode():
+                return self._finish(self._run(padded), n)
 
     def score_device(self, frames: torch.Tensor) -> torch.Tensor:
         """Device-resident variant: f32 [B, input_dim] on the scorer's
@@ -522,35 +548,36 @@ class Scorer:
         variant returns the padded-width global array instead, sharded
         over the devices of its one program; here nothing spans ranks
         without a collective, so each rank keeps what it computed."""
-        if frames.device.type != self.device.type or frames.dtype != torch.float32:
-            raise ValueError(
-                f"score_device wants f32 frames on {self.device}, got "
-                f"{frames.dtype} on {frames.device}"
-            )
-        with torch.inference_mode():
-            return self._run(frames)
+        with span("fastdnn.score_device"):
+            if frames.device.type != self.device.type or frames.dtype != torch.float32:
+                raise ValueError(
+                    f"score_device wants f32 frames on {self.device}, got "
+                    f"{frames.dtype} on {frames.device}"
+                )
+            with torch.inference_mode():
+                return self._run(frames)
 
     def score_masked(self, frames, masks) -> np.ndarray:
         """Lazy path, whole utterance at once: masks [n, out] (nonzero =
         active).  The dense masked kernel unless config.lazy_mode asks for
         "gathered" or "block_sparse"."""
-        frames = np.asarray(frames, dtype=np.float32)
-        masks = np.asarray(masks)
-        if masks.shape != (frames.shape[0], self.output_dim):
-            raise ValueError(
-                f"masks must be [n={frames.shape[0]}, out={self.output_dim}], got {masks.shape}"
-            )
-        padded, n = self._prepare(frames)
-        masks_p = self._pad_masks(masks, padded.shape[0])
-        with torch.inference_mode():
-            if self._use_gathered(masks_p):
-                idx, _ = _lazy.union_active_indices(masks_p, self._gather_capacity)
-                out = self._gathered(
-                    self._hidden(padded), self._to_device(masks_p), self._to_device(idx)
+        with span("fastdnn.score_masked"):
+            frames = np.asarray(frames, dtype=np.float32)
+            masks = np.asarray(masks)
+            if masks.shape != (frames.shape[0], self.output_dim):
+                raise ValueError(
+                    f"masks must be [n={frames.shape[0]}, out={self.output_dim}], "
+                    f"got {masks.shape}"
                 )
-            else:
-                out = self._run_masked(padded, self._to_device(masks_p))
-            return self._finish(out, n)
+            padded, n = self._prepare(frames)
+            masks_p, masks_d = self._masks(masks, padded.shape[0])
+            with torch.inference_mode():
+                if self._use_gathered(masks_p):
+                    idx, _ = _lazy.union_active_indices(masks_p, self._gather_capacity)
+                    out = self._gathered(self._hidden(padded), masks_d, self._to_device(idx))
+                else:
+                    out = self._run_masked(padded, masks_d)
+                return self._finish(out, n)
 
     def _use_gathered(self, masks: np.ndarray) -> bool:
         if self.config.lazy_mode != "gathered":
@@ -588,23 +615,19 @@ class Scorer:
             return dict(zip(keys, splits))
         return list(splits)
 
-    def _score_masked_from_acts(self, acts: torch.Tensor, masks: np.ndarray) -> np.ndarray:
-        """Posteriors for a few rows of stored last-hidden activations
-        (under a mesh, rows padded to split over the data axis)."""
-        b = acts.shape[0]
-        rows = aligned_size(b, self._data_size)
-        if rows != b:
-            acts = torch.nn.functional.pad(acts, (0, 0, 0, rows - b))
-        masks_p = self._to_device(self._pad_masks(np.asarray(masks), rows))
-        with torch.inference_mode():
-            if self._programs is not None:
-                out = self._programs[3](self.net, self._local(acts), self._local(masks_p, True))
-            else:
-                out = masked_posteriors_from_acts(
-                    self.net, acts, masks_p, backend=self._backend,
-                    semantics=self.config.lazy_semantics, out_dim=self._output_dim,
-                )
-            return self._finish(out, b)
+    def _masked_from_acts(self, acts: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+        """Device posteriors for a few rows of stored last-hidden
+        activations and their device masks (_masks), which have the rows
+        padded to split over the data axis under a mesh."""
+        rows = masks.shape[0]
+        if rows != acts.shape[0]:
+            acts = torch.nn.functional.pad(acts, (0, 0, 0, rows - acts.shape[0]))
+        if self._programs is not None:
+            return self._programs[3](self.net, self._local(acts), self._local(masks, True))
+        return masked_posteriors_from_acts(
+            self.net, acts, masks, backend=self._backend,
+            semantics=self.config.lazy_semantics, out_dim=self._output_dim,
+        )
 
     def new_lazy_context(self, input_vector_count: int) -> "LazyContext":
         """The reference's QuantizedDnn.getNewLazyContext."""
@@ -628,32 +651,37 @@ class LazyContext:
         self._acts: Optional[torch.Tensor] = None
 
     def calculate_until_output(self, frames) -> None:
-        frames = np.asarray(frames, dtype=np.float32)
-        if frames.shape[0] != self.input_vector_count:
-            raise ValueError(
-                f"expected {self.input_vector_count} frames, got {frames.shape[0]}"
-            )
-        padded, _ = self._scorer._prepare(frames)
-        with torch.inference_mode():
-            self._acts = self._scorer._hidden(padded)
-        self.current_vector_index = 0  # the context is reusable across utterances
+        with span("fastdnn.lazy.until_output"):
+            frames = np.asarray(frames, dtype=np.float32)
+            if frames.shape[0] != self.input_vector_count:
+                raise ValueError(
+                    f"expected {self.input_vector_count} frames, got {frames.shape[0]}"
+                )
+            padded, _ = self._scorer._prepare(frames)
+            with torch.inference_mode():
+                self._acts = self._scorer._hidden(padded)
+            self.current_vector_index = 0  # the context is reusable across utterances
 
     def calculate_for_output_nodes(self, mask) -> np.ndarray:
         """Posteriors f32 [out] for the next frame given its active-node mask."""
-        if self._acts is None:
-            raise RuntimeError("call calculate_until_output first")
-        i = self.current_vector_index
-        if i >= self.input_vector_count:
-            raise IndexError("all frames already consumed")
-        scorer = self._scorer
-        mask = (np.asarray(mask).reshape(1, -1) != 0).astype(np.uint8)
-        with torch.inference_mode():
-            acts_i = self._acts[i : i + 1]
-            if scorer._use_gathered(mask):
-                idx, _ = _lazy.union_active_indices(mask, scorer._gather_capacity)
-                out = scorer._gathered(acts_i, scorer._to_device(mask), scorer._to_device(idx))
+        with span("fastdnn.lazy.frame"):
+            if self._acts is None:
+                raise RuntimeError("call calculate_until_output first")
+            i = self.current_vector_index
+            if i >= self.input_vector_count:
+                raise IndexError("all frames already consumed")
+            scorer = self._scorer
+            # under a mesh the row is padded to split over the data axis
+            mask_p, mask_d = scorer._masks(np.asarray(mask).reshape(1, -1),
+                                           aligned_size(1, scorer._data_size))
+            with torch.inference_mode():
+                acts_i = self._acts[i : i + 1]
+                with span("fastdnn.output_lazy"):
+                    if scorer._use_gathered(mask_p):
+                        idx, _ = _lazy.union_active_indices(mask_p, scorer._gather_capacity)
+                        out = scorer._gathered(acts_i, mask_d, scorer._to_device(idx))
+                    else:
+                        out = scorer._masked_from_acts(acts_i, mask_d)
                 res = scorer._finish(out, 1)[0]
-            else:
-                res = scorer._score_masked_from_acts(acts_i, mask)[0]
-        self.current_vector_index += 1
-        return res
+            self.current_vector_index += 1
+            return res

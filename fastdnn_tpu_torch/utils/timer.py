@@ -1,9 +1,10 @@
-"""Observability: throughput counters and a profiler scope, after
-fastdnn_tpu/utils/timer.py.
+"""Observability: throughput counters, a profiler scope and the program's
+spans, after fastdnn_tpu/utils/timer.py.
 
   * `Throughput` — rolling audio-seconds/s and frames/s counters for serving
   * `trace` — context manager around torch.profiler, writing a Chrome trace
-  * `Timer` — the plain wall-clock the reference used, for CLIs
+  * `span` — a named host span inside the program, recorded while any
+    torch.profiler runs (`trace` included)
 """
 
 from __future__ import annotations
@@ -14,23 +15,12 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
 FRAMES_PER_AUDIO_SECOND = 100.0
 
-
-class Timer:
-    """Wall-clock timer, the reference engine's std::chrono timing (its dnn.cc:62-73)."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.t0
-        return False
-
-    @property
-    def ms(self) -> float:
-        return self.elapsed * 1e3
+_NO_SPAN = contextlib.nullcontext()
 
 
 @dataclass
@@ -79,7 +69,6 @@ def trace(log_dir: str):
     """torch.profiler scope over the host and, where there is one, the card;
     writes `trace.json` (Chrome trace format: chrome://tracing or Perfetto)
     into `log_dir` and yields the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -89,3 +78,15 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """Context manager: the host span `name` on the calling thread while a
+    torch.profiler runs, on the profiler's clock.  It is recorded at
+    function scope, which leaves no device-side copy in the trace (a
+    `record_function` span, at user scope, adds a `gpu_user_annotation`
+    over the kernels it launched).  With no profiler running it reads one
+    flag and returns a shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)

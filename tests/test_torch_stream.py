@@ -271,9 +271,6 @@ class TestTimer:
         with timer.trace(str(tmp_path / "t")):
             torch.ones(64).sum()
         assert (tmp_path / "t" / "trace.json").stat().st_size > 0
-        with timer.Timer() as t:
-            pass
-        assert t.ms >= 0
 
 
 @pytest.fixture(scope="module")
