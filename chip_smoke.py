@@ -21,8 +21,10 @@ through the kernels it should, and times kernels and paths beside their
 plain versions: the input kernel (K9) against the f64 product + K1 route it
 replaced, K3 against six K2 launches, the block-sparse softmax (K6) against
 the dense masked one (K4) and the skipping stats kernel (K8), the packed
-int4 layer (K7) against K2, all in turns, the logits kernel (K5) at the
-LazyContext's 64 frames and at 8192, single, queued and under the profiler,
+int4 layer (K7) against K2, all in turns, the logits kernel (K5) at 64
+frames and at 8192, single, queued and under the profiler, the
+LazyContext's one-launch output layer (lazy_output) against the route it
+replaced (K5 and the masked softmax in torch ops) at one row and at four,
 with each kernel's bound and, as a yardstick, the
 product alone at its shape (`torch._int_mm`; for K9 the f64 and the f32
 `torch.matmul`), which the port never calls.  Then the serving path on the
@@ -942,6 +944,8 @@ def main() -> int:
           f"{seats[0]} / {seats[1]} (B = 8192 needs 128 / 64)")
     print(f"  K4 wgmma loop, K = {HIDDEN}: clusters of 2 blocks seated at once: "
           f"{lib.fdn_resident_softmax_wgmma_max_clusters(HIDDEN, 0)} (B = 8192 has 128)")
+    print(f"  lazy_output, K = {HIDDEN}, out_dim = {SENONES}: clusters of 16 blocks seated at once: "
+          f"{lib.fdn_lazy_output_max_clusters(HIDDEN, SENONES, 0)} (a LazyContext frame has 1)")
 
     report = {name: {"max_abs_err": None, "ms": None, "plain_ms": None} for name in kernels.KERNELS}
     path_launches = dict.fromkeys(kernels.KERNELS, 0)
@@ -1268,6 +1272,35 @@ def main() -> int:
         p5 = plain.output_logits(p3[:b], *plain_out_padded)
         check(k5.shape == (b, n_pad) and torch.equal(k5, p5), f"K5 output_logits B={b} N={n_pad} bitwise")
     report["output_logits"]["max_abs_err"] = 0.0
+    # lazy_output, the LazyContext's output layer: its active logits bitwise
+    # K5's, its posteriors within 3e-5 of the plain route (K5's plain version
+    # and the masked softmax) at 1, 4 and 16 rows, masks at the true and the
+    # padded width, a row with no and one with every senone active (from 4
+    # rows on), out_dim 8000 and 7990 (not a multiple of 4)
+    k5 = kernels.output_logits(p3[:64], *out)
+    report["lazy_output"]["max_abs_err"] = 0.0
+    for rows in (1, 4, 16):
+        for width in (SENONES, n_pad):
+            m = masks40[:rows, :width].clone()
+            if rows > 1:
+                m[1], m[2] = 0, 1
+            for od in (SENONES, SENONES - 10):
+                act = m[:, :od] != 0
+                z = kernels.lazy_output(p3[:rows], *out, m, out_dim=od, logits=True)
+                check(torch.equal(z, torch.where(act, k5[:rows, :od], 0.0)),
+                      f"lazy_output rows={rows} mask width {width} out_dim={od}: active logits "
+                      f"bitwise K5's, inactive 0")
+                for sem in ("reference", "active_only"):
+                    got = kernels.lazy_output(p3[:rows], *out, m, out_dim=od, semantics=sem)
+                    want = plain.masked_softmax(k5[:rows, :od], act, sem)
+                    d = float((got - want).abs().max())
+                    exact = sem == "reference" or bool((got[~act] == 0).all())
+                    check(d <= 3e-5 and exact and torch.equal(got, kernels.lazy_output(
+                              p3[:rows], *out, m, out_dim=od, semantics=sem)),
+                          f"lazy_output {sem} rows={rows} mask width {width} out_dim={od}: max |d| "
+                          f"= {d:.3g} <= 3e-5 of the plain route, the same bits twice"
+                          + ("" if sem == "reference" else ", inactive and empty rows exactly 0"))
+                    report["lazy_output"]["max_abs_err"] = max(report["lazy_output"]["max_abs_err"], d)
     report["resident_softmax_block_sparse"]["max_abs_err"] = 0.0
     # K6 on both mask sets with the 64-frame block at rows 128-191 all
     # masked (every one of its tiles skipped), the 40% set keeping its
@@ -1336,7 +1369,7 @@ def main() -> int:
     utterance = frames[:DECODE_FRAMES]
     lazy_dec, dense_dec = drive(
         "LazyContext beam decode + dense decode",
-        {"input_layer": 2, "hidden_stack": 2, "output_logits": DECODE_FRAMES, "resident_softmax": 1},
+        {"input_layer": 2, "hidden_stack": 2, "lazy_output": DECODE_FRAMES, "resident_softmax": 1},
         lambda: (decoder.decode_lazy(scorer, utterance), decoder.decode_dense(scorer, utterance)),
     )
     check(lazy_dec.words == dense_dec.words,
@@ -1428,6 +1461,35 @@ def main() -> int:
         torch.cuda.synchronize()
     print("  host time per call (mean of 5000): " + ", ".join(
         f"{what} {us:.2f} us" for what, us in host_us.items()) + f"  [{smi}]")
+    # lazy_output against the route it replaced (the row padded to K5's
+    # tile, K5 and the masked softmax in torch ops) at the LazyContext's one
+    # row and at 4: single calls, in turns, and device time under the
+    # profiler; the JSON row reports one row, the bound its 40% mask's work
+    lazy_active = {}
+    for rows in (4, 1):
+        m = masks40[:rows, :SENONES].contiguous()
+        lazy_active[rows] = int(m.sum())
+
+        def old_route(rows=rows, m=m):
+            a = torch.nn.functional.pad(p3[:rows], (0, 0, 0, kernels.OUTPUT_LOGITS_FRAMES - rows))
+            z = kernels.output_logits(a, *out)[:rows, :SENONES]
+            return plain.masked_softmax(z, m != 0, "reference")
+
+        fns = {"K5 + torch ops": old_route,
+               "lazy_output": lambda rows=rows, m=m: kernels.lazy_output(p3[:rows], *out, m,
+                                                                          out_dim=SENONES),
+               "plain": lambda rows=rows, m=m: plain.masked_softmax(
+                   plain.output_logits(p3[:rows], *plain_out_padded)[:, :SENONES], m != 0,
+                   "reference")}
+        times = in_turns(torch, fns)
+        device = {name: sum(row[1] for row in profile_device(fn, 20)[1])
+                  for name, fn in fns.items() if name != "plain"}
+        report["lazy_output"]["ms"] = sum(times["lazy_output"]) / 2
+        report["lazy_output"]["plain_ms"] = sum(times["plain"]) / 2
+        print(f"  lazy_output rows={rows} ({lazy_active[rows] / rows:.0f} active senones a row) in "
+              "turns: " + ", ".join(f"{name} {t[0]:.4f} / {t[1]:.4f}" for name, t in times.items())
+              + " ms; device time under the profiler: " + ", ".join(
+                  f"{name} {ms:.4f}" for name, ms in device.items()) + f" ms  [{smi}]")
 
     phase("10. K7 packed int4 hidden layer against its plain version and against K2")
     q4 = quantize_net(net, hidden_bits=4)
@@ -1945,6 +2007,11 @@ def main() -> int:
             lambda: torch._int_mm(p3, w_out)),
         # z's first out_dim columns and (m, s) read, the posteriors written
         "normalize_stats": (0, b_dim * (SENONES * 4 + 8) + b_dim * SENONES * 4, None),
+        # one row under its 40% mask: the activations, the active senones'
+        # weight rows, zero-point sums and biases, the mask, the posteriors;
+        # no library product takes one row (torch._int_mm wants 17 or more)
+        "lazy_output": (2 * lazy_active[1] * k_dim,
+                        k_dim + lazy_active[1] * (k_dim + 8) + SENONES + SENONES * 4, None),
     }
     for name, (ops, nbytes, product) in work.items():
         peak = "tf32" if name == "input_layer" else "int8"
@@ -2192,7 +2259,7 @@ def main() -> int:
     want_l = [decode(t) for t in range(4)]
     with ThreadPoolExecutor(max_workers=4) as pool:
         got_l = drive("4 LazyContexts at once",
-                      {"input_layer": 4, "hidden_stack": 4, "output_logits": 4 * ctx_frames},
+                      {"input_layer": 4, "hidden_stack": 4, "lazy_output": 4 * ctx_frames},
                       lambda: list(pool.map(decode, range(4))))
     d_l = max(float(np.abs(g - w).max()) for g, w in zip(got_l, want_l))
     bitwise = all(np.array_equal(g, w) for g, w in zip(got_l, want_l))

@@ -144,7 +144,8 @@ def kernel_of(symbol: str) -> Optional[str]:
                          ("bias_sigmoid_i8", "bias_sigmoid_kernel"),
                          ("hidden_stack", "hidden_stack_wgmma_kernel"),
                          ("hidden_layer_packed", "hidden_layer_packed_kernel"),
-                         ("normalize_stats", "normalize_stats_kernel")):
+                         ("normalize_stats", "normalize_stats_kernel"),
+                         ("lazy_output", "lazy_output_kernel")):
         if kernel in symbol:
             return name
     return None

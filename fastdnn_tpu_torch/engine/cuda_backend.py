@@ -22,12 +22,17 @@ def prepare(net: QuantizedNet, input_precision: str = "high") -> QuantizedNet:
     (ops.kernels.input_layer_operand; input_w stays as it is).  Done once,
     when a Scorer loads the net; the layer steps below take weights so
     prepared.  The shape properties of the result (layer_dims,
-    padded_output_dim) no longer read as for the JAX layout."""
-    return dataclasses.replace(
+    padded_output_dim) no longer read as for the JAX layout.  The output
+    layer is checked here for lazy_output, which takes it once a frame
+    (ops.kernels.check_lazy_output_layer)."""
+    prepared = dataclasses.replace(
         net,
         weights=tuple(kernels.kernel_layout(w) for w in net.weights),
         input_operand=kernels.input_layer_operand(net.input_w, input_precision),
     )
+    kernels.check_lazy_output_layer(prepared.weights[-1], prepared.colsum128[-1],
+                                    prepared.biases[-1])
+    return prepared
 
 
 def input_layer_step(frames_f32: torch.Tensor, w_f32: torch.Tensor, b_f32: torch.Tensor,

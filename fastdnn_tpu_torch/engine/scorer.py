@@ -21,10 +21,11 @@ one K6 launch (tile skipping) for lazy_mode="block_sparse"; an output layer
 wider than K4 takes (uses_resident_output) runs one K8 stats launch, plain
 or skipping, and one normalize launch.  Without `fused_softmax` they
 are a K5 logits launch and a library softmax.  LazyContext scores each
-frame with K5 and the masked softmax in plain tensor ops, as the JAX
-package did in XLA, and lazy_mode="gathered" runs engine.lazy's library
-product.  With backend "torch" every kernel's plain PyTorch version
-(ops/matmul.py) runs instead, through the same routes.
+frame with one lazy_output launch (the active senones' logits and the
+masked softmax, which the JAX package ran as the logits op and XLA), and
+lazy_mode="gathered" runs engine.lazy's library product.  With backend
+"torch" every kernel's plain PyTorch version (ops/matmul.py) runs instead,
+through the same routes.
 
 Each public entry, and the host stages inside them, record a span while a
 torch.profiler runs (utils.timer.span; SPANS below lists the names).
@@ -62,7 +63,7 @@ SPANS = (
     "fastdnn.lazy.until_output",
     "fastdnn.lazy.frame",
     "fastdnn.masks",  # the caller's masks to the u8 device masks
-    "fastdnn.output_lazy",  # a frame's output layer: row padding, K5, the masked softmax
+    "fastdnn.output_lazy",  # a frame's output layer: one lazy_output launch
     "fastdnn.finish",  # the gather under a mesh, the wait, the download and numpy
 )
 
@@ -255,15 +256,14 @@ def score_masked_fn(
 
 
 def masked_posteriors_from_acts(net, acts, masks, *, backend, semantics, out_dim):
-    """Masked posteriors for a few rows of last-hidden activations: the
-    logits (K5) and the masked softmax in plain tensor ops.  The kernel
-    takes whole 64-frame tiles, so the rows are padded for it and cut back
-    after."""
-    n = acts.shape[0]
-    if backend == "cuda" and n % kernels.OUTPUT_LOGITS_FRAMES:
-        pad = kernels.OUTPUT_LOGITS_FRAMES - n % kernels.OUTPUT_LOGITS_FRAMES
-        acts = torch.nn.functional.pad(acts, (0, 0, 0, pad))
-    logits = output_logits(net, acts, backend)[:n, :out_dim]
+    """Masked posteriors for a few rows of last-hidden activations: on the
+    CUDA backend one lazy_output launch, which computes the active
+    senones' logits only; on the plain backend the logits and the masked
+    softmax in tensor ops."""
+    if backend == "cuda":
+        return kernels.lazy_output(acts, *_output_args(net), masks, out_dim=out_dim,
+                                   semantics=semantics)
+    logits = output_logits(net, acts, backend)[:, :out_dim]
     return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
 
 

@@ -89,6 +89,13 @@ _SIGNATURES = {
     ),
     "fdn_flash_stats_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "fdn_normalize_stats": (ctypes.c_int, [_P, _P, _P, _P, _P, *[ctypes.c_int] * 4, _P]),
+    "fdn_lazy_output": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P, *[ctypes.c_int] * 4,
+         _P],
+    ),
+    "fdn_lazy_output_smem_bytes": (ctypes.c_longlong, [ctypes.c_int] * 2),
+    "fdn_lazy_output_max_clusters": (ctypes.c_int, [ctypes.c_int] * 3),
 }
 
 _lock = threading.Lock()

@@ -3,7 +3,9 @@
 Dispatch rule, with no fallback: a tensor on the CPU goes to the kernel's
 plain PyTorch version (ops/matmul.py); a CUDA tensor goes to the kernel,
 and a kernel that cannot build or launch raises.  Each wrapper checks
-device, dtype, shape and contiguity, allocates its output with
+device, dtype, shape and contiguity (lazy_output, called once a decoder
+frame, leaves its constant output layer to check_lazy_output_layer, which
+engine.cuda_backend.prepare calls once a net), allocates its output with
 `torch.empty`, launches on the current stream of the tensor's device and
 adds one to its launch count (`launch_counts`), which is how a run shows
 that its main path went through the kernels.
@@ -34,6 +36,9 @@ A wrapper given CPU tensors transposes back for its plain version.
                                       stats (max, sum-exp), masked or not, any K
        flash_stats_block_sparse       K8 skipping all-inactive tiles
        normalize_stats                K8's normalize, exp(z - m) / s, one pass
+       lazy_output                    a few rows' masked posteriors in one launch:
+                                      the active senones' logits only, folded
+                                      into each row's (max, sum-exp)
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 
@@ -42,7 +47,8 @@ stages, wgmma products).  K2, K3, K5 and K7 run blocks of 64 frames in
 clusters of wgmma_cluster(B) blocks that share weight stages by multicast
 (K2 and K5 are one kernel with two epilogues); K4, K6 and K8 run clusters
 of 2 blocks that share 64 frames and split the output columns.  K9 takes
-128 frames per block.
+128 frames per block.  lazy_output needs no tensor core: one cluster of 16
+blocks per row reads the active senones' weight rows, a warp per senone.
 
 K9 reads the input weight as `input_layer_operand(w)`: W transposed and
 split into two TF32 halves; its bf16 variant as `input_layer_operand(w,
@@ -147,6 +153,10 @@ KERNELS = {
     "normalize_stats": Kernel(
         "fastdnn_tpu_torch/csrc/flash_stats.cu", "fastdnn_tpu/ops/pallas_kernels.py:572-585"
     ),
+    "lazy_output": Kernel(
+        "fastdnn_tpu_torch/csrc/lazy_output.cu",
+        "fastdnn_tpu/ops/pallas_kernels.py:1104, fastdnn_tpu/ops/matmul.py:106, :118",
+    ),
 }
 
 #: the lazy semantics as the resident-softmax kernels number them
@@ -205,7 +215,9 @@ def input_layer_operand(w: torch.Tensor, precision: str = "high") -> torch.Tenso
 def _launch(name: str, device: torch.device, fn, *args) -> None:
     """Run one C entry on `device`'s current stream, raise on a non-zero
     status, count the launch."""
-    stream = torch.cuda.current_stream(device).cuda_stream
+    # the raw handle of torch.cuda.current_stream(device), without building
+    # a Stream object (about 5 us a call on the H100's host)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
     status = fn(*args, device.index, stream)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {status}")
@@ -649,4 +661,59 @@ def normalize_stats(z, m, s, *, out_dim: int, tile_max=None) -> torch.Tensor:
         _launch("normalize_stats", device, lib.fdn_normalize_stats,
                 z.data_ptr(), m.data_ptr(), s.data_ptr(),
                 None if tile_max is None else tile_max.data_ptr(), out.data_ptr(), b, n, out_dim)
+    return out
+
+
+def check_lazy_output_layer(w_t, colsum, bias) -> None:
+    """lazy_output's checks of a net's constant output layer: dtypes, shapes
+    and contiguity, K a multiple of 16, the weight on a 16-byte boundary,
+    the shared memory of its full width.  engine.cuda_backend.prepare makes
+    them once a net: made on every frame they cost more host time than the
+    frame's kernel takes (15-19 us a call on an H100's host).  CPU tensors
+    need none."""
+    if w_t.device.type == "cpu":
+        return
+    n, k = w_t.shape if w_t.dim() == 2 else (-1, -1)
+    device = _check("lazy_output", (w_t, colsum, bias), (torch.int8, torch.int32, torch.float32),
+                    ((n, k), (n,), (n,)))
+    _require_multiples("lazy_output", K=(k, 16))
+    _check_tma_weight("lazy_output", w_t)
+    _require_smem("lazy_output", device, _build.load().fdn_lazy_output_smem_bytes(k, n))
+
+
+def lazy_output(acts, w_t, colsum, inv_scale: float, bias, masks, *, out_dim: int,
+                semantics: str = "reference", logits: bool = False) -> torch.Tensor:
+    """Masked posteriors of a few rows in one launch: s8 [rows, K] x s8
+    [K, N] under masks u8 [rows, W] (nonzero = active, W >= out_dim; only
+    the first out_dim columns are read) -> f32 [rows, out_dim], the softmax
+    of `semantics` over the first out_dim logits; the weight given as
+    w_t = kernel_layout(w), [N, K].  Only the active senones' logits are
+    computed, bitwise K5's; `logits` returns them (inactive 0) without the
+    softmax.  One cluster per row, so the launch suits a few rows.  The
+    output layer's tensors are taken as check_lazy_output_layer passed
+    them; each call's own tensors are checked here.  Plain version:
+    ops.matmul.output_logits followed by ops.matmul.masked_softmax."""
+    if acts.device.type == "cpu":
+        z = plain.output_logits(acts, w_t.t(), colsum, inv_scale, bias)[:, :out_dim]
+        active = masks[:, :out_dim] != 0
+        return torch.where(active, z, 0.0) if logits else plain.masked_softmax(z, active, semantics)
+    code = 2 if logits else _SEMANTICS.get(semantics)
+    if code is None:
+        raise ValueError(f"lazy_output: unknown lazy semantics {semantics!r}")
+    rows = acts.shape[0] if acts.dim() == 2 else -1
+    n, k = w_t.shape
+    device = _check("lazy_output", (acts, masks), (torch.int8, torch.uint8),
+                    ((rows, k), (rows, None)))
+    if w_t.device != device:
+        raise ValueError(f"lazy_output: the weight is on {w_t.device}, the activations on {device}")
+    if not 0 < out_dim <= min(n, masks.shape[1]):
+        raise ValueError(f"lazy_output: out_dim={out_dim} must be in [1, {n}] and at most the "
+                         f"masks' width {masks.shape[1]}")
+    _check_tma_weight("lazy_output", acts, "the activations")
+    out = torch.empty((rows, out_dim), dtype=torch.float32, device=device)
+    if rows:
+        _launch("lazy_output", device, _build.load().fdn_lazy_output,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), masks.data_ptr(), masks.shape[1], code, out.data_ptr(), rows,
+                k, out_dim)
     return out

@@ -38,6 +38,7 @@ from fastdnn_tpu_torch.cli import score as tcli
 from fastdnn_tpu_torch.engine import cluster as tcluster
 from fastdnn_tpu_torch.engine import cuda_backend
 from fastdnn_tpu_torch.engine import lazy as tlazy
+from fastdnn_tpu_torch.engine import scorer as scorer_mod
 from fastdnn_tpu_torch.engine.scorer import masked_posteriors_from_acts, score_masked_fn
 from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
@@ -194,6 +195,91 @@ class TestOutputLogits:
         np.testing.assert_array_equal(pallas, fused)
         one_ulp = np.spacing(np.abs(f * inv)) + np.spacing(np.abs(ours))
         assert (np.abs(ours - xla) <= one_ulp).all()
+
+
+LAZY_OUT = 3000  # not a multiple of the kernels' 128-column tile
+
+
+@pytest.fixture(scope="module")
+def lazy_nets(tmp_path_factory):
+    """(JAX QuantizedNet, the port's, the port's padded and prepared for
+    the CUDA backend) of a 432 -> 3x256 -> 3000 net."""
+    _, j_net = _nets(41, LAZY_OUT)
+    j_q = fd.quantize_net(j_net)
+    t_q = _carry(j_q, tmp_path_factory.mktemp("lazy_out"))
+    return j_q, t_q, cuda_backend.prepare(fdt.pad_qnet(t_q))
+
+
+def _lazy_masks(kind, rows, width, seed):
+    if kind == "inactive":
+        return np.zeros((rows, width), np.uint8)
+    if kind == "active":
+        return np.ones((rows, width), np.uint8)
+    return (np.random.default_rng(seed).random((rows, width)) < 0.4).astype(np.uint8)
+
+
+class TestLazyOutput:
+    """The one-launch lazy output (ops.kernels.lazy_output) through its
+    plain route and through masked_posteriors_from_acts on CPU tensors,
+    against the JAX package's _masked_from_acts_fn (the logits op, then
+    the masked softmax in XLA) on the same int8 activations: within 3e-5."""
+
+    @pytest.mark.parametrize("kind", ["inactive", "active", "40%"])
+    @pytest.mark.parametrize("rows", [1, 2, 4])
+    @pytest.mark.parametrize("semantics", SEMANTICS)
+    def test_matches_jax_masked_from_acts(self, lazy_nets, semantics, rows, kind):
+        j_q, _, prepared = lazy_nets
+        rng = np.random.default_rng(rows)
+        acts = rng.integers(-128, 128, (rows, 256), dtype=np.int8)
+        masks = _lazy_masks(kind, rows, LAZY_OUT, rows + 7)
+        want = np.asarray(fd.Scorer._masked_from_acts_fn(
+            j_q, jnp.asarray(acts), jnp.asarray(masks), backend="xla", interpret=False,
+            semantics=semantics, out_dim=LAZY_OUT))
+        got_acts, got_masks = torch.as_tensor(acts), torch.as_tensor(masks)
+        routed = masked_posteriors_from_acts(prepared, got_acts, got_masks, backend="cuda",
+                                             semantics=semantics, out_dim=LAZY_OUT).numpy()
+        direct = kernels.lazy_output(got_acts, *scorer_mod._output_args(prepared), got_masks,
+                                     out_dim=LAZY_OUT, semantics=semantics).numpy()
+        for got in (routed, direct):
+            assert got.shape == (rows, LAZY_OUT) and got.dtype == np.float32
+            np.testing.assert_allclose(got, want, rtol=0, atol=SOFTMAX_ATOL)
+        if kind == "inactive":
+            expect = 0.0 if semantics == "active_only" else 1.0 / LAZY_OUT
+            np.testing.assert_allclose(routed, expect, rtol=0, atol=1e-9)
+        if semantics == "active_only":
+            assert (routed[masks == 0] == 0).all()
+
+    def test_logits_are_the_masked_logits(self, lazy_nets):
+        prepared = lazy_nets[2]
+        rng = np.random.default_rng(42)
+        acts = torch.as_tensor(rng.integers(-128, 128, (3, 256), dtype=np.int8))
+        masks = torch.as_tensor(_lazy_masks("40%", 3, prepared.weights[-1].shape[0], 42))
+        args = scorer_mod._output_args(prepared)
+        got = kernels.lazy_output(acts, *args, masks, out_dim=LAZY_OUT, logits=True)
+        z = kernels.output_logits(acts, *args)[:, :LAZY_OUT]
+        assert torch.equal(got, torch.where(masks[:, :LAZY_OUT] != 0, z, 0.0))
+
+    @pytest.mark.parametrize("rows", [1, 64])
+    def test_the_cuda_backend_takes_lazy_output(self, lazy_nets, monkeypatch, rows):
+        """On the CUDA backend masked_posteriors_from_acts is one lazy_output
+        call at any row count, K5 never; the plain backend's posteriors
+        within 3e-5."""
+        _, t_q, prepared = lazy_nets
+        rng = np.random.default_rng(43 + rows)
+        acts = torch.as_tensor(rng.integers(-128, 128, (rows, 256), dtype=np.int8))
+        masks = torch.as_tensor(_lazy_masks("40%", rows, LAZY_OUT, 43))
+        calls = []
+        for name in ("lazy_output", "output_logits"):
+            real = getattr(kernels, name)
+            monkeypatch.setattr(kernels, name,
+                                lambda *a, _real=real, _name=name, **kw: calls.append(_name)
+                                or _real(*a, **kw))
+        got = masked_posteriors_from_acts(prepared, acts, masks, backend="cuda",
+                                          semantics="reference", out_dim=LAZY_OUT)
+        assert calls == ["lazy_output"]
+        want = masked_posteriors_from_acts(t_q, acts, masks, backend="torch",
+                                           semantics="reference", out_dim=LAZY_OUT)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=SOFTMAX_ATOL)
 
 
 class TestBlockSparse:
@@ -629,3 +715,71 @@ def test_output_logits_kernel_bitwise_on_card(cuda_device, b):
                                    else a for a in _layer(rng, b, k, n))
         got = kernels.output_logits(x, kernels.kernel_layout(w), colsum, float(inv), bias)
         assert torch.equal(got, tops.output_logits(x, w, colsum, float(inv), bias)), (b, k, n)
+
+
+def _on(device, arrays):
+    return tuple(torch.as_tensor(a).to(device) if isinstance(a, np.ndarray) else a for a in arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4])
+def test_lazy_output_logits_bitwise_k5_on_card(cuda_device, rows):
+    """lazy_output's active logits bitwise K5's (inactive 0): a layer whose
+    K is not a multiple of a lane's 512-byte step, a non-square one, and
+    the flagship's output layer; masks at the padded width."""
+    rng = np.random.default_rng(50 + rows)
+    for k, n, out_dim in ((384, 512, 450), (256, 1024, 1000), (2048, 8064, 8000)):
+        x, w, colsum, inv, bias = _on(cuda_device, _layer(rng, 64, k, n, out_dim))
+        w_t = kernels.kernel_layout(w)
+        masks = torch.as_tensor((rng.random((rows, n)) < 0.4).astype(np.uint8)).to(cuda_device)
+        got = kernels.lazy_output(x[:rows], w_t, colsum, float(inv), bias, masks,
+                                  out_dim=out_dim, logits=True)
+        k5 = kernels.output_logits(x, w_t, colsum, float(inv), bias)[:rows, :out_dim]
+        assert torch.equal(got, torch.where(masks[:, :out_dim] != 0, k5, 0.0)), (k, n, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semantics", SEMANTICS)
+def test_lazy_output_matches_plain_version_on_card(cuda_device, semantics):
+    """lazy_output within 3e-5 of its plain version (the logits, then the
+    masked softmax in torch ops) at out_dim 3000, rows 1, 2 and 4, masks all
+    inactive, all active and 40% active; the same bits twice.  The layer
+    passes check_lazy_output_layer, and a wrong dtype does not."""
+    rng = np.random.default_rng(52)
+    x, w, colsum, inv, bias = _on(cuda_device, _layer(rng, 4, 256, 3072, LAZY_OUT))
+    w_t = kernels.kernel_layout(w)
+    kernels.check_lazy_output_layer(w_t, colsum, bias)
+    with pytest.raises(ValueError, match="lazy_output"):
+        kernels.check_lazy_output_layer(w_t, colsum.float(), bias)
+    for rows in (1, 2, 4):
+        for kind in ("inactive", "active", "40%"):
+            masks = torch.as_tensor(_lazy_masks(kind, rows, LAZY_OUT, rows)).to(cuda_device)
+            got = kernels.lazy_output(x[:rows], w_t, colsum, float(inv), bias, masks,
+                                      out_dim=LAZY_OUT, semantics=semantics)
+            want = tops.masked_softmax(tops.output_logits(x[:rows], w, colsum, float(inv), bias)
+                                       [:, :LAZY_OUT], masks != 0, semantics)
+            assert float((got - want).abs().max()) <= SOFTMAX_ATOL, (rows, kind)
+            assert torch.equal(got, kernels.lazy_output(x[:rows], w_t, colsum, float(inv), bias,
+                                                        masks, out_dim=LAZY_OUT,
+                                                        semantics=semantics))
+
+
+@pytest.mark.cuda
+def test_lazy_context_decode_launches_lazy_output_on_card(cuda_device):
+    """A 60-frame LazyContext decode launches lazy_output once a frame and
+    K5 never, within 3e-5 of the plain route."""
+    t_net, _ = _nets(53, 1000)
+    t_q = fdt.quantize_net(t_net)
+    frames = _frames(53, 60)
+    masks = _masks(53, 60, 1000)
+    rows = []
+    for backend in ("cuda", "torch"):
+        scorer = fdt.Scorer(t_q, fdt.EngineConfig(backend=backend), device=cuda_device)
+        ctx = scorer.new_lazy_context(60)
+        ctx.calculate_until_output(frames)
+        kernels.reset_launch_counts()
+        rows.append(np.stack([ctx.calculate_for_output_nodes(m) for m in masks]))
+        counts = kernels.launch_counts()
+        if backend == "cuda":
+            assert counts["lazy_output"] == 60 and counts["output_logits"] == 0
+    np.testing.assert_allclose(rows[0], rows[1], rtol=0, atol=SOFTMAX_ATOL)

@@ -309,6 +309,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+def test_launch_takes_the_current_stream_on_card(cuda_device):
+    """ops.kernels._launch reads torch's private raw handle of the current
+    stream; it is the public Stream's handle on the default stream and
+    under a side stream, or a torch upgrade has changed the private call."""
+    seen = []
+    for stream in (torch.cuda.current_stream(cuda_device), torch.cuda.Stream(cuda_device)):
+        with torch.cuda.stream(stream):
+            kernels._launch("bias_sigmoid_i8", cuda_device,
+                            lambda index, handle: seen.append(handle) or 0)
+        assert seen[-1] == stream.cuda_stream
+    assert seen[0] != seen[1]
+
+
+@pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card(cuda_device):
     rng = np.random.default_rng(10)
     x, w, colsum, inv, bias = (torch.as_tensor(a).to(cuda_device) if isinstance(a, np.ndarray)

@@ -140,6 +140,9 @@ SYMBOLS = [
      "normalize_stats"),
     ("(anonymous namespace)::input_layer_bf16_kernel(CUtensorMap_st, CUtensorMap_st, float "
      "const*, signed char*, int, int, int, int, int)", "input_layer_bf16"),
+    ("(anonymous namespace)::lazy_output_kernel(signed char const*, signed char const*, int "
+     "const*, float const*, float, unsigned char const*, int, int, float*, int, int)",
+     "lazy_output"),
     ("ampere_sgemm_128x64_nn", None),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
      None),
