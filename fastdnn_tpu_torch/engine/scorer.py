@@ -40,6 +40,7 @@ makes them multiples of every kernel's frame tile.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -63,6 +64,8 @@ SPANS = (
     "fastdnn.lazy.until_output",
     "fastdnn.lazy.frame",
     "fastdnn.masks",  # the caller's masks to the u8 device masks
+    "fastdnn.trunk_layers",  # the trunk one layer kernel at a time (no stack)
+    "fastdnn.output_stats",  # the output layer through the stats: K8 and the normalize
     "fastdnn.output_lazy",  # a frame's output layer: one lazy_output launch
     "fastdnn.finish",  # the gather under a mesh, the wait, the download and numpy
 )
@@ -111,8 +114,10 @@ def hidden_forward(
     per term (3xTF32) in f32 sums; for "default" both round the operands to
     bf16 first (K9's bf16 variant: one bf16 product in f32 sums).
     When `hstack` (see build_hidden_stack) is given and the frame count is
-    within `stack_max_frames`, all hidden layers run as one launch.  A
-    packed int4 trunk (net.packed_int4) runs the packed layer step.
+    within `stack_max_frames`, all hidden layers run as one launch;
+    otherwise one layer step per layer, inside the span
+    `fastdnn.trunk_layers`.  A packed int4 trunk (net.packed_int4) runs the
+    packed layer step.
     """
     if backend == "torch":
         steps = xops
@@ -124,10 +129,11 @@ def hidden_forward(
     if hstack is not None and frames.shape[0] <= stack_max_frames:
         return steps.hidden_stack_step(acts, hstack)
     layer_step = steps.hidden_layer_step_packed if net.packed_int4 else steps.hidden_layer_step
-    for i in range(len(net.weights) - 1):
-        acts = layer_step(
-            acts, net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i]
-        )
+    with span("fastdnn.trunk_layers"):
+        for i in range(len(net.weights) - 1):
+            acts = layer_step(
+                acts, net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i]
+            )
     return acts
 
 
@@ -167,26 +173,29 @@ def _fused_posteriors(net, acts, masks, *, backend, out_dim, semantics, fast, bl
     """Output layer + softmax: K4 (masks optional, bf16 with `fast`), or K6
     for masked block-sparse calls (f32 only), when the output layer fits
     them (uses_resident_output); otherwise one K8 launch (skipping for
-    block-sparse) and one normalize launch.  The plain versions of
+    block-sparse) and one normalize launch, inside the span
+    `fastdnn.output_stats`.  The plain versions of
     the same routes on backend "torch".  Unlike the JAX package, no batch is
     cut into 8192-row chunks: that bounded a VMEM scratch of the TPU kernel,
     and K8 keeps its row stats in registers."""
     args = (acts, *_output_args(net))
     resident = uses_resident_output(net, block_sparse=block_sparse)
     plain = backend == "torch"
-    if block_sparse and masks is not None:
+    with contextlib.nullcontext() if resident else span("fastdnn.output_stats"):
+        if block_sparse and masks is not None:
+            if plain:
+                fn = (xops.output_posteriors_block_sparse if resident
+                      else xops.output_posteriors_block_sparse_stats)
+                return fn(*args, masks, out_dim=out_dim, semantics=semantics)
+            return cuda_backend.output_posteriors_block_sparse(
+                *args, masks, out_dim=out_dim, semantics=semantics, resident=resident
+            )
         if plain:
-            fn = (xops.output_posteriors_block_sparse if resident
-                  else xops.output_posteriors_block_sparse_stats)
-            return fn(*args, masks, out_dim=out_dim, semantics=semantics)
-        return cuda_backend.output_posteriors_block_sparse(
-            *args, masks, out_dim=out_dim, semantics=semantics, resident=resident
-        )
-    if plain:
-        fn = xops.output_posteriors if resident else xops.output_posteriors_stats
-    else:
-        fn = cuda_backend.output_posteriors_resident if resident else cuda_backend.output_posteriors
-    return fn(*args, masks, out_dim=out_dim, semantics=semantics, fast=fast)
+            fn = xops.output_posteriors if resident else xops.output_posteriors_stats
+        else:
+            fn = (cuda_backend.output_posteriors_resident if resident
+                  else cuda_backend.output_posteriors)
+        return fn(*args, masks, out_dim=out_dim, semantics=semantics, fast=fast)
 
 
 def score_fn(

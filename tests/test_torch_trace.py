@@ -5,7 +5,10 @@ thread, with its stages nested inside, read from the profiler's raw events
 as the benchmark's timeline reads them (benchmark/timeline.py); every name
 in engine.scorer.SPANS is recorded by some entry; with no profiler running a span
 constructs nothing; and the posteriors are the same, bit for bit, with
-and without a profiler running.
+and without a profiler running.  Three nets: two narrow ones (dense and
+gathered lazy mode), whose trunk of one hidden-to-hidden layer runs the
+per-layer loop, and one whose output layer is wider than the resident
+softmax takes, so that its dense entries take the stats route.
 """
 
 import numpy as np
@@ -15,30 +18,48 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import fastdnn_tpu_torch as fdt
-from fastdnn_tpu_torch.engine.scorer import SPANS
+from fastdnn_tpu_torch.engine.scorer import SPANS, uses_resident_output
 from fastdnn_tpu_torch.utils import timer
 
 CALLER = "test.call"  # the caller's own span around each call, as the benchmark's
 FRAMES, OUT = 70, 200  # 70 frames: not a multiple of the frame bucket
 LAZY_FRAMES = 3
 
+TRUNK = "fastdnn.trunk_layers"
+STATS = "fastdnn.output_stats"
 #: entry -> (its span, the stage spans nested in it)
 ENTRIES = {
-    "score": ("fastdnn.score", {"fastdnn.finish"}),
-    "score_device": ("fastdnn.score_device", set()),
+    "score": ("fastdnn.score", {TRUNK, "fastdnn.finish"}),
+    "score_device": ("fastdnn.score_device", {TRUNK}),
     "score_masked": ("fastdnn.score_masked",
-                     {"fastdnn.masks", "fastdnn.finish"}),
-    "score_utterances": ("fastdnn.score", {"fastdnn.finish"}),
-    "lazy.until_output": ("fastdnn.lazy.until_output", set()),
+                     {"fastdnn.masks", TRUNK, "fastdnn.finish"}),
+    "score_utterances": ("fastdnn.score", {TRUNK, "fastdnn.finish"}),
+    "lazy.until_output": ("fastdnn.lazy.until_output", {TRUNK}),
     "lazy.frame": ("fastdnn.lazy.frame",
                    {"fastdnn.masks", "fastdnn.output_lazy", "fastdnn.finish"}),
 }
+#: the entries whose output layer runs the dense route, which on a net too
+#: wide for the resident softmax records STATS
+DENSE_OUTPUT = {"score", "score_device", "score_masked", "score_utterances"}
+#: fixture -> (hidden widths, lazy mode): [128, 2176] feeds the output layer
+#: a K past ops.kernels.RESIDENT_SOFTMAX_MAX_K
+NETS = {"dense": ([128, 128], "dense"), "gathered": ([128, 128], "gathered"),
+        "stats": ([128, 2176], "dense")}
 
 
-@pytest.fixture(scope="module", params=["dense", "gathered"])
+@pytest.fixture(scope="module", params=list(NETS))
 def scorer(request):
-    qnet = fdt.quantize_net(fdt.random_net(np.random.default_rng(18), 432, [128, 128], OUT))
-    return fdt.Scorer(qnet, fdt.EngineConfig(lazy_mode=request.param), device="cpu")
+    hidden, lazy_mode = NETS[request.param]
+    qnet = fdt.quantize_net(fdt.random_net(np.random.default_rng(18), 432, hidden, OUT))
+    s = fdt.Scorer(qnet, fdt.EngineConfig(lazy_mode=lazy_mode), device="cpu")
+    assert uses_resident_output(s.net) == (request.param != "stats")
+    return s
+
+
+def _stages(scorer, entry) -> set:
+    """The stage spans `entry` records on this scorer's net."""
+    stats = entry in DENSE_OUTPUT and not uses_resident_output(scorer.net)
+    return ENTRIES[entry][1] | ({STATS} if stats else set())
 
 
 @pytest.fixture(scope="module")
@@ -98,7 +119,7 @@ def test_each_entry_records_its_span_with_its_stages_inside(scorer, inputs, entr
     mine = [e for e in events if e[2].startswith("fastdnn.")]
     assert {e[3] for e in mine} == {caller[3]}  # the calling thread
     assert all(_inside(e, caller) for e in mine)
-    name, stages = ENTRIES[entry]
+    name, stages = ENTRIES[entry][0], _stages(scorer, entry)
     spans = [e for e in mine if e[2] == name]
     assert len(spans) == (LAZY_FRAMES if entry == "lazy.frame" else 1)
     assert {e[2] for e in mine} == {name} | stages
@@ -124,7 +145,10 @@ def test_every_span_is_recorded_by_some_entry(scorer, inputs):
     for entry in ENTRIES:
         _, events = _traced(scorer, entry, *inputs)
         names |= {e[2] for e in events if e[2].startswith("fastdnn.")}
-    assert names == set(SPANS)
+    # the stats net's entries record every span; a narrow net's all but the
+    # stats route's
+    stats_route = not uses_resident_output(scorer.net)
+    assert names == set(SPANS) - (set() if stats_route else {STATS})
 
 
 def test_no_span_is_constructed_without_a_profiler(scorer, inputs, monkeypatch):
