@@ -41,6 +41,7 @@ makes them multiples of every kernel's frame tile.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional
 
 import numpy as np
@@ -643,11 +644,62 @@ class Scorer:
         return LazyContext(self, input_vector_count)
 
 
+class _LazyStaging:
+    """A LazyContext's buffers for one frame's two host copies, reused by
+    every frame of the context: a pinned u8 mask row at the scorer's mask
+    width and its device twin, a pinned f32 posterior row, and the event
+    that the frame's download records."""
+
+    def __init__(self, width: int, out_dim: int, device: torch.device):
+        # from torch's caching host allocator: a dropped context's rows go
+        # back to its cache, so a context per utterance pins nothing new
+        self.mask_host = torch.zeros((1, width), dtype=torch.uint8, pin_memory=True)
+        self.mask_device = torch.empty((1, width), dtype=torch.uint8, device=device)
+        self.posteriors_host = torch.empty((1, out_dim), dtype=torch.float32, pin_memory=True)
+        self.done = torch.cuda.Event()
+        self.mask = self.mask_host.numpy()
+        # the caller's columns, as bool over the same bytes; the padding
+        # columns past them stay 0 from the fill above
+        self.active = self.mask[0, :out_dim].view(np.bool_)
+        self.posteriors = self.posteriors_host.numpy()[0]
+
+
+_staging_lock = threading.Lock()
+_staging_counts = {"staged": 0, "pageable": 0}
+
+
+def lazy_staging_counts() -> dict:
+    """LazyContext frames since the last `reset_lazy_staging_counts`:
+    "staged", whose mask upload and posterior download went through the
+    context's pinned buffers (a CUDA device, no mesh), and "pageable", which
+    took the batch entries' path (`Scorer._masks`, `Scorer._finish`)."""
+    with _staging_lock:
+        return dict(_staging_counts)
+
+
+def reset_lazy_staging_counts() -> None:
+    with _staging_lock:
+        for kind in _staging_counts:
+            _staging_counts[kind] = 0
+
+
 class LazyContext:
     """Frame-by-frame lazy scoring, the reference's LazyContext:
     `calculate_until_output(frames)` runs everything up to the last hidden
     layer once and keeps the activations on the device; each
     `calculate_for_output_nodes(mask)` scores the next frame's senones.
+
+    On a CUDA device without a mesh a frame's two host copies go through
+    pinned buffers that the context makes on its first frame and reuses
+    (`_LazyStaging`): the mask is written into a pinned row and uploaded
+    without blocking, the posteriors are downloaded without blocking into a
+    pinned row, and the frame waits on an event recorded after that
+    download, not on the whole stream, which other threads' contexts
+    share.  The returned row is a copy, the caller's own: no later frame,
+    of this context or another, writes to it.  On the CPU and under a mesh
+    (whose rows pad to the data axis and gather across ranks) a frame takes
+    the batch entries' pageable path.  `lazy_staging_counts` counts frames
+    by path.
 
     For throughput prefer Scorer.score_masked: this pays one launch and one
     host round trip per frame.
@@ -658,6 +710,8 @@ class LazyContext:
         self.input_vector_count = input_vector_count
         self.current_vector_index = 0
         self._acts: Optional[torch.Tensor] = None
+        self._staged = scorer.device.type == "cuda" and scorer.mesh is None
+        self._staging: Optional[_LazyStaging] = None
 
     def calculate_until_output(self, frames) -> None:
         with span("fastdnn.lazy.until_output"):
@@ -679,18 +733,49 @@ class LazyContext:
             i = self.current_vector_index
             if i >= self.input_vector_count:
                 raise IndexError("all frames already consumed")
-            scorer = self._scorer
-            # under a mesh the row is padded to split over the data axis
-            mask_p, mask_d = scorer._masks(np.asarray(mask).reshape(1, -1),
-                                           aligned_size(1, scorer._data_size))
             with torch.inference_mode():
                 acts_i = self._acts[i : i + 1]
-                with span("fastdnn.output_lazy"):
-                    if scorer._use_gathered(mask_p):
-                        idx, _ = _lazy.union_active_indices(mask_p, scorer._gather_capacity)
-                        out = scorer._gathered(acts_i, mask_d, scorer._to_device(idx))
-                    else:
-                        out = scorer._masked_from_acts(acts_i, mask_d)
-                res = scorer._finish(out, 1)[0]
+                if self._staged:
+                    res = self._staged_frame(acts_i, mask)
+                else:
+                    res = self._pageable_frame(acts_i, mask)
+            with _staging_lock:
+                _staging_counts["staged" if self._staged else "pageable"] += 1
             self.current_vector_index += 1
             return res
+
+    def _output(self, acts_i: torch.Tensor, mask_p: np.ndarray, mask_d: torch.Tensor):
+        scorer = self._scorer
+        with span("fastdnn.output_lazy"):
+            if scorer._use_gathered(mask_p):
+                idx, _ = _lazy.union_active_indices(mask_p, scorer._gather_capacity)
+                return scorer._gathered(acts_i, mask_d, scorer._to_device(idx))
+            return scorer._masked_from_acts(acts_i, mask_d)
+
+    def _pageable_frame(self, acts_i: torch.Tensor, mask) -> np.ndarray:
+        scorer = self._scorer
+        # under a mesh the row is padded to split over the data axis
+        mask_p, mask_d = scorer._masks(np.asarray(mask).reshape(1, -1),
+                                       aligned_size(1, scorer._data_size))
+        return scorer._finish(self._output(acts_i, mask_p, mask_d), 1)[0]
+
+    def _staged_frame(self, acts_i: torch.Tensor, mask) -> np.ndarray:
+        st = self._staging
+        if st is None:
+            scorer = self._scorer
+            st = self._staging = _LazyStaging(scorer._mask_width, scorer.output_dim,
+                                              acts_i.device)
+        with span("fastdnn.masks"):
+            # a mask of another size raises here, as _pad_masks's copy does
+            np.not_equal(np.asarray(mask).reshape(-1), 0, out=st.active)
+            st.mask_device.copy_(st.mask_host, non_blocking=True)
+        out = self._output(acts_i, st.mask, st.mask_device)
+        with span("fastdnn.finish"):
+            st.posteriors_host.copy_(out, non_blocking=True)
+            st.done.record(torch.cuda.current_stream(acts_i.device))
+            # The upload, the kernel and the download ran in that order on
+            # this one stream, so once the event has fired this frame's
+            # upload has finished too: the next frame may overwrite both
+            # pinned rows and the device mask.
+            st.done.synchronize()
+            return st.posteriors.copy()

@@ -15,9 +15,11 @@ JAX package's.  Bounds:
     package holds its own bf16 kernel.
 """
 
+import concurrent.futures
 import os
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -783,3 +785,149 @@ def test_lazy_context_decode_launches_lazy_output_on_card(cuda_device):
         if backend == "cuda":
             assert counts["lazy_output"] == 60 and counts["output_logits"] == 0
     np.testing.assert_allclose(rows[0], rows[1], rtol=0, atol=SOFTMAX_ATOL)
+
+
+# -- a LazyContext frame's host copies: pinned staging on the card, the batch
+# entries' pageable path elsewhere (engine.scorer._LazyStaging) --------------
+
+
+def _lazy_scorer(device, out, **config):
+    """A small net (432 -> 2x256 -> out) on `device`, with no JAX."""
+    net = fdt.random_net(np.random.default_rng(out), 432, [256, 256], out)
+    return fdt.Scorer(fdt.quantize_net(net), fdt.EngineConfig(**config), device=device)
+
+
+def _decode(scorer, frames, masks, barrier=None):
+    """One context's posteriors [n, out], frame by frame; with a barrier,
+    in step with the other threads that share it."""
+    ctx = scorer.new_lazy_context(len(frames))
+    ctx.calculate_until_output(frames)
+    rows = []
+    for m in masks:
+        if barrier is not None:
+            barrier.wait(timeout=60)
+        rows.append(ctx.calculate_for_output_nodes(m))
+    return np.stack(rows)
+
+
+def _assert_rows_are_the_callers(scorer):
+    """A frame's row is unchanged by the next two frames of its context and
+    by a frame of a second context, and shares no memory with their rows
+    or with the context's staging buffer."""
+    frames, masks = _frames(60, 4), _masks(60, 4, scorer.output_dim)
+    a, b = scorer.new_lazy_context(4), scorer.new_lazy_context(4)
+    a.calculate_until_output(frames)
+    b.calculate_until_output(frames[::-1].copy())
+    first = a.calculate_for_output_nodes(masks[0])
+    kept = first.copy()
+    later = [a.calculate_for_output_nodes(masks[1]), a.calculate_for_output_nodes(masks[2]),
+             b.calculate_for_output_nodes(masks[1])]
+    np.testing.assert_array_equal(first.view(np.uint32), kept.view(np.uint32))
+    assert not any(np.array_equal(first, row) for row in later)
+    assert not any(np.shares_memory(first, row) for row in later)
+    for ctx in (a, b):
+        if ctx._staging is not None:
+            assert not np.shares_memory(first, ctx._staging.posteriors)
+
+
+def _assert_wrong_mask_length_raises(scorer):
+    """A mask of another length than the senone count raises and leaves
+    the context at its frame."""
+    ctx = scorer.new_lazy_context(2)
+    ctx.calculate_until_output(_frames(61, 2))
+    for width in (scorer.output_dim - 1, scorer.output_dim + 128):
+        with pytest.raises(ValueError):
+            ctx.calculate_for_output_nodes(np.ones(width, np.uint8))
+    assert ctx.current_vector_index == 0
+    assert ctx.calculate_for_output_nodes(np.ones(scorer.output_dim, np.uint8)).shape == (
+        scorer.output_dim,)
+
+
+class TestLazyStaging:
+    def test_cpu_frames_count_as_pageable(self):
+        scorer = _lazy_scorer("cpu", 450)
+        frames, masks = _frames(62, 5), _masks(62, 5, 450)
+        scorer_mod.reset_lazy_staging_counts()
+        ctx = scorer.new_lazy_context(5)
+        ctx.calculate_until_output(frames)
+        for m in masks:
+            ctx.calculate_for_output_nodes(m)
+        assert scorer_mod.lazy_staging_counts() == {"staged": 0, "pageable": 5}
+        assert ctx._staging is None
+        scorer_mod.reset_lazy_staging_counts()
+        assert scorer_mod.lazy_staging_counts() == {"staged": 0, "pageable": 0}
+
+    def test_rows_are_the_callers(self):
+        _assert_rows_are_the_callers(_lazy_scorer("cpu", 450))
+
+    def test_wrong_mask_length_raises(self):
+        _assert_wrong_mask_length_raises(_lazy_scorer("cpu", 450))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [8000, 17552])
+@pytest.mark.parametrize("semantics", SEMANTICS)
+def test_staged_frames_bitwise_the_pageable_path_on_card(cuda_device, semantics, out):
+    """Each staged frame's posteriors bitwise those of the same frame built
+    through the batch entries' pageable stages (Scorer._masks, the output
+    layer, Scorer._finish), a frame with no active senone among them; every
+    frame counted as staged."""
+    scorer = _lazy_scorer(cuda_device, out, lazy_semantics=semantics)
+    n = 6
+    frames, masks = _frames(63, n), _masks(63, n, out)
+    scorer_mod.reset_lazy_staging_counts()
+    ctx = scorer.new_lazy_context(n)
+    ctx.calculate_until_output(frames)
+    for t in range(n):
+        got = ctx.calculate_for_output_nodes(masks[t])
+        _, mask_d = scorer._masks(masks[t].reshape(1, -1), 1)
+        want = scorer._finish(scorer._masked_from_acts(ctx._acts[t:t + 1], mask_d), 1)[0]
+        assert got.shape == (out,) and got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert scorer_mod.lazy_staging_counts() == {"staged": n, "pageable": 0}
+    assert ctx._staging is not None and ctx._staging.mask_host.is_pinned()
+
+
+@pytest.mark.cuda
+def test_staged_rows_are_the_callers_on_card(cuda_device):
+    scorer = _lazy_scorer(cuda_device, 8000)
+    _assert_rows_are_the_callers(scorer)
+    _assert_wrong_mask_length_raises(scorer)
+
+
+@pytest.mark.cuda
+def test_staged_gathered_frames_bitwise_on_card(cuda_device):
+    """lazy_mode="gathered" reads the union from the pinned mask row: each
+    frame bitwise the same frame built through the pageable stages."""
+    scorer = _lazy_scorer(cuda_device, 8000, lazy_mode="gathered", lazy_capacity=1.0)
+    n = 5
+    frames, masks = _frames(64, n), _masks(64, n, 8000)
+    ctx = scorer.new_lazy_context(n)
+    ctx.calculate_until_output(frames)
+    for t in range(n):
+        got = ctx.calculate_for_output_nodes(masks[t])
+        mask_p, mask_d = scorer._masks(masks[t].reshape(1, -1), 1)
+        idx, _ = tlazy.union_active_indices(mask_p, scorer._gather_capacity)
+        out = scorer._gathered(ctx._acts[t:t + 1], mask_d, scorer._to_device(idx))
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      scorer._finish(out, 1)[0].view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_staged_contexts_on_two_threads_on_card(cuda_device):
+    """Two contexts decoding in step on two threads, under fast thread
+    switching, give bitwise the rows each gives alone."""
+    scorer = _lazy_scorer(cuda_device, 17552)
+    inputs = [(_frames(65 + k, 40), _masks(65 + k, 40, 17552)) for k in range(2)]
+    want = [_decode(scorer, *x) for x in inputs]
+    barrier = threading.Barrier(2)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futures = [pool.submit(_decode, scorer, *x, barrier) for x in inputs]
+            got = [f.result(timeout=120) for f in futures]
+    finally:
+        sys.setswitchinterval(old)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
