@@ -605,7 +605,7 @@ def config_grid(torch, dev, smi: str, flagship: dict, frames: np.ndarray) -> Non
     masks_lazy[3] = 0
     bands_lazy = band_masks(grid_rng, GRID_LAZY_B)
     bands_lazy[3] = 0
-    real_hidden = scorer_mod.hidden_forward
+    real_hidden = scorer_mod.Route.hidden
 
     def run_pair(sc, mode, masks, acts=None):
         """(score, score_masked) of `sc` on the mode's frames and masks,
@@ -613,7 +613,7 @@ def config_grid(torch, dev, smi: str, flagship: dict, frames: np.ndarray) -> Non
         last-hidden activations instead (the same int8 input to both
         routes' output stages)."""
         if acts is not None:
-            scorer_mod.hidden_forward = lambda *a, **kw: acts
+            scorer_mod.Route.hidden = lambda *a, **kw: acts
         try:
             if mode == "dense":
                 with torch.inference_mode():
@@ -621,7 +621,7 @@ def config_grid(torch, dev, smi: str, flagship: dict, frames: np.ndarray) -> Non
             return (torch.from_numpy(sc.score(lazy_frames)),
                     torch.from_numpy(sc.score_masked(lazy_frames, masks)))
         finally:
-            scorer_mod.hidden_forward = real_hidden
+            scorer_mod.Route.hidden = real_hidden
 
     def grid_diff(got, want, bf16, atol):
         """max |got - want| and whether it meets the gate: bf16 within rtol
@@ -913,7 +913,6 @@ def main() -> int:
     # counts are the defaults' (phase 26 commits an entry to a registry of its own)
     os.environ["FASTDNN_TUNED"] = "0"
     from fastdnn_tpu_torch.cli.profile import CAMPAIGNS, profile_device
-    from fastdnn_tpu_torch.engine import cuda_backend
     from fastdnn_tpu_torch.ops import _build, kernels
     from fastdnn_tpu_torch.ops import matmul as plain
     from fastdnn_tpu_torch.ops.sigmoid import reference_lut_lookup
@@ -1925,7 +1924,8 @@ def main() -> int:
         "normalize_stats fast": (None, lambda: kernels.normalize_stats(
             *fast8[:3], out_dim=SENONES, tile_max=fast8[3]), lambda: plain.normalize_stats(
             *fast8[:3], out_dim=SENONES, tile_max=fast8[3])),
-        "K8 + normalize": (None, lambda: cuda_backend.output_posteriors(p3, *out, out_dim=SENONES),
+        "K8 + normalize": (None, lambda: kernels.normalize_stats(
+            *kernels.flash_stats(p3, *out, valid_count=SENONES), out_dim=SENONES),
                            lambda: plain.output_posteriors_stats(p3, *plain_out_padded,
                                                                  out_dim=SENONES)),
     }

@@ -171,7 +171,7 @@ def device_masks(scorer: Scorer, active: np.ndarray) -> torch.Tensor:
     """Host masks [B, senones] -> u8 on the scorer's device at the width
     its masked route reads (the padded output), built once, as
     Scorer._pad_masks does, so no timed call pads them."""
-    out = np.zeros((active.shape[0], scorer._padded_output_dim), np.uint8)
+    out = np.zeros((active.shape[0], scorer.net.padded_output_dim), np.uint8)
     out[:, : scorer.output_dim] = active != 0
     return scorer._to_device(out)
 

@@ -50,6 +50,7 @@ does: the code paths run, and the times mean nothing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -61,10 +62,7 @@ import numpy as np
 import torch
 
 from ..config import INPUT_PRECISIONS, EngineConfig
-from ..engine import cuda_backend
-from ..engine import scorer as scoring
 from ..ops import kernels
-from ..ops import matmul as xops
 
 SMOKE = os.environ.get("FASTDNN_PROFILE_SMOKE") == "1"
 #: (input dim, hidden width, hidden layers, senones); the smoke net has one
@@ -326,54 +324,33 @@ def cmd_variants(ctx: Context) -> dict:
     return _emit("variants", {"batch": ctx.batch, **out})
 
 
-def _steps(sc):
-    """The stage functions of a Scorer's backend: the kernel wrappers'
-    routes (cuda_backend) or the plain versions (ops.matmul)."""
-    return cuda_backend if sc.backend == "cuda" else xops
-
-
-def _input(sc, frames, precision: str, operand):
-    """The input layer alone under `precision`; `operand` is the input
-    weight as that precision's kernel reads it (unused on the plain
-    versions)."""
-    net = sc.net
-    if sc.backend == "cuda":
-        return cuda_backend.input_layer_step(frames, net.input_w, net.input_b, operand, precision)
-    return xops.input_layer_step(frames, net.input_w, net.input_b, precision)
-
-
 def _per_layer(sc, acts):
-    net, step = sc.net, _steps(sc).hidden_layer_step
+    net, step = sc.net, sc._route.backend.hidden_layer
     for i in range(len(net.weights) - 1):
         acts = step(acts, net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i])
     return acts
 
 
-def _output(sc, acts, masks=None):
-    return scoring._fused_posteriors(sc.net, acts, masks, backend=sc.backend,
-                                     out_dim=sc.output_dim, semantics="reference", fast=False)
+def _output(sc, acts):
+    return sc._route.backend.posteriors(sc.net, acts, None, out_dim=sc.output_dim)
 
 
 def cmd_stages(ctx: Context) -> dict:
     """Each stage of the pass alone: the input layer under each input
     precision (K9 for "highest" and "high", counted as TF32 operations; its
-    bf16 variant for "default", as bf16 operations), the trunk (K3, and one
-    K2 per layer) and the output layer with its softmax (K4)."""
-    sc = ctx.scorer()
+    bf16 variant for "default", as bf16 operations; each from a Scorer made
+    for that precision), the trunk (K3, and one K2 per layer) and the output
+    layer with its softmax (K4)."""
+    scorers = {p: ctx.scorer(input_precision=p) for p in INPUT_PRECISIONS}
+    sc = scorers["high"]
     frames = ctx.frames(ctx.batch)
     b, (d_in, hidden, layers, out_dim) = ctx.batch, NET_SHAPE
-    # the input weight as each precision's kernel reads it ("highest" and
-    # "high" share K9's operand)
-    operands = {}
-    if sc.backend == "cuda":
-        operands = {"highest": sc.net.input_operand, "high": sc.net.input_operand,
-                    "default": kernels.input_layer_operand(sc.net.input_w, "default")}
-    acts0 = _input(sc, frames, "high", operands.get("high"))
+    acts0 = sc._route.backend.input_layer(sc.net, frames, "high")
     acts = _per_layer(sc, acts0)
     rows = {
-        f"input_{p}": (lambda p=p: _input(sc, frames, p, operands.get(p)), 2 * b * d_in * hidden,
-                       "bf16" if p == "default" else "tf32")
-        for p in INPUT_PRECISIONS
+        f"input_{p}": (lambda s=s, p=p: s._route.backend.input_layer(s.net, frames, p),
+                       2 * b * d_in * hidden, "bf16" if p == "default" else "tf32")
+        for p, s in scorers.items()
     }
     rows |= {
         "trunk_per_layer": (lambda: _per_layer(sc, acts0),
@@ -381,7 +358,7 @@ def cmd_stages(ctx: Context) -> dict:
         "output": (lambda: _output(sc, acts), 2 * b * hidden * out_dim, "int8"),
     }
     if sc._hstack is not None:
-        rows["trunk_stack"] = (lambda: _steps(sc).hidden_stack_step(acts0, sc._hstack),
+        rows["trunk_stack"] = (lambda: sc._route.backend.hidden_stack(acts0, sc._hstack),
                                rows["trunk_per_layer"][1], "int8")
     out = {}
     for name, (fn, ops, kind) in rows.items():
@@ -411,7 +388,7 @@ def cmd_dots(ctx: Context) -> dict:
     rows = {
         "int_mm_hidden": (lambda: torch._int_mm(a, w_h), "hidden", "int8"),
         "bf16_hidden": (lambda: a_bf @ w_h_bf, "hidden", "bf16"),
-        "K2_hidden_layer": (lambda: _steps(sc).hidden_layer_step(a, *layer), "hidden", "int8"),
+        "K2_hidden_layer": (lambda: sc._route.backend.hidden_layer(a, *layer), "hidden", "int8"),
         "int_mm_output": (lambda: torch._int_mm(a, w_o), "output", "int8"),
         "bf16_output": (lambda: a_bf @ w_o_bf, "output", "bf16"),
         "K4_resident_softmax": (lambda: _output(sc, a), "output", "int8"),
@@ -493,8 +470,8 @@ def cmd_blocksparse(ctx: Context) -> dict:
     sc_cl = ctx.scorer(permute_output_layer(qnet, perm))
 
     def block_sparse(s, padded, m):
-        return scoring.score_masked_fn(s.net, padded, m, semantics="reference",
-                                       block_sparse=True, **s._kw)
+        route = dataclasses.replace(s._route, semantics="reference", block_sparse=True)
+        return route.score_masked(s.net, padded, m)
 
     def skip(m):
         pad = -m.shape[1] % kernels.TILE_N
@@ -622,13 +599,13 @@ def cmd_stack(ctx: Context) -> dict:
     if sc._hstack is None:
         raise ValueError("the net's trunk does not fit the stack kernel")
     frames = ctx.frames(max(STACK_LADDER), seed=1)
-    kw = dict(sc._kw, hstack=sc._hstack)
 
     def run(stack: bool):
+        route = dataclasses.replace(sc._route, stack_max_frames=(1 << 30) if stack else 0)
+
         def at(b):
             x = frames[:b]
-            return lambda: scoring.score_fn(sc.net, x, **{**kw, "stack_max_frames":
-                                                         (1 << 30) if stack else 0})
+            return lambda: route.score(sc.net, x)
         return at
 
     rows = stack_rows(ctx, run(True), run(False), STACK_LADDER)

@@ -1,0 +1,250 @@
+"""The two backends of the port behind one seam: the hand-written kernels
+(ops/kernels.py, `KERNELS`) and their plain PyTorch versions (ops/matmul.py,
+`PLAIN`), two instances of one class.
+
+A backend owns three things:
+
+  * the layout and the set-up of a net (`Backend.prepare`): padded to its
+    lanes, int4 packed, sharded over a mesh's model axis, on the device and,
+    for the kernels, transposed into their layout ([N, K], K contiguous:
+    ops.kernels.kernel_layout) with the input kernel's operand;
+  * the steps, under one set of names and signatures: the input layer, a
+    hidden layer (packed or not), the hidden stack, the output logits, the
+    fused posteriors (resident, or the stats and the normalize; masked or
+    not, block-sparse or not), the stats and the normalize a tensor-parallel
+    output combines, and a few rows' masked posteriors from activations;
+  * its name, "cuda" or "torch" (config.EngineConfig.resolve_backend), which
+    only reports read.
+
+The route (engine.scorer.Route) and the mesh programs (parallel.sharded)
+hold a backend and call its steps; none of them asks which one it is.  The
+kernel wrappers take CPU tensors too, through their plain versions, so the
+kernels' backend runs its layout and its routes on the CPU as well.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..ops import kernels
+from ..ops import matmul as xops
+from ..quant.quantize import QuantizedNet, pack_int4_trunk, pad_qnet
+from ..utils.timer import span
+
+
+def output_layer(net: QuantizedNet) -> tuple:
+    """(weight, colsum128, inv_scale, bias) of the output layer, as every
+    output step takes them after the activations."""
+    return (net.weights[-1], net.colsum128[-1], net.inv_scales[-1], net.biases[-1])
+
+
+def uses_resident_output(net: QuantizedNet, *, block_sparse: bool = False) -> bool:
+    """True when the fused output layer runs the resident softmax kernel
+    (K4; K6 with block_sparse), False when it falls back to the stats kernel
+    (K8) and a normalize pass, as the JAX package's gate of that name does.
+
+    The JAX gate sizes the whole [K, N] weight and two working sets against
+    the TPU's VMEM (48 MB, and a 100 MB clamp).  Those numbers are the
+    TPU's: K4 never holds the weight, it keeps a 64-frame block of
+    activations (64 K bytes) in shared memory beside its weight ring, so N
+    does not enter and the limit is K <= ops.kernels.RESIDENT_SOFTMAX_MAX_K
+    (K read from the previous layer's bias, the same in either layout).
+    K6 is the same kernel with a list of its active tiles beside the ring,
+    which fits at that K too, so `block_sparse` does not change the
+    answer."""
+    k = (net.biases[-2] if len(net.biases) > 1 else net.input_b).shape[0]
+    return k <= kernels.RESIDENT_SOFTMAX_MAX_K
+
+
+@dataclasses.dataclass(eq=False)
+class Backend:
+    """One way of running the route's steps.  The fields past the layout
+    facts are the steps; each output step takes the activations, then the
+    output layer (`output_layer`), and the kernels' steps read the weights
+    in the kernels' layout, which `prepare` makes.  Not frozen, so that a
+    test can substitute a step."""
+
+    name: str
+    #: node widths are padded to a multiple of this (pad_qnet's lanes)
+    lanes: int
+    #: the frames of the kernels' tile: a few rows are padded to it
+    frame_tile: int
+    #: its steps launch the hand-written kernels: block-sparse tile skipping
+    #: and the launch-knob registry (tuning.py) exist only for them
+    hand_written: bool
+    #: (net on its device, input precision) -> the net its steps read
+    lay_out: Callable
+    #: (output weight, senone ids [C]) -> those senones' weight [K, C]
+    senone_weights: Callable
+    #: (net, frames f32 [B, in], input precision) -> shifted s8 [B, H]
+    input_layer: Callable
+    #: (acts, weight, colsum128, inv_scale, bias) -> acts
+    hidden_layer: Callable
+    hidden_layer_packed: Callable
+    #: (acts, engine.scorer.build_hidden_stack's stack) -> acts
+    hidden_stack: Callable
+    #: (acts, *output layer) -> f32 logits [B, N]
+    output_logits: Callable
+    #: (acts, *output layer, masks, *, out_dim, semantics, fast) -> [B, out_dim]
+    resident_softmax: Callable
+    #: (acts, *output layer, masks, *, out_dim, semantics) -> f32 [B, out_dim]
+    resident_softmax_block_sparse: Callable
+    #: (acts, *output layer, masks, *, valid_count, semantics, fast) -> (z, m, s[, tile_max])
+    flash_stats: Callable
+    #: (acts, *output layer, masks, *, valid_count, semantics, capped_fill) -> (z, m, s)
+    flash_stats_block_sparse: Callable
+    #: (z, m, s, *, out_dim, tile_max) -> [B, out_dim]
+    normalize_stats: Callable
+    #: (acts, *output layer, masks, *, out_dim, semantics) -> f32 [rows, out_dim]
+    lazy_output: Callable
+
+    def prepare(self, net: QuantizedNet, device, *, mesh=None, int4_packed: bool = False,
+                input_precision: str = "high") -> QuantizedNet:
+        """`net` as this backend's steps read it on `device`: every node
+        width padded to the backend's lanes and the output's to 128 columns
+        a model rank when a mesh splits it over more than one, the int4
+        trunk packed (after the padding, so the halves split at the padded
+        K) with `int4_packed`, this rank's output columns under `mesh`
+        (parallel.mesh.shard_qnet), then laid out (`lay_out`).  The plain
+        versions cut every output at the true senone count, so the plain
+        backend pads nothing on one model rank.  The per-layer scales stay
+        host scalars: the kernels take them by value."""
+        model = 1
+        if mesh is not None:
+            from ..parallel.mesh import mesh_shape
+
+            model = mesh_shape(mesh)[1]
+        out_lanes = kernels.TILE_N * model if model > 1 else self.lanes
+        net = pad_qnet(net, lanes=self.lanes, out_lanes=out_lanes)
+        if int4_packed:
+            net = pack_int4_trunk(net)
+        if mesh is not None:
+            from ..parallel.mesh import shard_qnet
+
+            net = shard_qnet(net, mesh)
+        return self.lay_out(net.to(device), input_precision)
+
+    def posteriors(self, net: QuantizedNet, acts: torch.Tensor, masks, *, out_dim: int,
+                   semantics: str = "reference", fast: bool = False,
+                   block_sparse: bool = False) -> torch.Tensor:
+        """Output layer + softmax -> [B, out_dim]: K4 (masks optional, bf16
+        with `fast`), or K6 for masked block-sparse calls (f32 only), when
+        the output layer fits them (uses_resident_output); otherwise one K8
+        launch (skipping for block-sparse) and one normalize launch, inside
+        the span `fastdnn.output_stats`.  Unlike the JAX package, no batch
+        is cut into 8192-row chunks: that bounded a VMEM scratch of the TPU
+        kernel, and K8 keeps its row stats in registers."""
+        args = (acts, *output_layer(net))
+        if not uses_resident_output(net):
+            with span("fastdnn.output_stats"):
+                return self.stats_posteriors(*args, masks, out_dim=out_dim, semantics=semantics,
+                                             fast=fast, block_sparse=block_sparse)
+        if block_sparse and masks is not None:
+            return self.resident_softmax_block_sparse(*args, masks, out_dim=out_dim,
+                                                      semantics=semantics)
+        return self.resident_softmax(*args, masks, out_dim=out_dim, semantics=semantics,
+                                     fast=fast)
+
+    def stats_posteriors(self, acts, w, colsum, inv_scale, bias, masks=None, *, out_dim: int,
+                         semantics: str = "reference", fast: bool = False,
+                         block_sparse: bool = False) -> torch.Tensor:
+        """The stats route of `posteriors` at any K: one K8 launch, skipping
+        all-inactive tiles for masked block-sparse calls (f32 only), then
+        one normalize launch, exp(z - m) / s -> [B, out_dim]."""
+        args = (acts, w, colsum, inv_scale, bias, masks)
+        if block_sparse and masks is not None:
+            z, m, s = self.flash_stats_block_sparse(*args, valid_count=out_dim,
+                                                    semantics=semantics)
+            return self.normalize_stats(z, m, s, out_dim=out_dim)
+        stats = self.flash_stats(*args, valid_count=out_dim, semantics=semantics, fast=fast)
+        return self.normalize_stats(*stats[:3], out_dim=out_dim,
+                                    tile_max=stats[3] if fast else None)
+
+
+def _kernel_layout(net: QuantizedNet, input_precision: str) -> QuantizedNet:
+    """The net with its int8 weights in the kernels' layout (a packed int4
+    layer [K/2, N] becomes [N, K/2]) and its input weight also as the input
+    kernel's operand for `input_precision` (input_w stays as it is).  The
+    output layer is checked here for lazy_output, which takes it once a
+    frame (ops.kernels.check_lazy_output_layer)."""
+    net = dataclasses.replace(
+        net,
+        weights=tuple(kernels.kernel_layout(w) for w in net.weights),
+        input_operand=kernels.input_layer_operand(net.input_w, input_precision),
+    )
+    kernels.check_lazy_output_layer(net.weights[-1], net.colsum128[-1], net.biases[-1])
+    return net
+
+
+def _kernels_input_layer(net: QuantizedNet, frames: torch.Tensor, precision: str):
+    """K9 for "high" and "highest", its bf16 variant for "default"; the net
+    carries the operand made for the same precision."""
+    xops.check_input_precision(precision)
+    layer = kernels.input_layer_bf16 if precision == "default" else kernels.input_layer
+    return layer(frames, net.input_w, net.input_operand, net.input_b)
+
+
+def _plain_lazy_output(acts, w, colsum, inv_scale, bias, masks, *, out_dim: int,
+                       semantics: str = "reference"):
+    """The logits, then the masked softmax of `semantics` in tensor ops."""
+    logits = xops.output_logits(acts, w, colsum, inv_scale, bias)[:, :out_dim]
+    return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
+
+
+KERNELS = Backend(
+    name="cuda",
+    lanes=kernels.TILE_N,
+    frame_tile=max(kernels.HIDDEN_LAYER_FRAMES, kernels.HIDDEN_STACK_FRAMES,
+                   kernels.RESIDENT_SOFTMAX_FRAMES, kernels.OUTPUT_LOGITS_FRAMES,
+                   kernels.FLASH_STATS_FRAMES),
+    hand_written=True,
+    lay_out=_kernel_layout,
+    # [N, K]: a senone is a row
+    senone_weights=lambda w, idx: w.index_select(0, idx).t(),
+    input_layer=_kernels_input_layer,
+    hidden_layer=kernels.hidden_layer,
+    hidden_layer_packed=kernels.hidden_layer_packed,
+    hidden_stack=lambda acts, hstack: kernels.hidden_stack(acts, *hstack),
+    output_logits=kernels.output_logits,
+    resident_softmax=kernels.resident_softmax,
+    resident_softmax_block_sparse=kernels.resident_softmax_block_sparse,
+    flash_stats=kernels.flash_stats,
+    flash_stats_block_sparse=kernels.flash_stats_block_sparse,
+    normalize_stats=kernels.normalize_stats,
+    lazy_output=kernels.lazy_output,
+)
+
+PLAIN = Backend(
+    name="torch",
+    lanes=1,
+    frame_tile=1,
+    hand_written=False,
+    lay_out=lambda net, input_precision: net,
+    # [K, N]: a senone is a column
+    senone_weights=lambda w, idx: w.index_select(1, idx),
+    input_layer=lambda net, frames, precision: xops.input_layer_step(
+        frames, net.input_w, net.input_b, precision),
+    hidden_layer=xops.hidden_layer_step,
+    hidden_layer_packed=xops.hidden_layer_step_packed,
+    hidden_stack=xops.hidden_stack_step,
+    output_logits=xops.output_logits,
+    resident_softmax=xops.output_posteriors,
+    resident_softmax_block_sparse=xops.output_posteriors_block_sparse,
+    flash_stats=xops.flash_stats,
+    flash_stats_block_sparse=xops.block_sparse_stats,
+    normalize_stats=xops.normalize_stats,
+    lazy_output=_plain_lazy_output,
+)
+
+BACKENDS = {b.name: b for b in (KERNELS, PLAIN)}
+
+
+def get(name: str) -> Backend:
+    """The backend of a name that config.EngineConfig.resolve_backend gives."""
+    try:
+        return BACKENDS[name]
+    except KeyError:
+        raise ValueError(f"unknown backend {name!r}: choose one of {', '.join(BACKENDS)}") from None

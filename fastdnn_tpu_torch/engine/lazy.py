@@ -21,6 +21,7 @@ import torch
 
 from ..ops import matmul as xops
 from ..quant.quantize import QuantizedNet
+from .backend import PLAIN, Backend
 
 
 def union_active_indices(masks: np.ndarray, capacity: int) -> Tuple[np.ndarray, int]:
@@ -44,26 +45,20 @@ def gathered_output_posteriors(
     *,
     out_dim: int,
     semantics: str = "reference",
-    kernel_layout: bool = False,
+    backend: Backend = PLAIN,
 ) -> torch.Tensor:
     """Gathered output scoring -> f32 [B, out_dim].
 
     acts_i8:    [B, K] last-hidden activations (shifted int8)
     masks:      [B, out_dim] nonzero = active
     active_idx: [C] int union of active senone ids (capacity C)
-    kernel_layout: the output weight is in the CUDA kernels' layout [N, K]
-        (a Scorer on the cuda backend); otherwise the JAX layout [K, N].
+    backend:    the backend the net was prepared for, which gathers the
+        senones' weight from its layout (engine.backend.Backend.senone_weights)
     """
     idx = active_idx.long()
-    w = net.weights[-1]
-    if kernel_layout:
-        # [N, K]: a senone is a row, so gathering senones selects rows
-        w_g = w.index_select(0, idx).t()
-    else:
-        # [K, N]: a senone is a column
-        w_g = w.index_select(1, idx)
     logits_c = xops.output_logits(
-        acts_i8, w_g, net.colsum128[-1].index_select(0, idx), net.inv_scales[-1],
+        acts_i8, backend.senone_weights(net.weights[-1], idx),
+        net.colsum128[-1].index_select(0, idx), net.inv_scales[-1],
         net.biases[-1].index_select(0, idx),
     )  # [B, C]
     # scatter back into zero logits (the padded index 0 entries write the

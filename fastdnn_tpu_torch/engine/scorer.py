@@ -25,7 +25,8 @@ frame with one lazy_output launch (the active senones' logits and the
 masked softmax, which the JAX package ran as the logits op and XLA), and
 lazy_mode="gathered" runs engine.lazy's library product.  With backend
 "torch" every kernel's plain PyTorch version (ops/matmul.py) runs instead,
-through the same routes.
+through the same routes: a `Route` holds the backend (engine.backend) and
+calls its steps.
 
 Each public entry, and the host stages inside them, record a span while a
 torch.profiler runs (utils.timer.span; SPANS below lists the names).
@@ -40,8 +41,7 @@ makes them multiples of every kernel's frame tile.
 
 from __future__ import annotations
 
-import contextlib
-import threading
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -50,11 +50,13 @@ import torch
 from ..config import EngineConfig
 from ..ops import kernels
 from ..ops import matmul as xops
-from ..quant.quantize import QuantizedNet, pack_int4_trunk, pad_qnet
+from ..quant.quantize import QuantizedNet
 from ..utils.align import aligned_size
 from ..utils.timer import span
-from . import cuda_backend
 from . import lazy as _lazy
+# uses_resident_output: the gate keeps the JAX package's module and name
+from .backend import Backend, output_layer, uses_resident_output  # noqa: F401
+from .backend import get as get_backend
 
 #: every span this module records: the public entries, then the stages
 #: inside them
@@ -97,6 +99,102 @@ def build_hidden_stack(net: QuantizedNet):
     )
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Route:
+    """The settings of the forward pass, bound once: the backend that runs
+    its steps and the knobs that pick them (config.EngineConfig; a Scorer
+    builds its route from its config).  `out_dim` is the true senone
+    count: padding columns never join the softmax."""
+
+    backend: Backend
+    out_dim: int
+    fused_softmax: bool = False
+    fast_posteriors: bool = False
+    hstack: Optional[tuple] = None
+    stack_max_frames: int = 0
+    input_precision: str = "high"
+    semantics: str = "reference"
+    block_sparse: bool = False
+
+    def hidden(self, net: QuantizedNet, frames: torch.Tensor) -> torch.Tensor:
+        """Input layer + all hidden layers -> shifted-int8 activations [B, H].
+
+        The input layer's product follows `input_precision`
+        (config.EngineConfig.input_precision).  No process-wide TF32 switch
+        reaches it: for "high" and "highest" its plain version takes the
+        product in float64 (`ops.matmul.matmul_f32`), its kernel (K9, on a
+        net the backend prepared for that precision) as three TF32 products
+        per term (3xTF32) in f32 sums; for "default" both round the
+        operands to bf16 first (K9's bf16 variant: one bf16 product in f32
+        sums).  When `hstack` (see build_hidden_stack) is given and the
+        frame count is within `stack_max_frames`, all hidden layers run as
+        one launch; otherwise one layer step per layer, inside the span
+        `fastdnn.trunk_layers`.  A packed int4 trunk (net.packed_int4) runs
+        the packed layer step.
+        """
+        be = self.backend
+        acts = be.input_layer(net, frames, self.input_precision)
+        if self.hstack is not None and frames.shape[0] <= self.stack_max_frames:
+            return be.hidden_stack(acts, self.hstack)
+        layer_step = be.hidden_layer_packed if net.packed_int4 else be.hidden_layer
+        with span("fastdnn.trunk_layers"):
+            for i in range(len(net.weights) - 1):
+                acts = layer_step(
+                    acts, net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i]
+                )
+        return acts
+
+    def score(self, net: QuantizedNet, frames: torch.Tensor) -> torch.Tensor:
+        """Full forward pass -> posteriors [B, out_dim] (bf16 only with
+        fused_softmax and fast_posteriors)."""
+        acts = self.hidden(net, frames)
+        if self.fused_softmax:
+            return self.backend.posteriors(net, acts, None, out_dim=self.out_dim,
+                                           fast=self.fast_posteriors)
+        logits = self.backend.output_logits(acts, *output_layer(net))
+        return torch.softmax(logits[:, : self.out_dim], dim=-1)
+
+    def score_masked(self, net: QuantizedNet, frames: torch.Tensor,
+                     masks: torch.Tensor) -> torch.Tensor:
+        """Lazy/masked forward pass -> posteriors [B, out_dim] under
+        `semantics`.  masks: u8 [B, out_dim] (or the padded width) on the
+        frames' device, nonzero = senone active for that frame.
+        block_sparse selects the tile-skipping kernel (fused_softmax only;
+        see config.lazy_mode="block_sparse")."""
+        acts = self.hidden(net, frames)
+        if self.fused_softmax:
+            # the kernels read masks at the tile-padded width (padding
+            # columns are excluded by the out_dim cutoff anyway)
+            n_pad = net.padded_output_dim
+            if masks.shape[-1] != n_pad:
+                masks = torch.nn.functional.pad(masks, (0, n_pad - masks.shape[-1]))
+            return self.backend.posteriors(
+                net, acts, masks, out_dim=self.out_dim, semantics=self.semantics,
+                fast=self.fast_posteriors, block_sparse=self.block_sparse,
+            )
+        logits = self.backend.output_logits(acts, *output_layer(net))[:, : self.out_dim]
+        return xops.masked_softmax(logits, masks[:, : self.out_dim] != 0, self.semantics)
+
+    def masked_from_acts(self, net: QuantizedNet, acts: torch.Tensor,
+                         masks: torch.Tensor) -> torch.Tensor:
+        """Masked posteriors for a few rows of last-hidden activations: on
+        the kernels one lazy_output launch, which computes the active
+        senones' logits only; on the plain versions the logits and the
+        masked softmax in tensor ops."""
+        return self.backend.lazy_output(acts, *output_layer(net), masks, out_dim=self.out_dim,
+                                        semantics=self.semantics)
+
+
+def check_block_sparse(backend: Backend, fused_softmax: bool) -> None:
+    """lazy_mode="block_sparse" needs the kernels' fused softmax: the tile
+    skipping lives inside them."""
+    if not (backend.hand_written and fused_softmax):
+        raise ValueError(
+            "lazy_mode='block_sparse' needs backend='cuda' (or 'auto' on a CUDA device) with "
+            "fused_softmax=True: the tile skipping lives inside the masked kernels"
+        )
+
+
 def hidden_forward(
     net: QuantizedNet,
     frames: torch.Tensor,
@@ -105,98 +203,11 @@ def hidden_forward(
     stack_max_frames: int = 0,
     input_precision: str = "high",
 ) -> torch.Tensor:
-    """Input layer + all hidden layers -> shifted-int8 activations [B, H].
-
-    The input layer's product follows `input_precision`
-    (config.EngineConfig.input_precision).  No process-wide TF32 switch
-    reaches it: for "high" and "highest" its plain version takes the
-    product in float64 (`ops.matmul.matmul_f32`), its kernel (K9, on a net
-    made by cuda_backend.prepare for that precision) as three TF32 products
-    per term (3xTF32) in f32 sums; for "default" both round the operands to
-    bf16 first (K9's bf16 variant: one bf16 product in f32 sums).
-    When `hstack` (see build_hidden_stack) is given and the frame count is
-    within `stack_max_frames`, all hidden layers run as one launch;
-    otherwise one layer step per layer, inside the span
-    `fastdnn.trunk_layers`.  A packed int4 trunk (net.packed_int4) runs the
-    packed layer step.
-    """
-    if backend == "torch":
-        steps = xops
-        acts = xops.input_layer_step(frames, net.input_w, net.input_b, input_precision)
-    else:
-        steps = cuda_backend
-        acts = cuda_backend.input_layer_step(frames, net.input_w, net.input_b,
-                                             net.input_operand, input_precision)
-    if hstack is not None and frames.shape[0] <= stack_max_frames:
-        return steps.hidden_stack_step(acts, hstack)
-    layer_step = steps.hidden_layer_step_packed if net.packed_int4 else steps.hidden_layer_step
-    with span("fastdnn.trunk_layers"):
-        for i in range(len(net.weights) - 1):
-            acts = layer_step(
-                acts, net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i]
-            )
-    return acts
-
-
-def _output_args(net: QuantizedNet):
-    return (net.weights[-1], net.colsum128[-1], net.inv_scales[-1], net.biases[-1])
-
-
-def output_logits(net: QuantizedNet, acts: torch.Tensor, backend: str) -> torch.Tensor:
-    """Output-layer logits f32 [B, N] (K5, or its plain version)."""
-    steps = xops if backend == "torch" else cuda_backend
-    return steps.output_logits(acts, *_output_args(net))
-
-
-def _output_input_width(net: QuantizedNet) -> int:
-    """K of the output layer, read from the previous layer's bias (the
-    same in either weight layout, packed or not)."""
-    return (net.biases[-2] if len(net.biases) > 1 else net.input_b).shape[0]
-
-
-def uses_resident_output(net: QuantizedNet, *, block_sparse: bool = False) -> bool:
-    """True when the fused output layer runs the resident softmax kernel
-    (K4; K6 with block_sparse), False when it falls back to the stats kernel
-    (K8) and a normalize pass, as the JAX package's gate of that name does.
-
-    The JAX gate sizes the whole [K, N] weight and two working sets against
-    the TPU's VMEM (48 MB, and a 100 MB clamp).  Those numbers are the
-    TPU's: K4 never holds the weight, it keeps a 64-frame block of
-    activations (64 K bytes) in shared memory beside its weight ring, so N
-    does not enter and the limit is K <= ops.kernels.RESIDENT_SOFTMAX_MAX_K.
-    K6 is the same kernel with a list of its active tiles beside the ring,
-    which fits at that K too, so `block_sparse` does not change the
-    answer."""
-    return _output_input_width(net) <= kernels.RESIDENT_SOFTMAX_MAX_K
-
-
-def _fused_posteriors(net, acts, masks, *, backend, out_dim, semantics, fast, block_sparse=False):
-    """Output layer + softmax: K4 (masks optional, bf16 with `fast`), or K6
-    for masked block-sparse calls (f32 only), when the output layer fits
-    them (uses_resident_output); otherwise one K8 launch (skipping for
-    block-sparse) and one normalize launch, inside the span
-    `fastdnn.output_stats`.  The plain versions of
-    the same routes on backend "torch".  Unlike the JAX package, no batch is
-    cut into 8192-row chunks: that bounded a VMEM scratch of the TPU kernel,
-    and K8 keeps its row stats in registers."""
-    args = (acts, *_output_args(net))
-    resident = uses_resident_output(net, block_sparse=block_sparse)
-    plain = backend == "torch"
-    with contextlib.nullcontext() if resident else span("fastdnn.output_stats"):
-        if block_sparse and masks is not None:
-            if plain:
-                fn = (xops.output_posteriors_block_sparse if resident
-                      else xops.output_posteriors_block_sparse_stats)
-                return fn(*args, masks, out_dim=out_dim, semantics=semantics)
-            return cuda_backend.output_posteriors_block_sparse(
-                *args, masks, out_dim=out_dim, semantics=semantics, resident=resident
-            )
-        if plain:
-            fn = xops.output_posteriors if resident else xops.output_posteriors_stats
-        else:
-            fn = (cuda_backend.output_posteriors_resident if resident
-                  else cuda_backend.output_posteriors)
-        return fn(*args, masks, out_dim=out_dim, semantics=semantics, fast=fast)
+    """Input layer + all hidden layers -> shifted-int8 activations [B, H]
+    on the backend of that name (Route.hidden)."""
+    return Route(get_backend(backend), net.output_dim, hstack=hstack,
+                 stack_max_frames=stack_max_frames,
+                 input_precision=input_precision).hidden(net, frames)
 
 
 def score_fn(
@@ -211,18 +222,13 @@ def score_fn(
     stack_max_frames: int = 0,
     input_precision: str = "high",
 ) -> torch.Tensor:
-    """Full forward pass -> posteriors [B, out_dim] (bf16 only with
-    fused_softmax and fast_posteriors).  `out_dim` defaults to the net's
-    true senone count; padding columns never join the softmax."""
-    if out_dim is None:
-        out_dim = net.output_dim
-    acts = hidden_forward(net, frames, backend, hstack, stack_max_frames, input_precision)
-    if fused_softmax:
-        return _fused_posteriors(
-            net, acts, None, backend=backend, out_dim=out_dim, semantics="reference",
-            fast=fast_posteriors,
-        )
-    return torch.softmax(output_logits(net, acts, backend)[:, :out_dim], dim=-1)
+    """Full forward pass -> posteriors [B, out_dim] (Route.score).
+    `out_dim` defaults to the net's true senone count."""
+    return Route(
+        get_backend(backend), net.output_dim if out_dim is None else out_dim,
+        fused_softmax=fused_softmax, fast_posteriors=fast_posteriors, hstack=hstack,
+        stack_max_frames=stack_max_frames, input_precision=input_precision,
+    ).score(net, frames)
 
 
 def score_masked_fn(
@@ -240,50 +246,25 @@ def score_masked_fn(
     block_sparse: bool = False,
     input_precision: str = "high",
 ) -> torch.Tensor:
-    """Lazy/masked forward pass -> posteriors [B, out_dim].
-
-    masks: u8 [B, out_dim] (or the padded width) on the frames' device,
-    nonzero = senone active for that frame.  block_sparse selects the
-    tile-skipping kernel (fused_softmax only; see
-    config.lazy_mode="block_sparse").
-    """
-    if out_dim is None:
-        out_dim = net.output_dim
-    acts = hidden_forward(net, frames, backend, hstack, stack_max_frames, input_precision)
-    if fused_softmax:
-        # the kernels read masks at the tile-padded width (padding columns
-        # are excluded by the out_dim cutoff anyway); the CUDA backend keeps
-        # the weight in the kernels' layout [N, K] (cuda_backend.prepare)
-        n_pad = net.weights[-1].shape[0 if backend == "cuda" else 1]
-        if masks.shape[-1] != n_pad:
-            masks = torch.nn.functional.pad(masks, (0, n_pad - masks.shape[-1]))
-        return _fused_posteriors(
-            net, acts, masks, backend=backend, out_dim=out_dim, semantics=semantics,
-            fast=fast_posteriors, block_sparse=block_sparse,
-        )
-    logits = output_logits(net, acts, backend)[:, :out_dim]
-    return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
+    """Lazy/masked forward pass -> posteriors [B, out_dim]
+    (Route.score_masked).  `out_dim` defaults to the net's true senone
+    count."""
+    return Route(
+        get_backend(backend), net.output_dim if out_dim is None else out_dim,
+        fused_softmax=fused_softmax, fast_posteriors=fast_posteriors, hstack=hstack,
+        stack_max_frames=stack_max_frames, input_precision=input_precision,
+        semantics=semantics, block_sparse=block_sparse,
+    ).score_masked(net, frames, masks)
 
 
-def masked_posteriors_from_acts(net, acts, masks, *, backend, semantics, out_dim):
-    """Masked posteriors for a few rows of last-hidden activations: on the
-    CUDA backend one lazy_output launch, which computes the active
-    senones' logits only; on the plain backend the logits and the masked
-    softmax in tensor ops."""
-    if backend == "cuda":
-        return kernels.lazy_output(acts, *_output_args(net), masks, out_dim=out_dim,
-                                   semantics=semantics)
-    logits = output_logits(net, acts, backend)[:, :out_dim]
-    return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
-
-
-def tuned_config(config: EngineConfig, net: QuantizedNet, backend: str, device) -> EngineConfig:
+def tuned_config(config: EngineConfig, net: QuantizedNet, backend: Backend,
+                 device) -> EngineConfig:
     """`config` with the registry's knobs for this net and card filled in
-    (tuning.apply_tuned) on the CUDA backend in a process that is not one
-    of several ranks; unchanged otherwise.  Ranks skip the registry, as the
+    (tuning.apply_tuned) on the kernels' backend in a process that is not
+    one of several ranks; unchanged otherwise.  Ranks skip the registry, as the
     JAX package's multi-process pods do: the file is per-host state, and
     ranks resolving different knobs would run different schedules."""
-    if backend != "cuda" or not config.autotuned:
+    if not (backend.hand_written and config.autotuned):
         return config
     import torch.distributed as dist
 
@@ -298,18 +279,14 @@ class Scorer:
     """User-facing engine around one QuantizedNet on one device.
 
     `device="cuda"` (the default) runs the hand-written kernels and raises
-    when CUDA is absent; `device="cpu"` runs the plain versions.  The
-    weights are moved to the device once, here; for the CUDA backend they
-    are also padded to the kernels' tiles and transposed into the kernels'
-    layout, the input weight also as the operand of the input kernel that
-    `config.input_precision` picks (cuda_backend.prepare).  The per-layer
-    scales stay host scalars: the kernels take them by value, so scoring
-    never waits on the device to read one.  With `config.int4_packed` an int4 trunk is packed after the
-    padding and before the layout change.  The gathered lazy path reads the
-    mask union on the host, as the JAX package does.  On the CUDA backend,
-    in a process that is not one of several ranks, the measured launch-knob
-    registry (tuning.py) fills in knobs left at their defaults
-    (`tuned_config`).
+    when CUDA is absent; `device="cpu"` runs the plain versions.  The net is
+    prepared for the backend once, here (engine.backend.Backend.prepare:
+    padded, packed with `config.int4_packed`, sharded, on the device and in
+    the backend's layout), and the knobs are bound once into a `Route`.
+    The gathered lazy path reads the mask union on the host, as the JAX
+    package does.  On the kernels' backend, in a process that is not one of
+    several ranks, the measured launch-knob registry (tuning.py) fills in
+    knobs left at their defaults (`tuned_config`).
 
     `mesh` (a ("data", "model") DeviceMesh, parallel.mesh.make_mesh) makes
     the same API tensor-parallel across the ranks of a process group: every
@@ -338,18 +315,12 @@ class Scorer:
                 "Scorer(device='cuda'): CUDA is not available; pass device='cpu' "
                 "to score with the plain PyTorch versions"
             )
-        self._backend = self.config.resolve_backend(self.device)
+        self._backend = get_backend(self.config.resolve_backend(self.device))
         # measured launch knobs for this (net topology, card) replace those
         # left at their defaults; explicit knobs win (tuning.py)
         self.config = tuned_config(self.config, net, self._backend, self.device)
-        if self.config.lazy_mode == "block_sparse" and not (
-            self._backend == "cuda" and self.config.fused_softmax
-        ):
-            raise ValueError(
-                "lazy_mode='block_sparse' needs backend='cuda' (or 'auto' on a CUDA "
-                "device) with fused_softmax=True: the tile skipping lives inside the "
-                "masked kernel"
-            )
+        if self.config.lazy_mode == "block_sparse":
+            check_block_sparse(self._backend, self.config.fused_softmax)
         self._data_size, model_size = 1, 1
         if mesh is not None:
             from ..parallel.mesh import mesh_shape
@@ -360,55 +331,40 @@ class Scorer:
                     "'block_sparse' or 'auto' with a mesh"
                 )
             self._data_size, model_size = mesh_shape(mesh)
-        if self._backend == "cuda":
-            tile = max(kernels.HIDDEN_LAYER_FRAMES, kernels.HIDDEN_STACK_FRAMES,
-                       kernels.RESIDENT_SOFTMAX_FRAMES, kernels.OUTPUT_LOGITS_FRAMES,
-                       kernels.FLASH_STATS_FRAMES)
-            if self.config.frame_bucket % tile:
-                raise ValueError(
-                    f"frame_bucket={self.config.frame_bucket} must be a multiple of "
-                    f"the kernels' frame tile {tile}"
-                )
-            # the output splits into 128-column shards, one per model rank
-            net = pad_qnet(net, lanes=kernels.TILE_N, out_lanes=kernels.TILE_N * model_size)
-        elif model_size > 1:
-            net = pad_qnet(net, lanes=1, out_lanes=kernels.TILE_N * model_size)
-        if self.config.int4_packed:
-            net = pack_int4_trunk(net)  # after padding: the halves split at the padded K
+        if self.config.frame_bucket % self._backend.frame_tile:
+            raise ValueError(
+                f"frame_bucket={self.config.frame_bucket} must be a multiple of "
+                f"the kernels' frame tile {self._backend.frame_tile}"
+            )
         self._output_dim = net.output_dim
         self._input_dim = net.input_dim
-        self._padded_output_dim = net.padded_output_dim
-        # host masks are padded to this width (see _pad_masks)
-        self._mask_width = self._padded_output_dim if mesh is not None else self._output_dim
-        if mesh is not None:
-            from ..parallel.mesh import shard_qnet
-
-            net = shard_qnet(net, mesh)
-        self.net = net.to(self.device)
-        if self._backend == "cuda":
-            self.net = cuda_backend.prepare(self.net, self.config.input_precision)
+        self.net = self._backend.prepare(net, self.device, mesh=mesh,
+                                         int4_packed=self.config.int4_packed,
+                                         input_precision=self.config.input_precision)
+        # host masks are padded to this width (see _pad_masks): under a
+        # mesh the padded output width, whose columns split over the model axis
+        self._mask_width = (self.net.padded_output_dim * model_size if mesh is not None
+                            else self._output_dim)
         # under a mesh too: a rank holds the whole trunk, so the stack
         # kernel serves it as on one device
         self._hstack = (
             build_hidden_stack(self.net) if self.config.stack_hidden_max_frames > 0 else None
         )
-        self._kw = dict(
-            backend=self._backend,
-            out_dim=self._output_dim,
+        self._route = Route(
+            self._backend, self._output_dim,
             fused_softmax=self.config.fused_softmax,
             fast_posteriors=self.config.fast_posteriors,
             hstack=self._hstack,
             stack_max_frames=self.config.stack_hidden_max_frames,
             input_precision=self.config.input_precision,
+            semantics=self.config.lazy_semantics,
+            block_sparse=self.config.lazy_mode == "block_sparse",
         )
         self._programs = None
         if mesh is not None:
             from ..parallel.sharded import make_mesh_programs
 
-            self._programs = make_mesh_programs(
-                mesh, semantics=self.config.lazy_semantics,
-                block_sparse=self.config.lazy_mode == "block_sparse", **self._kw,
-            )
+            self._programs = make_mesh_programs(mesh, self._route)
         self._gather_capacity = min(
             aligned_size(max(int(self._output_dim * self.config.lazy_capacity), 1), 128),
             self._output_dim,
@@ -418,7 +374,8 @@ class Scorer:
 
     @property
     def backend(self) -> str:
-        return self._backend
+        """The backend's name, "cuda" or "torch"."""
+        return self._backend.name
 
     @property
     def input_dim(self) -> int:
@@ -495,15 +452,12 @@ class Scorer:
         """Posteriors of this rank's block of a padded batch."""
         if self._programs is not None:
             return self._run_local(self._local(frames))
-        return score_fn(self.net, frames, **self._kw)
+        return self._route.score(self.net, frames)
 
     def _run_masked(self, frames: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         if self._programs is not None:
             return self._run_local(self._local(frames), self._local(masks, cols=True))
-        return score_masked_fn(
-            self.net, frames, masks, semantics=self.config.lazy_semantics,
-            block_sparse=self.config.lazy_mode == "block_sparse", **self._kw,
-        )
+        return self._route.score_masked(self.net, frames, masks)
 
     def _run_local(self, frames: torch.Tensor, masks: Optional[torch.Tensor] = None):
         """Mesh only: this rank's block of posteriors from rows (and mask
@@ -521,15 +475,12 @@ class Scorer:
 
             acts = self._programs[2](self.net, self._local(frames))
             return gather_rows(acts, self.mesh).to(self.device)
-        return hidden_forward(
-            self.net, frames, self._backend, self._hstack, self.config.stack_hidden_max_frames,
-            self.config.input_precision,
-        )
+        return self._route.hidden(self.net, frames)
 
     def _gathered(self, acts, masks, idx) -> torch.Tensor:
         return _lazy.gathered_output_posteriors(
             self.net, acts, masks, idx, out_dim=self._output_dim,
-            semantics=self.config.lazy_semantics, kernel_layout=self._backend == "cuda",
+            semantics=self.config.lazy_semantics, backend=self._backend,
         )
 
     # -- public API ----------------------------------------------------------
@@ -634,10 +585,7 @@ class Scorer:
             acts = torch.nn.functional.pad(acts, (0, 0, 0, rows - acts.shape[0]))
         if self._programs is not None:
             return self._programs[3](self.net, self._local(acts), self._local(masks, True))
-        return masked_posteriors_from_acts(
-            self.net, acts, masks, backend=self._backend,
-            semantics=self.config.lazy_semantics, out_dim=self._output_dim,
-        )
+        return self._route.masked_from_acts(self.net, acts, masks)
 
     def new_lazy_context(self, input_vector_count: int) -> "LazyContext":
         """The reference's QuantizedDnn.getNewLazyContext."""
@@ -664,25 +612,6 @@ class _LazyStaging:
         self.posteriors = self.posteriors_host.numpy()[0]
 
 
-_staging_lock = threading.Lock()
-_staging_counts = {"staged": 0, "pageable": 0}
-
-
-def lazy_staging_counts() -> dict:
-    """LazyContext frames since the last `reset_lazy_staging_counts`:
-    "staged", whose mask upload and posterior download went through the
-    context's pinned buffers (a CUDA device, no mesh), and "pageable", which
-    took the batch entries' path (`Scorer._masks`, `Scorer._finish`)."""
-    with _staging_lock:
-        return dict(_staging_counts)
-
-
-def reset_lazy_staging_counts() -> None:
-    with _staging_lock:
-        for kind in _staging_counts:
-            _staging_counts[kind] = 0
-
-
 class LazyContext:
     """Frame-by-frame lazy scoring, the reference's LazyContext:
     `calculate_until_output(frames)` runs everything up to the last hidden
@@ -698,8 +627,7 @@ class LazyContext:
     share.  The returned row is a copy, the caller's own: no later frame,
     of this context or another, writes to it.  On the CPU and under a mesh
     (whose rows pad to the data axis and gather across ranks) a frame takes
-    the batch entries' pageable path.  `lazy_staging_counts` counts frames
-    by path.
+    the batch entries' pageable path.
 
     For throughput prefer Scorer.score_masked: this pays one launch and one
     host round trip per frame.
@@ -739,8 +667,6 @@ class LazyContext:
                     res = self._staged_frame(acts_i, mask)
                 else:
                     res = self._pageable_frame(acts_i, mask)
-            with _staging_lock:
-                _staging_counts["staged" if self._staged else "pageable"] += 1
             self.current_vector_index += 1
             return res
 

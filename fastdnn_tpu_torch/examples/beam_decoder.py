@@ -25,6 +25,7 @@ All four must give the same word sequence.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import tempfile
 import time
 
@@ -38,15 +39,14 @@ def block_sparse_scorer(qnet, device):
     "block_sparse" on the card; on the CPU the same route with the plain
     version of the block-sparse kernel (ops.matmul)."""
     from fastdnn_tpu_torch import EngineConfig, Scorer
-    from fastdnn_tpu_torch.engine.scorer import score_masked_fn
 
     if device.type == "cuda":
         return Scorer(qnet, EngineConfig(lazy_mode="block_sparse"), device=device)
 
     class PlainBlockSparse(Scorer):
         def _run_masked(self, frames, masks):
-            return score_masked_fn(self.net, frames, masks, block_sparse=True,
-                                   semantics=self.config.lazy_semantics, **self._kw)
+            route = dataclasses.replace(self._route, block_sparse=True)
+            return route.score_masked(self.net, frames, masks)
 
     return PlainBlockSparse(qnet, device=device)
 

@@ -5,7 +5,7 @@ plain PyTorch version (ops/matmul.py); a CUDA tensor goes to the kernel,
 and a kernel that cannot build or launch raises.  Each wrapper checks
 device, dtype, shape and contiguity (lazy_output, called once a decoder
 frame, leaves its constant output layer to check_lazy_output_layer, which
-engine.cuda_backend.prepare calls once a net), allocates its output with
+engine.backend.Backend.prepare calls once a net), allocates its output with
 `torch.empty`, launches on the current stream of the tensor's device and
 adds one to its launch count (`launch_counts`), which is how a run shows
 that its main path went through the kernels.
@@ -53,7 +53,7 @@ blocks per row reads the active senones' weight rows, a warp per senone.
 K9 reads the input weight as `input_layer_operand(w)`: W transposed and
 split into two TF32 halves; its bf16 variant as `input_layer_operand(w,
 "default")`: W transposed and rounded to bf16.  Either is made once, for
-the configured precision (cuda_backend.prepare).
+the configured precision (engine.backend.Backend.prepare).
 """
 
 from __future__ import annotations
@@ -667,7 +667,7 @@ def normalize_stats(z, m, s, *, out_dim: int, tile_max=None) -> torch.Tensor:
 def check_lazy_output_layer(w_t, colsum, bias) -> None:
     """lazy_output's checks of a net's constant output layer: dtypes, shapes
     and contiguity, K a multiple of 16, the weight on a 16-byte boundary,
-    the shared memory of its full width.  engine.cuda_backend.prepare makes
+    the shared memory of its full width.  engine.backend.Backend.prepare makes
     them once a net: made on every frame they cost more host time than the
     frame's kernel takes (15-19 us a call on an H100's host).  CPU tensors
     need none."""

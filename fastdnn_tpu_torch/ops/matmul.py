@@ -7,8 +7,8 @@ held to (ops/kernels.py), the path a CPU tensor takes, and the whole of
 [B, K] as zero-point-shifted int8, weights [K, N] int8, per-layer colsum128
 int32 [N], bias f32 [N] and an f32 inverse scale.
 
-The layer-step names below match engine/cuda_backend.py, so the scorer
-selects one module or the other.
+engine/backend.py puts these and the kernels behind one set of step
+names, so the scorer holds one backend or the other.
 """
 
 from __future__ import annotations

@@ -36,18 +36,11 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..config import EngineConfig
-from ..engine import cuda_backend
-from ..engine.scorer import (
-    build_hidden_stack,
-    hidden_forward,
-    masked_posteriors_from_acts,
-    output_logits,
-    score_fn,
-    score_masked_fn,
-)
-from ..ops import kernels
+from ..engine.backend import get as get_backend
+from ..engine.backend import output_layer
+from ..engine.scorer import Route, build_hidden_stack, check_block_sparse
 from ..ops import matmul as xops
-from ..quant.quantize import QuantizedNet, pad_qnet
+from ..quant.quantize import QuantizedNet
 from ..utils.align import aligned_size
 from .mesh import (
     MODEL_AXIS,
@@ -56,7 +49,6 @@ from .mesh import (
     local_rows,
     mesh_coords,
     mesh_shape,
-    shard_qnet,
 )
 
 
@@ -114,46 +106,36 @@ def _sharded_posteriors_from_logits(z, masks, valid, semantics: str, group) -> t
     return e / torch.clamp(s, min=torch.finfo(torch.float32).tiny)
 
 
-def _sharded_fused_posteriors(net: QuantizedNet, acts, masks, *, out_dim: int, semantics: str,
-                              backend: str, model_rank: int, group, block_sparse: bool = False,
-                              fast: bool = False) -> torch.Tensor:
+def _sharded_fused_posteriors(route: Route, net: QuantizedNet, acts, masks, *,
+                              model_rank: int, group) -> torch.Tensor:
     """Tensor-parallel fused softmax: each rank's stats kernel (K8, or its
-    plain version on backend "torch") gives its local logits and
-    unnormalized (max, sum-exp) in one pass; two all-reduces of one f32 per
-    row make them global, and one read of the local logits normalizes (one
-    normalize launch on the CUDA backend).  The
-    rank's valid column count, clamp(out_dim - r n_local, 0, n_local), is a
-    runtime argument of the kernel.
+    plain version) gives its local logits and unnormalized (max, sum-exp)
+    in one pass; two all-reduces of one f32 per row make them global, and
+    one normalize of the local logits finishes.  The rank's valid column
+    count, clamp(out_dim - r n_local, 0, n_local), is a runtime argument of
+    the kernel.
 
-    block_sparse (masked calls, CUDA backend): the skipping variant; its
-    skipped tiles store -1e30 beyond the valid count (capped_fill), since
-    the local block keeps its padded width, and under reference semantics
-    each rank counts its own skipped real senones once, so the sum counts
-    every inactive senone exactly once.  `fast` narrows only the final
+    block_sparse (masked calls): the skipping variant; its skipped tiles
+    store -1e30 beyond the valid count (capped_fill), since the local block
+    keeps its padded width, and under reference semantics each rank counts
+    its own skipped real senones once, so the sum counts every inactive
+    senone exactly once.  fast_posteriors narrows only the final
     posteriors to bf16; stats and normalize stay f32."""
-    n_local = net.biases[-1].shape[0]
-    valid = _valid_count(n_local, out_dim, model_rank)
-    args = (acts, net.weights[-1], net.colsum128[-1], net.inv_scales[-1], net.biases[-1], masks)
-    if backend == "torch":
-        if block_sparse and masks is not None:
-            z, m_l, s_l = xops.block_sparse_stats(*args, valid_count=valid, semantics=semantics,
-                                                  capped_fill=True)
-        else:
-            z, m_l, s_l = xops.flash_stats(*args, valid_count=valid, semantics=semantics)
-    elif block_sparse and masks is not None:
-        z, m_l, s_l = cuda_backend.output_flash_stats_block_sparse(
-            *args, valid_count=valid, semantics=semantics)
+    be = route.backend
+    n_local = net.padded_output_dim
+    valid = _valid_count(n_local, route.out_dim, model_rank)
+    args = (acts, *output_layer(net), masks)
+    if route.block_sparse and masks is not None:
+        z, m_l, s_l = be.flash_stats_block_sparse(*args, valid_count=valid,
+                                                  semantics=route.semantics, capped_fill=True)
     else:
-        z, m_l, s_l = cuda_backend.output_flash_stats(*args, valid_count=valid,
-                                                      semantics=semantics)
+        z, m_l, s_l = be.flash_stats(*args, valid_count=valid, semantics=route.semantics)
     m = _all_reduce(m_l.clone(), dist.ReduceOp.MAX, group)
     s = _all_reduce(s_l * torch.exp(m_l - m), dist.ReduceOp.SUM, group)
-    # one read of the local logits (the normalize kernel on the CUDA
-    # backend); rows whose global max stayed at the cap (no active senone
-    # anywhere, active_only) -> zeros
-    normalize = xops.normalize_stats if backend == "torch" else kernels.normalize_stats
-    p = normalize(z, m, s, out_dim=n_local)
-    return p.to(torch.bfloat16) if fast else p
+    # rows whose global max stayed at the cap (no active senone anywhere,
+    # active_only) -> zeros
+    p = be.normalize_stats(z, m, s, out_dim=n_local)
+    return p.to(torch.bfloat16) if route.fast_posteriors else p
 
 
 def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -161,13 +143,9 @@ def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, extra)) if extra else x
 
 
-def make_mesh_programs(mesh: DeviceMesh, *, out_dim: int, backend: str,
-                       semantics: str = "reference", fused_softmax: bool = True,
-                       fast_posteriors: bool = False, block_sparse: bool = False,
-                       hstack=None, stack_max_frames: int = 0, input_precision: str = "high"):
+def make_mesh_programs(mesh: DeviceMesh, route: Route):
     """Per-rank programs of a mesh-backed Scorer, each over this rank's net
-    (mesh.shard_qnet, then on its device and, for the CUDA backend, in the
-    kernels' layout) and this rank's rows:
+    (the route's backend prepared it with the mesh) and this rank's rows:
 
       score(net, frames)                -> posteriors
       score_masked(net, frames, masks)  -> posteriors (masks: the rank's
@@ -175,72 +153,46 @@ def make_mesh_programs(mesh: DeviceMesh, *, out_dim: int, backend: str,
       hidden(net, frames)               -> last-hidden int8 activations
       masked_from_acts(net, acts, masks)-> posteriors from stored activations
 
-    With model = 1 a rank runs the whole single-device program on its rows
-    and gives [B_local, out_dim].  With model > 1 the output layer runs as
-    the rank's stats kernel (fused_softmax) or logits kernel, plus the exact
+    With model = 1 a rank runs the route itself on its rows and gives
+    [B_local, out_dim].  With model > 1 the output layer runs as the rank's
+    stats kernel (fused_softmax) or logits kernel, plus the exact
     collective softmax, and gives [B_local, n_local]: the rank's columns of
     the padded width, padding columns 0.  Every rank of a model group must
     make the same calls.  The trunk keeps the one-launch stack kernel when
-    `hstack` is given: a torch rank can hold it, where JAX's shard_map could
-    not capture it.  `input_precision` picks the input layer's product, as
-    on one device; the rank's net must be prepared for it.
+    the route has a stack: a torch rank can hold it, where JAX's shard_map
+    could not capture it.
     """
+    if route.block_sparse:
+        check_block_sparse(route.backend, route.fused_softmax)
     _, model = mesh_shape(mesh)
+    if model == 1:
+        return route.score, route.score_masked, route.hidden, route.masked_from_acts
     model_rank = mesh_coords(mesh)[1]
     group = mesh.get_group(MODEL_AXIS)
-    if block_sparse and not (backend == "cuda" and fused_softmax):
-        raise ValueError(
-            "block_sparse mesh programs need backend='cuda' with fused_softmax=True: "
-            "the tile skipping lives inside the stats kernel"
-        )
-    frame_tile = kernels.FLASH_STATS_FRAMES if backend == "cuda" else 1
-
-    def hidden(net, frames):
-        return hidden_forward(net, frames, backend, hstack, stack_max_frames, input_precision)
-
-    if model == 1:
-        def score(net, frames):
-            return score_fn(net, frames, backend=backend, out_dim=out_dim,
-                            fused_softmax=fused_softmax, fast_posteriors=fast_posteriors,
-                            hstack=hstack, stack_max_frames=stack_max_frames,
-                            input_precision=input_precision)
-
-        def score_masked(net, frames, masks):
-            return score_masked_fn(net, frames, masks, backend=backend, semantics=semantics,
-                                   out_dim=out_dim, fused_softmax=fused_softmax,
-                                   fast_posteriors=fast_posteriors, hstack=hstack,
-                                   stack_max_frames=stack_max_frames, block_sparse=block_sparse,
-                                   input_precision=input_precision)
-
-        def masked_from_acts(net, acts, masks):
-            return masked_posteriors_from_acts(net, acts, masks, backend=backend,
-                                               semantics=semantics, out_dim=out_dim)
-
-        return score, score_masked, hidden, masked_from_acts
+    frame_tile = route.backend.frame_tile
 
     def out(net, acts, masks):
-        if fused_softmax:
-            return _sharded_fused_posteriors(
-                net, acts, masks, out_dim=out_dim, semantics=semantics, backend=backend,
-                model_rank=model_rank, group=group, block_sparse=block_sparse,
-                fast=fast_posteriors)
-        z = output_logits(net, acts, backend)
+        if route.fused_softmax:
+            return _sharded_fused_posteriors(route, net, acts, masks, model_rank=model_rank,
+                                             group=group)
+        z = route.backend.output_logits(acts, *output_layer(net))
         p = _sharded_posteriors_from_logits(
-            z, masks, _valid_cols(z.shape[1], out_dim, model_rank, z.device), semantics, group)
-        return p.to(torch.bfloat16) if fast_posteriors else p
+            z, masks, _valid_cols(z.shape[1], route.out_dim, model_rank, z.device),
+            route.semantics, group)
+        return p.to(torch.bfloat16) if route.fast_posteriors else p
 
     def score(net, frames):
-        return out(net, hidden(net, frames), None)
+        return out(net, route.hidden(net, frames), None)
 
     def score_masked(net, frames, masks):
-        return out(net, hidden(net, frames), masks)
+        return out(net, route.hidden(net, frames), masks)
 
     def masked_from_acts(net, acts, masks):
         # a few stored rows (LazyContext): padded to the kernels' frame tile
         b = acts.shape[0]
         return out(net, _pad_rows(acts, frame_tile), _pad_rows(masks, frame_tile))[:b]
 
-    return score, score_masked, hidden, masked_from_acts
+    return score, score_masked, route.hidden, masked_from_acts
 
 
 def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
@@ -272,6 +224,7 @@ def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
     """
     data, model = mesh_shape(mesh)
     xops.check_input_precision(input_precision)
+    be = get_backend(backend)
     defaults = EngineConfig()
     rows_multiple = defaults.frame_bucket * data
     cached: list = [None]  # (weakref to the net, device, rank net, programs)
@@ -280,16 +233,12 @@ def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
         hit = cached[0]
         if hit is not None and hit[0]() is qnet and hit[1] == device:
             return hit[2], hit[3]
-        lanes = kernels.TILE_N if backend == "cuda" else 1
-        net = pad_qnet(qnet, lanes=lanes, out_lanes=kernels.TILE_N * model)
-        net = shard_qnet(net, mesh).to(device)
-        if backend == "cuda":
-            net = cuda_backend.prepare(net, input_precision)
-        programs = make_mesh_programs(
-            mesh, out_dim=qnet.output_dim if out_dim is None else out_dim, backend=backend,
-            semantics=semantics, fused_softmax=fused_softmax,
+        net = be.prepare(qnet, device, mesh=mesh, input_precision=input_precision)
+        programs = make_mesh_programs(mesh, Route(
+            be, qnet.output_dim if out_dim is None else out_dim, fused_softmax=fused_softmax,
             fast_posteriors=fast_posteriors, hstack=build_hidden_stack(net),
-            stack_max_frames=defaults.stack_hidden_max_frames, input_precision=input_precision)
+            stack_max_frames=defaults.stack_hidden_max_frames, input_precision=input_precision,
+            semantics=semantics))
         cached[0] = (weakref.ref(qnet), device, net, programs)
         return net, programs
 
@@ -303,7 +252,7 @@ def make_gspmd_scorer(mesh: DeviceMesh, *, out_dim: Optional[int] = None,
             if masks is None:
                 p = programs[0](net, local_rows(frames, mesh))
             else:
-                width = net.biases[-1].shape[0] * model  # the padded output width
+                width = net.padded_output_dim * model
                 masks = torch.nn.functional.pad(
                     masks.to(device=frames.device, dtype=torch.uint8),
                     (0, width - masks.shape[1], 0, rows - b))
@@ -339,11 +288,10 @@ def score_shard_map(qnet: QuantizedNet, frames: torch.Tensor, mesh: DeviceMesh, 
     if out_dim is None:
         out_dim = qnet.output_dim
     model_rank = mesh_coords(mesh)[1]
-    net = shard_qnet(qnet, mesh).to(frames.device)
-    if backend == "cuda":
-        net = cuda_backend.prepare(net, input_precision)
-    acts = hidden_forward(net, local_rows(frames, mesh), backend, input_precision=input_precision)
-    z = output_logits(net, acts, backend)
+    be = get_backend(backend)
+    net = be.prepare(qnet, frames.device, mesh=mesh, input_precision=input_precision)
+    acts = Route(be, out_dim, input_precision=input_precision).hidden(net, local_rows(frames, mesh))
+    z = be.output_logits(acts, *output_layer(net))
     local_masks = None if masks is None else local_cols(local_rows(masks, mesh), mesh)
     p = _sharded_posteriors_from_logits(
         z, local_masks, _valid_cols(z.shape[1], out_dim, model_rank, z.device), semantics,

@@ -64,7 +64,7 @@ class QuantizedNet:
         values in [-8, 7]; the output layer is int8 either way.
     packed_int4: the int4 hidden weights are stored two nibbles per byte.
     input_operand: the input weight as the input-layer kernel reads it
-        (ops.kernels.input_layer_operand), set by engine.cuda_backend.prepare;
+        (ops.kernels.input_layer_operand), set by engine.backend.KERNELS.prepare;
         None otherwise.
     """
 
@@ -89,11 +89,14 @@ class QuantizedNet:
         """True senone count (excludes padding columns)."""
         if self.true_output_dim is not None:
             return self.true_output_dim
-        return self.weights[-1].shape[1]
+        return self.padded_output_dim
+
+    # the widths below read the biases, which every layout and packing of
+    # the weights leaves as they are
 
     @property
     def padded_output_dim(self) -> int:
-        return self.weights[-1].shape[1]
+        return self.biases[-1].shape[0]
 
     @property
     def layer_count(self) -> int:
@@ -101,7 +104,7 @@ class QuantizedNet:
         return len(self.weights) + 1
 
     def layer_dims(self):
-        return [self.input_w.shape[1]] + [w.shape[1] for w in self.weights]
+        return [self.input_b.shape[0]] + [b.shape[0] for b in self.biases]
 
     def to(self, device) -> "QuantizedNet":
         """The same net with its arrays on `device`.  The 0-d scales and

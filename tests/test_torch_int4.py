@@ -23,7 +23,7 @@ import fastdnn_tpu_torch as fdt
 from fastdnn_tpu.ops import matmul as jops
 from fastdnn_tpu.ops import pallas_kernels as jpk
 from fastdnn_tpu.quant import serialize as jser
-from fastdnn_tpu_torch.engine import cuda_backend
+from fastdnn_tpu_torch.engine.backend import KERNELS
 from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
 from fastdnn_tpu_torch.quant.serialize import qnet_arrays
@@ -245,13 +245,13 @@ class TestScorer:
         frames = torch.as_tensor(_frames(34, 128))
         want = fdt.score_fn(q, frames, backend="torch")
         padded = fdt.pad_qnet(q, lanes=kernels.TILE_N, out_lanes=kernels.TILE_N)
-        packed = cuda_backend.prepare(fdt.pack_int4_trunk(padded))
+        packed = KERNELS.prepare(q, "cpu", int4_packed=True)
         assert packed.packed_int4 and packed.hidden_bits == 4
         for w, wq in zip(packed.weights[:-1], padded.weights[:-1]):
             assert w.shape == (wq.shape[1], wq.shape[0] // 2)
         got = fdt.score_fn(packed, frames, backend="cuda", fused_softmax=True, out_dim=q.output_dim)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
-        unpacked = cuda_backend.prepare(padded)
+        unpacked = KERNELS.prepare(q, "cpu")
         stacked = fdt.score_fn(unpacked, frames, backend="cuda", fused_softmax=True,
                                out_dim=q.output_dim, hstack=fdt.build_hidden_stack(unpacked),
                                stack_max_frames=8192)
@@ -290,7 +290,7 @@ class TestCheckpointsAndGuards:
         padded = fdt.pad_qnet(t_q)
         assert padded.hidden_bits == 4 and not padded.packed_int4
         packed = fdt.pack_int4_trunk(padded)
-        for net in (packed.to("cpu"), cuda_backend.prepare(packed)):
+        for net in (packed.to("cpu"), KERNELS.prepare(padded, "cpu", int4_packed=True)):
             assert net.hidden_bits == 4 and net.packed_int4
         fdt.save_qnet(padded, tmp_path / "p.npz")
         back = fdt.load_qnet(tmp_path / "p.npz")

@@ -38,10 +38,9 @@ from fastdnn_tpu.ops import matmul as jops
 from fastdnn_tpu.ops import pallas_kernels as pk
 from fastdnn_tpu_torch.cli import score as tcli
 from fastdnn_tpu_torch.engine import cluster as tcluster
-from fastdnn_tpu_torch.engine import cuda_backend
 from fastdnn_tpu_torch.engine import lazy as tlazy
-from fastdnn_tpu_torch.engine import scorer as scorer_mod
-from fastdnn_tpu_torch.engine.scorer import masked_posteriors_from_acts, score_masked_fn
+from fastdnn_tpu_torch.engine.backend import KERNELS, PLAIN, output_layer
+from fastdnn_tpu_torch.engine.scorer import Route, score_masked_fn
 from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
 
@@ -209,7 +208,7 @@ def lazy_nets(tmp_path_factory):
     _, j_net = _nets(41, LAZY_OUT)
     j_q = fd.quantize_net(j_net)
     t_q = _carry(j_q, tmp_path_factory.mktemp("lazy_out"))
-    return j_q, t_q, cuda_backend.prepare(fdt.pad_qnet(t_q))
+    return j_q, t_q, KERNELS.prepare(t_q, "cpu")
 
 
 def _lazy_masks(kind, rows, width, seed):
@@ -222,7 +221,7 @@ def _lazy_masks(kind, rows, width, seed):
 
 class TestLazyOutput:
     """The one-launch lazy output (ops.kernels.lazy_output) through its
-    plain route and through masked_posteriors_from_acts on CPU tensors,
+    plain route and through the kernels' Route.masked_from_acts on CPU tensors,
     against the JAX package's _masked_from_acts_fn (the logits op, then
     the masked softmax in XLA) on the same int8 activations: within 3e-5."""
 
@@ -238,9 +237,9 @@ class TestLazyOutput:
             j_q, jnp.asarray(acts), jnp.asarray(masks), backend="xla", interpret=False,
             semantics=semantics, out_dim=LAZY_OUT))
         got_acts, got_masks = torch.as_tensor(acts), torch.as_tensor(masks)
-        routed = masked_posteriors_from_acts(prepared, got_acts, got_masks, backend="cuda",
-                                             semantics=semantics, out_dim=LAZY_OUT).numpy()
-        direct = kernels.lazy_output(got_acts, *scorer_mod._output_args(prepared), got_masks,
+        routed = Route(KERNELS, LAZY_OUT, semantics=semantics).masked_from_acts(
+            prepared, got_acts, got_masks).numpy()
+        direct = kernels.lazy_output(got_acts, *output_layer(prepared), got_masks,
                                      out_dim=LAZY_OUT, semantics=semantics).numpy()
         for got in (routed, direct):
             assert got.shape == (rows, LAZY_OUT) and got.dtype == np.float32
@@ -256,14 +255,14 @@ class TestLazyOutput:
         rng = np.random.default_rng(42)
         acts = torch.as_tensor(rng.integers(-128, 128, (3, 256), dtype=np.int8))
         masks = torch.as_tensor(_lazy_masks("40%", 3, prepared.weights[-1].shape[0], 42))
-        args = scorer_mod._output_args(prepared)
+        args = output_layer(prepared)
         got = kernels.lazy_output(acts, *args, masks, out_dim=LAZY_OUT, logits=True)
         z = kernels.output_logits(acts, *args)[:, :LAZY_OUT]
         assert torch.equal(got, torch.where(masks[:, :LAZY_OUT] != 0, z, 0.0))
 
     @pytest.mark.parametrize("rows", [1, 64])
     def test_the_cuda_backend_takes_lazy_output(self, lazy_nets, monkeypatch, rows):
-        """On the CUDA backend masked_posteriors_from_acts is one lazy_output
+        """On the kernels' backend Route.masked_from_acts is one lazy_output
         call at any row count, K5 never; the plain backend's posteriors
         within 3e-5."""
         _, t_q, prepared = lazy_nets
@@ -272,15 +271,13 @@ class TestLazyOutput:
         masks = torch.as_tensor(_lazy_masks("40%", rows, LAZY_OUT, 43))
         calls = []
         for name in ("lazy_output", "output_logits"):
-            real = getattr(kernels, name)
-            monkeypatch.setattr(kernels, name,
+            real = getattr(KERNELS, name)
+            monkeypatch.setattr(KERNELS, name,
                                 lambda *a, _real=real, _name=name, **kw: calls.append(_name)
                                 or _real(*a, **kw))
-        got = masked_posteriors_from_acts(prepared, acts, masks, backend="cuda",
-                                          semantics="reference", out_dim=LAZY_OUT)
+        got = Route(KERNELS, LAZY_OUT).masked_from_acts(prepared, acts, masks)
         assert calls == ["lazy_output"]
-        want = masked_posteriors_from_acts(t_q, acts, masks, backend="torch",
-                                           semantics="reference", out_dim=LAZY_OUT)
+        want = Route(PLAIN, LAZY_OUT).masked_from_acts(t_q, acts, masks)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=SOFTMAX_ATOL)
 
 
@@ -433,10 +430,10 @@ class TestGathered:
         got = tlazy.gathered_output_posteriors(t_q, ta, tm, ti, out_dim=out,
                                                semantics=semantics).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=SOFTMAX_ATOL)
-        # the CUDA backend's kernel layout [N, K]: senones are rows
-        prepared = cuda_backend.prepare(fdt.pad_qnet(t_q))
+        # the kernels' layout [N, K]: senones are rows
+        prepared = KERNELS.prepare(t_q, "cpu")
         rows = tlazy.gathered_output_posteriors(prepared, ta, tm, ti, out_dim=out,
-                                                semantics=semantics, kernel_layout=True).numpy()
+                                                semantics=semantics, backend=KERNELS).numpy()
         np.testing.assert_array_equal(rows, got)
 
     def test_capacity_overflow_raises(self):
@@ -549,7 +546,7 @@ class TestScorer:
         padding, block-sparse dispatch) with CPU tensors, whose wrappers
         take the plain versions."""
         _, t_q = nets
-        prepared = cuda_backend.prepare(fdt.pad_qnet(t_q))
+        prepared = KERNELS.prepare(t_q, "cpu")
         frames = torch.as_tensor(_frames(27, 128))
         masks = torch.as_tensor(_masks(27, 128, t_q.output_dim))
         want = score_masked_fn(t_q, frames, masks, backend="torch", semantics=semantics)
@@ -561,9 +558,8 @@ class TestScorer:
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=SOFTMAX_ATOL)
         unfused = score_masked_fn(prepared, frames, masks, backend="cuda", semantics=semantics)
         np.testing.assert_allclose(unfused.numpy(), want.numpy(), rtol=0, atol=SOFTMAX_ATOL)
-        rows = masked_posteriors_from_acts(
-            prepared, fdt.hidden_forward(prepared, frames[:3], "cuda"), masks[:3],
-            backend="cuda", semantics=semantics, out_dim=t_q.output_dim)
+        rows = Route(KERNELS, t_q.output_dim, semantics=semantics).masked_from_acts(
+            prepared, fdt.hidden_forward(prepared, frames[:3], "cuda"), masks[:3])
         np.testing.assert_allclose(rows.numpy(), want[:3].numpy(), rtol=0, atol=SOFTMAX_ATOL)
 
 
@@ -845,17 +841,16 @@ def _assert_wrong_mask_length_raises(scorer):
 
 class TestLazyStaging:
     def test_cpu_frames_count_as_pageable(self):
+        """A CPU context takes the batch entries' pageable path: it never
+        makes pinned buffers."""
         scorer = _lazy_scorer("cpu", 450)
         frames, masks = _frames(62, 5), _masks(62, 5, 450)
-        scorer_mod.reset_lazy_staging_counts()
         ctx = scorer.new_lazy_context(5)
         ctx.calculate_until_output(frames)
         for m in masks:
-            ctx.calculate_for_output_nodes(m)
-        assert scorer_mod.lazy_staging_counts() == {"staged": 0, "pageable": 5}
-        assert ctx._staging is None
-        scorer_mod.reset_lazy_staging_counts()
-        assert scorer_mod.lazy_staging_counts() == {"staged": 0, "pageable": 0}
+            assert ctx.calculate_for_output_nodes(m).shape == (450,)
+            assert not ctx._staged and ctx._staging is None
+        assert ctx.current_vector_index == 5
 
     def test_rows_are_the_callers(self):
         _assert_rows_are_the_callers(_lazy_scorer("cpu", 450))
@@ -871,21 +866,21 @@ def test_staged_frames_bitwise_the_pageable_path_on_card(cuda_device, semantics,
     """Each staged frame's posteriors bitwise those of the same frame built
     through the batch entries' pageable stages (Scorer._masks, the output
     layer, Scorer._finish), a frame with no active senone among them; every
-    frame counted as staged."""
+    frame through the context's pinned buffers."""
     scorer = _lazy_scorer(cuda_device, out, lazy_semantics=semantics)
     n = 6
     frames, masks = _frames(63, n), _masks(63, n, out)
-    scorer_mod.reset_lazy_staging_counts()
     ctx = scorer.new_lazy_context(n)
     ctx.calculate_until_output(frames)
     for t in range(n):
         got = ctx.calculate_for_output_nodes(masks[t])
+        assert ctx._staged and ctx._staging is not None
         _, mask_d = scorer._masks(masks[t].reshape(1, -1), 1)
         want = scorer._finish(scorer._masked_from_acts(ctx._acts[t:t + 1], mask_d), 1)[0]
         assert got.shape == (out,) and got.dtype == np.float32
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
-    assert scorer_mod.lazy_staging_counts() == {"staged": n, "pageable": 0}
     assert ctx._staging is not None and ctx._staging.mask_host.is_pinned()
+    assert ctx._staging.posteriors_host.is_pinned()
 
 
 @pytest.mark.cuda

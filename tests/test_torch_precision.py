@@ -15,6 +15,7 @@ operands, and "default" must differ from "high".
 
 import dataclasses
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -27,8 +28,8 @@ import fastdnn_tpu as fd
 import fastdnn_tpu_torch as fdt
 from fastdnn_tpu.ops import matmul as jops
 from fastdnn_tpu_torch.cli import serve
-from fastdnn_tpu_torch.engine import cuda_backend
 from fastdnn_tpu_torch.engine import scorer as tscorer
+from fastdnn_tpu_torch.engine.backend import KERNELS
 from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
 from fastdnn_tpu_torch.parallel.mesh import make_mesh
@@ -73,6 +74,11 @@ def _t(*arrays):
     return [torch.as_tensor(a) for a in arrays]
 
 
+def _input_net(w, bias, operand):
+    """What the kernels' input layer reads of a prepared net."""
+    return types.SimpleNamespace(input_w=w, input_b=bias, input_operand=operand)
+
+
 # -- the input layer -------------------------------------------------------------
 
 
@@ -91,7 +97,7 @@ class TestInputLayer:
         _assert_counts_close(got.numpy(), want)
         operand = kernels.input_layer_operand(w_t, "default")
         assert torch.equal(kernels.input_layer_bf16(x, w_t, operand, b_t), got)
-        assert torch.equal(cuda_backend.input_layer_step(x, w_t, b_t, operand, "default"), got)
+        assert torch.equal(KERNELS.input_layer(_input_net(w_t, b_t, operand), x, "default"), got)
 
     @pytest.mark.parametrize("precision", ["highest", "high"])
     @pytest.mark.parametrize("k", [432, 429, 40])
@@ -104,7 +110,7 @@ class TestInputLayer:
         # both are today's f64 product, and K9 on CPU tensors takes it
         assert torch.equal(got, tops.input_layer_step(x, w_t, b_t))
         operand = kernels.input_layer_operand(w_t, precision)
-        assert torch.equal(cuda_backend.input_layer_step(x, w_t, b_t, operand, precision), got)
+        assert torch.equal(KERNELS.input_layer(_input_net(w_t, b_t, operand), x, precision), got)
 
     def test_default_rounds_both_operands(self):
         frames, w, bias = _input_layer(np.random.default_rng(3), 1024, 432, 256)
@@ -138,7 +144,7 @@ class TestInputLayer:
         with pytest.raises(ValueError, match="input_precision"):
             kernels.input_layer_operand(w, "medium")
         with pytest.raises(ValueError, match="input_precision"):
-            cuda_backend.input_layer_step(frames, w, bias, kernels.input_layer_operand(w), "bf16")
+            KERNELS.input_layer(_input_net(w, bias, kernels.input_layer_operand(w)), frames, "bf16")
         q = fdt.quantize_net(fdt.random_net(np.random.default_rng(5), 32, [64], 64))
         with pytest.raises(ValueError, match="input_precision"):
             fdt.Scorer(q, fdt.EngineConfig(input_precision="medium"), device="cpu")
@@ -278,7 +284,7 @@ def test_hidden_forward_picks_the_input_route(nets, inputs):
     assert torch.equal(want["default"],
                        tscorer.hidden_forward(t_r, torch.as_tensor(_bf16(x)), "torch"))
     for p in PRECISIONS:
-        prepared = cuda_backend.prepare(t_q, p)
+        prepared = KERNELS.prepare(t_q, "cpu", input_precision=p)
         assert prepared.input_operand.dtype == (torch.bfloat16 if p == "default"
                                                 else torch.float32)
         assert torch.equal(tscorer.hidden_forward(prepared, x, "cuda", input_precision=p),

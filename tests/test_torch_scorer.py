@@ -24,7 +24,7 @@ from fastdnn_tpu.cli import score as jcli
 from fastdnn_tpu.engine import scorer as jscorer
 from fastdnn_tpu.ops import matmul as jops
 from fastdnn_tpu_torch.cli import score as tcli
-from fastdnn_tpu_torch.engine import cuda_backend
+from fastdnn_tpu_torch.engine.backend import KERNELS
 from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
 
@@ -129,11 +129,11 @@ def test_stack_and_per_layer_paths_agree(nets):
 
 
 def test_prepared_net_carries_the_input_operand(nets):
-    """cuda_backend.prepare adds the input kernel's TF32 operand and keeps
-    input_w; the CUDA backend's trunk, on CPU tensors (its wrappers' plain
-    versions), equals the plain backend's."""
+    """The kernels' backend's prepare adds the input kernel's TF32 operand
+    and keeps input_w; the CUDA backend's trunk, on CPU tensors (its
+    wrappers' plain versions), equals the plain backend's."""
     _, t_q = nets
-    prepared = cuda_backend.prepare(fdt.pad_qnet(t_q))
+    prepared = KERNELS.prepare(t_q, "cpu")
     assert t_q.input_operand is None
     assert torch.equal(prepared.input_w, fdt.pad_qnet(t_q).input_w)
     assert torch.equal(prepared.input_operand, kernels.input_layer_operand(prepared.input_w))

@@ -29,7 +29,7 @@ import fastdnn_tpu as fd
 import fastdnn_tpu_torch as fdt
 from fastdnn_tpu.engine import scorer as jscorer
 from fastdnn_tpu.ops import pallas_kernels as pk
-from fastdnn_tpu_torch.engine import cuda_backend
+from fastdnn_tpu_torch.engine.backend import KERNELS, PLAIN
 from fastdnn_tpu_torch.engine import scorer as tscorer
 from fastdnn_tpu_torch.ops import kernels
 from fastdnn_tpu_torch.ops import matmul as tops
@@ -155,8 +155,8 @@ class TestOutputPosteriorsStats:
         tm = None if m is None else torch.as_tensor(m)
         plain = tops.output_posteriors_stats(*_plain_args(*args), tm, out_dim=out, semantics=sem)
         # the CUDA backend's route, its kernel wrapper dispatching to the plain version
-        routed = cuda_backend.output_posteriors(*_wrapper_args(*args), tm, out_dim=out,
-                                                semantics=sem)
+        routed = KERNELS.stats_posteriors(*_wrapper_args(*args), tm, out_dim=out,
+                                          semantics=sem)
         torch.testing.assert_close(routed, plain, rtol=0, atol=0)
         got = plain.numpy()
         assert got.shape == (b, out) and got.dtype == np.float32
@@ -228,9 +228,9 @@ class TestBlockSparseStats:
             *args, jnp.asarray(bands), out_dim=out, semantics=semantics, **TILES))
         got = tops.output_posteriors_block_sparse_stats(
             *_plain_args(*args), torch.as_tensor(bands), out_dim=out, semantics=semantics)
-        routed = cuda_backend.output_posteriors_block_sparse(
+        routed = KERNELS.stats_posteriors(
             *_wrapper_args(*args), torch.as_tensor(bands), out_dim=out, semantics=semantics,
-            resident=False)
+            block_sparse=True)
         torch.testing.assert_close(routed, got, rtol=0, atol=0)
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=SOFTMAX_ATOL)
         dense = tops.output_posteriors(*_plain_args(*args), torch.as_tensor(bands), out_dim=out,
@@ -472,7 +472,7 @@ class TestGate:
         assert tscorer.uses_resident_output(net) is resident
         assert tscorer.uses_resident_output(net, block_sparse=True) is resident
         # the same answer in the kernels' weight layout
-        assert tscorer.uses_resident_output(cuda_backend.prepare(net)) is resident
+        assert tscorer.uses_resident_output(KERNELS.prepare(net, "cpu")) is resident
 
     @pytest.mark.parametrize("h,stacked", [(2304, True), (2432, False)])
     def test_hidden_stack_only_up_to_2304(self, h, stacked):
@@ -496,6 +496,30 @@ class TestWideNet:
         fd.save_qnet(j_q, path)
         return j_q, fdt.load_qnet(path)
 
+    def test_one_rank_mesh_bitwise_the_scorer(self, wide, tmp_path):
+        """On a one-rank mesh the plain backend pads the output as the
+        single-device Scorer does (not at all), so the stats route's sums
+        run over the same columns: Scorer(mesh=...) and make_gspmd_scorer
+        score bitwise what the Scorer scores."""
+        import torch.distributed as dist
+
+        from fastdnn_tpu_torch.parallel.mesh import make_mesh
+        from fastdnn_tpu_torch.parallel.sharded import make_gspmd_scorer
+
+        _, t_q = wide
+        frames = np.random.default_rng(8).standard_normal((200, 432), dtype=np.float32)
+        want = fdt.Scorer(t_q, device="cpu").score(frames)
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, 1, device_type="cpu")
+            np.testing.assert_array_equal(fdt.Scorer(t_q, device="cpu", mesh=mesh).score(frames),
+                                          want)
+            score, _ = make_gspmd_scorer(mesh, backend="torch")
+            np.testing.assert_array_equal(score(t_q, torch.as_tensor(frames)).numpy(), want)
+        finally:
+            dist.destroy_process_group()
+
     @pytest.mark.parametrize("semantics", [None, *SEMANTICS], ids=["score", *SEMANTICS])
     def test_stats_route_matches_jax_fallback(self, wide, semantics, monkeypatch):
         j_q, t_q = wide
@@ -508,10 +532,10 @@ class TestWideNet:
                                               lazy_semantics=semantics or "reference"))
         assert not jscorer.uses_resident_output(j_sc.net)
         calls = []
-        stats = tops.output_posteriors_stats
-        monkeypatch.setattr(tops, "output_posteriors_stats",
+        stats = PLAIN.stats_posteriors
+        monkeypatch.setattr(PLAIN, "stats_posteriors",
                             lambda *a, **kw: calls.append(1) or stats(*a, **kw))
-        monkeypatch.setattr(tops, "output_posteriors",
+        monkeypatch.setattr(PLAIN, "resident_softmax",
                             lambda *a, **kw: pytest.fail("the resident route ran"))
         t_sc = fdt.Scorer(t_q, fdt.EngineConfig(lazy_semantics=semantics or "reference"),
                           device="cpu")

@@ -20,6 +20,7 @@ from fastdnn_tpu import tuning as jtuning
 from fastdnn_tpu_torch import tuning
 from fastdnn_tpu_torch.config import EngineConfig
 from fastdnn_tpu_torch.engine import scorer as tscorer
+from fastdnn_tpu_torch.engine.backend import KERNELS, PLAIN
 
 KNOB = "stack_hidden_max_frames"
 DEFAULT = EngineConfig().stack_hidden_max_frames
@@ -153,11 +154,11 @@ def test_scorer_consults_registry_on_the_cuda_backend(qnet, tmp_path, monkeypatc
     kinds = []
     monkeypatch.setattr(tuning, "device_kind", lambda d: kinds.append(d) or "GPU test")
     cpu = torch.device("cpu")
-    cfg = tscorer.tuned_config(EngineConfig(), qnet, "cuda", cpu)
+    cfg = tscorer.tuned_config(EngineConfig(), qnet, KERNELS, cpu)
     assert cfg.stack_hidden_max_frames == 0 and kinds == [cpu]
-    assert tscorer.tuned_config(EngineConfig(), qnet, "torch", cpu) == EngineConfig()
+    assert tscorer.tuned_config(EngineConfig(), qnet, PLAIN, cpu) == EngineConfig()
     off = EngineConfig(autotuned=False)
-    assert tscorer.tuned_config(off, qnet, "cuda", cpu) == off
+    assert tscorer.tuned_config(off, qnet, KERNELS, cpu) == off
     assert len(kinds) == 1
 
 
@@ -209,7 +210,7 @@ def test_tuned_scorer_matches_both_routes_and_jax(tmp_path, monkeypatch):
     monkeypatch.setenv("FASTDNN_TUNED", str(reg))
     monkeypatch.setattr(tuning, "device_kind", lambda d: "GPU test")
 
-    cfg = tscorer.tuned_config(EngineConfig(), t_q, "cuda", torch.device("cpu"))
+    cfg = tscorer.tuned_config(EngineConfig(), t_q, KERNELS, torch.device("cpu"))
     assert cfg.stack_hidden_max_frames == 0
     frames = np.random.default_rng(6).standard_normal((200, 432), dtype=np.float32)
     tuned = fdt.Scorer(t_q, cfg, device="cpu")

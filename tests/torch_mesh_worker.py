@@ -25,18 +25,16 @@ def _block_sparse(q, mesh, frames, masks, semantics):
     """The masked mesh program with lazy_mode="block_sparse" on the CUDA
     backend's route, driven with CPU tensors: every kernel wrapper of the
     route (the skipping stats kernel among them) runs its plain version."""
-    from fastdnn_tpu_torch.engine import cuda_backend
-    from fastdnn_tpu_torch.ops import kernels
+    from fastdnn_tpu_torch.engine.backend import KERNELS
+    from fastdnn_tpu_torch.engine.scorer import Route
     from fastdnn_tpu_torch.parallel import mesh as pmesh
     from fastdnn_tpu_torch.parallel.sharded import make_mesh_programs
-    from fastdnn_tpu_torch.quant.quantize import pad_qnet
 
     model = pmesh.mesh_shape(mesh)[1]
-    padded = pad_qnet(q, lanes=kernels.TILE_N, out_lanes=kernels.TILE_N * model)
-    net = cuda_backend.prepare(pmesh.shard_qnet(padded, mesh))
-    _, score_masked, _, _ = make_mesh_programs(
-        mesh, out_dim=q.output_dim, backend="cuda", semantics=semantics, block_sparse=True)
-    masks_p = np.zeros((masks.shape[0], padded.padded_output_dim), np.uint8)
+    net = KERNELS.prepare(q, "cpu", mesh=mesh)
+    _, score_masked, _, _ = make_mesh_programs(mesh, Route(
+        KERNELS, q.output_dim, fused_softmax=True, semantics=semantics, block_sparse=True))
+    masks_p = np.zeros((masks.shape[0], net.padded_output_dim * model), np.uint8)
     masks_p[:, : q.output_dim] = masks
     local_masks = pmesh.local_cols(pmesh.local_rows(torch.from_numpy(masks_p), mesh), mesh)
     p = score_masked(net, pmesh.local_rows(torch.from_numpy(frames), mesh), local_masks)
@@ -53,6 +51,8 @@ def _refuses(fn) -> bool:
 
 def _cases(q, mesh, inputs) -> dict:
     from fastdnn_tpu_torch import EngineConfig, Scorer
+    from fastdnn_tpu_torch.engine.backend import KERNELS, PLAIN
+    from fastdnn_tpu_torch.engine.scorer import Route
     from fastdnn_tpu_torch.parallel.sharded import make_mesh_programs, score_shard_map
     from fastdnn_tpu_torch.quant.quantize import pad_qnet
 
@@ -90,10 +90,10 @@ def _cases(q, mesh, inputs) -> dict:
         _refuses(lambda: Scorer(q, EngineConfig(lazy_mode="gathered"), device="cpu", mesh=mesh)),
         _refuses(lambda: Scorer(q, EngineConfig(lazy_mode="block_sparse"), device="cpu",
                                 mesh=mesh)),
-        _refuses(lambda: make_mesh_programs(mesh, out_dim=q.output_dim, backend="cuda",
-                                            fused_softmax=False, block_sparse=True)),
-        _refuses(lambda: make_mesh_programs(mesh, out_dim=q.output_dim, backend="torch",
-                                            block_sparse=True)),
+        _refuses(lambda: make_mesh_programs(mesh, Route(KERNELS, q.output_dim,
+                                                        block_sparse=True))),
+        _refuses(lambda: make_mesh_programs(mesh, Route(PLAIN, q.output_dim, fused_softmax=True,
+                                                        block_sparse=True))),
     ])
     out["mesh"] = np.array([data, model])
     return out
