@@ -13,7 +13,7 @@
 // Shape of the int8 kernels (K2-K8).  A block is three warpgroups and owns
 // kFrames = 64 frames.  Their int8 activations sit whole in shared memory as
 // the wgmma A operand (K3, K4, K6), or a 64 x 128-byte tile of them comes
-// with each weight stage (K2, K5, K7, K8: any K).  Warpgroup 2 is the
+// with each weight stage (K2, K5, K7, K8 SKIP: any K).  Warpgroup 2 is the
 // producer: one thread keeps a ring of kStageBytes weight stages (kTileN
 // output columns x kStageK of K) full with TMA copies, in the order the
 // tiles are consumed, across tiles and (K3) layers, never draining.
@@ -29,7 +29,9 @@
 // warpgroup's other three warps widen to s8 in shared memory before the
 // consumers read them.  K9 (f32 frames, TF32 or bf16 products) keeps the
 // three warpgroups and the barriers but runs a ring of its own: both
-// consumers read every stage, for 64 frames each.
+// consumers read every stage, for 64 frames each.  K8's dense variants run
+// the wide tile (below, after the hidden layer's epilogue): 128 frames a
+// block and 256 columns a tile, both consumers on every stage.
 //
 // Layout: both operands K-major in the 128-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B, wgmma layout type 1): a [rows x 128-byte] block
@@ -193,6 +195,28 @@ __device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap*
       " [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
+}
+
+// TMA store: src (shared memory, laid out as the map's box) -> box (c0, c1)
+// of `map`, in this thread's bulk async group; elements past the extents are
+// not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups but the newest N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// this thread's bulk groups are all complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a K-major, 128-byte-swizzled operand at
@@ -499,6 +523,154 @@ __device__ __forceinline__ void layer_epilogue(const int (&d)[64], int8_t* out, 
     *reinterpret_cast<char2*>(o + 8 * q) = top;
     *reinterpret_cast<char2*>(o + 8 * static_cast<size_t>(ld) + 8 * q) = bottom;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The wide tile (K8's dense variants, csrc/flash_stats.cu).  A block owns
+// kWideFrames = 128 frames and each output tile is kWideTileN = 256 columns.
+// Every stage holds a 256 x 128-byte weight slice and the block's 128 x
+// 128-byte activation tile (48 KB, both 128-byte swizzled); both consumer
+// warpgroups read every stage, each running m64n256k32 on its own 64 frames,
+// so each byte landed in shared memory feeds twice the products of the
+// 64 x 128 per-warpgroup tile above, and each wgmma twice as many.
+// ---------------------------------------------------------------------------
+constexpr int kWideFrames = kConsumers * kFrames;
+constexpr int kWideTileN = 2 * kTileN;
+constexpr int kWideWeightBytes = kWideTileN * kStageK;
+constexpr int kWideActBytes = kWideFrames * kStageK;
+constexpr int kWideStageBytes = kWideWeightBytes + kWideActBytes;
+
+// d (64 x 256 s32, the warpgroup's accumulators) += A (64 x 32 s8) * B^T
+// (B: 256 x 32 s8, K-major), or = with accumulate == false.  d[h] holds
+// columns [128 h, 128 h + 128) laid out as wgmma_s8's d.
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[2][64], uint64_t a, uint64_t b,
+                                              bool accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[0][4]), "+r"(d[0][5]),
+        "+r"(d[0][6]), "+r"(d[0][7]), "+r"(d[0][8]), "+r"(d[0][9]), "+r"(d[0][10]),
+        "+r"(d[0][11]), "+r"(d[0][12]), "+r"(d[0][13]), "+r"(d[0][14]), "+r"(d[0][15]),
+        "+r"(d[0][16]), "+r"(d[0][17]), "+r"(d[0][18]), "+r"(d[0][19]), "+r"(d[0][20]),
+        "+r"(d[0][21]), "+r"(d[0][22]), "+r"(d[0][23]), "+r"(d[0][24]), "+r"(d[0][25]),
+        "+r"(d[0][26]), "+r"(d[0][27]), "+r"(d[0][28]), "+r"(d[0][29]), "+r"(d[0][30]),
+        "+r"(d[0][31]), "+r"(d[0][32]), "+r"(d[0][33]), "+r"(d[0][34]), "+r"(d[0][35]),
+        "+r"(d[0][36]), "+r"(d[0][37]), "+r"(d[0][38]), "+r"(d[0][39]), "+r"(d[0][40]),
+        "+r"(d[0][41]), "+r"(d[0][42]), "+r"(d[0][43]), "+r"(d[0][44]), "+r"(d[0][45]),
+        "+r"(d[0][46]), "+r"(d[0][47]), "+r"(d[0][48]), "+r"(d[0][49]), "+r"(d[0][50]),
+        "+r"(d[0][51]), "+r"(d[0][52]), "+r"(d[0][53]), "+r"(d[0][54]), "+r"(d[0][55]),
+        "+r"(d[0][56]), "+r"(d[0][57]), "+r"(d[0][58]), "+r"(d[0][59]), "+r"(d[0][60]),
+        "+r"(d[0][61]), "+r"(d[0][62]), "+r"(d[0][63]), "+r"(d[1][0]), "+r"(d[1][1]),
+        "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[1][4]), "+r"(d[1][5]), "+r"(d[1][6]), "+r"(d[1][7]),
+        "+r"(d[1][8]), "+r"(d[1][9]), "+r"(d[1][10]), "+r"(d[1][11]), "+r"(d[1][12]),
+        "+r"(d[1][13]), "+r"(d[1][14]), "+r"(d[1][15]), "+r"(d[1][16]), "+r"(d[1][17]),
+        "+r"(d[1][18]), "+r"(d[1][19]), "+r"(d[1][20]), "+r"(d[1][21]), "+r"(d[1][22]),
+        "+r"(d[1][23]), "+r"(d[1][24]), "+r"(d[1][25]), "+r"(d[1][26]), "+r"(d[1][27]),
+        "+r"(d[1][28]), "+r"(d[1][29]), "+r"(d[1][30]), "+r"(d[1][31]), "+r"(d[1][32]),
+        "+r"(d[1][33]), "+r"(d[1][34]), "+r"(d[1][35]), "+r"(d[1][36]), "+r"(d[1][37]),
+        "+r"(d[1][38]), "+r"(d[1][39]), "+r"(d[1][40]), "+r"(d[1][41]), "+r"(d[1][42]),
+        "+r"(d[1][43]), "+r"(d[1][44]), "+r"(d[1][45]), "+r"(d[1][46]), "+r"(d[1][47]),
+        "+r"(d[1][48]), "+r"(d[1][49]), "+r"(d[1][50]), "+r"(d[1][51]), "+r"(d[1][52]),
+        "+r"(d[1][53]), "+r"(d[1][54]), "+r"(d[1][55]), "+r"(d[1][56]), "+r"(d[1][57]),
+        "+r"(d[1][58]), "+r"(d[1][59]), "+r"(d[1][60]), "+r"(d[1][61]), "+r"(d[1][62]),
+        "+r"(d[1][63])
+      : "l"(a), "l"(b), "r"(static_cast<int>(accumulate)));
+}
+
+// The wide tile's ring of S stages.  Stage i sits in slot i % S; full[slot]
+// completes when the weight slice and the block's activation tile have
+// landed, empty[slot] when both consumer warpgroups have released it.  Both
+// read every stage in order, so neither can wait on a phase two behind or
+// ahead: no turns, unlike Ring.
+template <int S>
+struct WideRing {
+  uint64_t* bars;  // full[S], empty[S]
+
+  static constexpr size_t kBytes = 2 * S * sizeof(uint64_t);
+  __device__ __forceinline__ uint64_t* full(int slot) { return bars + slot; }
+  __device__ __forceinline__ uint64_t* empty(int slot) { return bars + S + slot; }
+
+  __device__ __forceinline__ void init() {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    fence_barrier_init();
+  }
+
+  // producer thread: wait for slot i % S to be free, then copy the weight
+  // slice (rows n0 .. n0 + 255, bytes k0 .. k0 + 127 of w_map) and the
+  // activation tile (rows m0 .. m0 + 127 of x_map) into it, on full[slot]
+  __device__ __forceinline__ void produce(int8_t* stages, const CUtensorMap* w_map,
+                                          const CUtensorMap* x_map, int i, int k0, int n0,
+                                          int m0) {
+    const int slot = i % S;
+    int8_t* stage = stages + slot * kWideStageBytes;
+    mbar_wait(empty(slot), ((i / S) & 1) ^ 1);
+    mbar_arrive_expect_tx(full(slot), kWideStageBytes);
+    tma_load(stage, w_map, full(slot), k0, n0);
+    tma_load(stage + kWideWeightBytes, x_map, full(slot), k0, m0);
+  }
+
+  // consumer warpgroup: stage i has landed -> its weight slice (the
+  // activation tile follows it at kWideWeightBytes)
+  __device__ __forceinline__ const int8_t* wait_full(const int8_t* stages, int i) {
+    const int slot = i % S;
+    mbar_wait(full(slot), (i / S) & 1);
+    return stages + slot * kWideStageBytes;
+  }
+
+  // consumer warpgroup, after its products on stage i are complete
+  __device__ __forceinline__ void release(int i, int thread_in_wg) {
+    if (thread_in_wg == 0) mbar_arrive(empty(i % S));
+  }
+};
+
+// Consumer warpgroup w's products for one wide tile: d = A [64 x K] (rows
+// [64 w, 64 w + 64) of each stage's activation tile) * W[tile]^T over K / 128
+// stages, stage first_stage + t for the t-th 128 bytes of K.  Keeps one wgmma
+// group in flight and releases each stage as soon as its products are done.
+template <int S>
+__device__ __forceinline__ void wide_tile_products(int (&d)[2][64], WideRing<S>& ring,
+                                                   const int8_t* stages, int K, int first_stage,
+                                                   int w, int thread_in_wg) {
+  const int steps = K / kStageK;
+  fence_acc(d[0]);
+  fence_acc(d[1]);
+  for (int t = 0; t < steps; ++t) {
+    const int8_t* b = ring.wait_full(stages, first_stage + t);
+    const int8_t* a = b + kWideWeightBytes + w * kFrames * kStageK;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kStageK / 32; ++ks)
+      wgmma_s8_n256(d, desc_sw128(a + ks * 32), desc_sw128(b + ks * 32), t > 0 || ks > 0);
+    wgmma_commit();
+    if (t > 0) {
+      wgmma_wait<1>();
+      ring.release(first_stage + t - 1, thread_in_wg);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(d[0]);
+  fence_acc(d[1]);
+  ring.release(first_stage + steps - 1, thread_in_wg);
 }
 
 // ---------------------------------------------------------------------------

@@ -271,7 +271,8 @@ def wgmma_cluster(frames: int) -> int:
 
 def _check_tma_weight(name: str, w_t: torch.Tensor, what: str = "the weight") -> None:
     """The wgmma kernels read the weight (K2, K7: and the activations) by
-    TMA, from a 16-byte boundary."""
+    TMA, from a 16-byte boundary; K8 its zero-point sums and biases in
+    16-byte copies too."""
     if w_t.data_ptr() % 16:
         raise ValueError(f"{name}: {what} must start on a 16-byte boundary")
 
@@ -589,6 +590,8 @@ def flash_stats(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, valid_
                                  valid_count=valid_count, semantics=semantics, fast=fast)
     device, code = _stats_args("flash_stats", acts, w_t, colsum, bias, masks, valid_count,
                                semantics)
+    _check_tma_weight("flash_stats", colsum, "the zero-point sums")
+    _check_tma_weight("flash_stats", bias, "the bias")
     b, k = acts.shape
     n = w_t.shape[0]
     z, m, s, tile_max = _stats_outputs(b, n, device, fast)

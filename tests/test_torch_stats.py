@@ -314,40 +314,55 @@ def _merge(a, b):
     return m.astype(np.float32), s.astype(np.float32)
 
 
+def _fold_tiles(rows, tiles):
+    """A running (m, s) per row over the 128-column tiles `tiles` of rows,
+    one tile at a time, from (-inf, 0)."""
+    m = np.full(rows.shape[0], -np.inf, np.float32)
+    s = np.zeros(rows.shape[0], np.float32)
+    for g in tiles:
+        t = rows[:, g * 128:(g + 1) * 128]
+        m_new = np.maximum(m, t.max(axis=1))
+        e = np.exp(t - m_new[:, None]).sum(axis=1, dtype=np.float32)
+        s = (s * np.exp(m - m_new) + e).astype(np.float32)
+        m = m_new
+    return m, s
+
+
 def _k8_fold(z, valid_count, semantics="reference", active=None):
     """(m, s) [B, 1] from logits z [B, N] in K8's fold order
-    (csrc/flash_stats.cu): per 64-frame block, the two blocks of a pair take
-    the first and second half of the column tiles (rowstats::ColumnPart),
-    the two consumer warpgroups of a block take alternate tiles of its list
-    (every tile, or with `active` [B / 64, N / 128] the active ones), each
-    folding its tiles online; the warpgroups' pairs merge, then (skipping,
-    under reference) the block's skipped valid columns as the pair
-    (0, count), then the blocks in rank order; m is floored at -1e30."""
+    (csrc/flash_stats.cu), m floored at -1e30.  Dense (`active` None): the
+    two blocks of a pair share 128 frames and take the first and second half
+    of the 256-column tiles (rowstats::ColumnPart); each row's warpgroup
+    folds its block's columns online, 128 at a time, and the blocks merge in
+    rank order.  Skipping (`active` [B / 64, N / 128]): per 64-frame block,
+    the pair takes the first and second half of the 128-column tiles, its two
+    consumer warpgroups alternate over the active ones, each folding online;
+    the warpgroups' pairs merge, then under reference the block's skipped
+    valid columns as the pair (0, count), then the blocks in rank order."""
     z = np.asarray(z, np.float32)
     b, n = z.shape
     tiles = n // 128
-    per = -(-tiles // 2)
-    parts = [(g0, min(tiles, g0 + per)) for g0 in (0, per)]
     m_out = np.empty((b, 1), np.float32)
     s_out = np.empty((b, 1), np.float32)
+    if active is None:
+        wide = -(-tiles // 2)  # 256-column tiles
+        per = 2 * -(-wide // 2)  # 128-column tiles of a pair's first block
+        total = (np.full(b, -np.inf, np.float32), np.zeros(b, np.float32))
+        for g0, g1 in ((0, min(tiles, per)), (min(tiles, per), tiles)):
+            total = _merge(total, _fold_tiles(z, range(g0, g1)))
+        m_out[:, 0] = np.maximum(total[0], np.float32(-1e30))
+        s_out[:, 0] = total[1]
+        return m_out, s_out
+    per = -(-tiles // 2)
+    parts = [(g0, min(tiles, g0 + per)) for g0 in (0, per)]
     empty = (np.full(64, -np.inf, np.float32), np.zeros(64, np.float32))
     for r0 in range(0, b, 64):
         rows = z[r0:r0 + 64]
         total = empty
         for g0, g1 in parts:
-            listed = [g for g in range(g0, g1) if active is None or active[r0 // 64, g]]
-            pairs = []
-            for w in range(2):
-                m, s = empty
-                for g in listed[w::2]:
-                    t = rows[:, g * 128:(g + 1) * 128]
-                    m_new = np.maximum(m, t.max(axis=1))
-                    e = np.exp(t - m_new[:, None]).sum(axis=1, dtype=np.float32)
-                    s = (s * np.exp(m - m_new) + e).astype(np.float32)
-                    m = m_new
-                pairs.append((m, s))
-            block = _merge(*pairs)
-            if active is not None and semantics == "reference":
+            listed = [g for g in range(g0, g1) if active[r0 // 64, g]]
+            block = _merge(*(_fold_tiles(rows, listed[w::2]) for w in range(2)))
+            if semantics == "reference":
                 skipped = sum(min(max(valid_count - g * 128, 0), 128)
                               for g in range(g0, g1) if not active[r0 // 64, g])
                 if skipped:
@@ -359,8 +374,9 @@ def _k8_fold(z, valid_count, semantics="reference", active=None):
     return m_out, s_out
 
 
-# 33 column tiles: the pair splits them 17 / 16, and the warpgroups of a
-# block take 9 / 8 and 8 / 8
+# 33 column tiles of 128: dense, the pair takes 9 / 8 tiles of 256 (the
+# last one half), 18 / 15 of 128; skipping, the pair splits them 17 / 16
+# and the warpgroups of a block take 9 / 8 and 8 / 8
 FOLD_SHAPE = (128, 128, 4224, 4100, 4224)
 
 
@@ -605,6 +621,39 @@ def test_stats_kernels_match_plain_versions_on_card(cuda_device, semantics):
     assert p.dtype == torch.bfloat16
     torch.testing.assert_close(p.float(), tops.normalize_stats(
         *got[:3], out_dim=out, tile_max=got[3]).float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+
+
+# (B, K, N, valid count): the YouTube net's output layer (K = 2560, 17,552
+# senones padded to 17,664) on two blocks, and a ragged last block (B % 128
+# == 64) with a half last tile (N % 256 == 128)
+WIDE_TILE_SHAPES = [(256, 2560, 17664, 17552), (320, 2560, 8064, 8000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WIDE_TILE_SHAPES, ids=["youtube", "ragged"])
+@pytest.mark.parametrize("mode", ["unmasked", *SEMANTICS, "fast"])
+def test_wide_tile_stats_match_plain_version_on_card(cuda_device, shape, mode):
+    """K8's dense variants on their 128-frame x 256-column tile against the
+    plain version: z, m and (fast, unmasked and masked) the tile maxes
+    bitwise, s within rtol 1e-5."""
+    b, k, n, valid = shape
+    args, masks, _ = _layer(b, k, n, valid, n + b)
+    x, w_t, colsum, inv, bias = (t.to(cuda_device) if isinstance(t, torch.Tensor) else t
+                                 for t in _wrapper_args(*args))
+    w = w_t.t()
+    masks = torch.as_tensor(masks).to(cuda_device)
+    cases = {"unmasked": [(None, "reference", False)], "reference": [(masks, "reference", False)],
+             "active_only": [(masks, "active_only", False)],
+             "fast": [(None, "reference", True), (masks, "reference", True)]}[mode]
+    for m, semantics, fast in cases:
+        got = kernels.flash_stats(x, w_t, colsum, inv, bias, m, valid_count=valid,
+                                  semantics=semantics, fast=fast)
+        want = tops.flash_stats(x, w, colsum, inv, bias, m, valid_count=valid,
+                                semantics=semantics, fast=fast)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=STATS_RTOL, atol=0)
+        if fast:
+            assert torch.equal(got[3], want[3])
 
 
 @pytest.mark.cuda
