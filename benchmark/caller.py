@@ -13,7 +13,7 @@ A caller has:
                           distances from the reference (reference/compare.py)
 
 Each request records its host-clock span and counters of the work it
-asked for, which the metrics read (roofline.request_work):
+asked for, which the metrics read (the net module's `work`, spec.net):
   frames          frames whose posteriors it returned (audio seconds)
   hidden_frames   frames it sent through the input layer and the trunk
   output_frames   frames it sent through the dense output layer

@@ -27,15 +27,15 @@ import numpy as np
 import torch
 
 from . import spec as specs
-from .program import build_scorer
-from .reference.net import ReferenceNet, softmax
+from .reference.net import softmax
 from .run import run_cell
 
 
 class ReferenceScorer:
-    """The reference with the entry points that the callers (entries/) call."""
+    """A net's reference (its module's `reference`) with the entry points
+    that the callers (entries/) call."""
 
-    def __init__(self, ref: ReferenceNet):
+    def __init__(self, ref):
         self.ref = ref
 
     def score_device(self, frames: torch.Tensor) -> torch.Tensor:
@@ -49,7 +49,7 @@ class ReferenceScorer:
 
 
 class _ReferenceLazy:
-    def __init__(self, ref: ReferenceNet):
+    def __init__(self, ref):
         self.ref = ref
 
     def calculate_until_output(self, frames) -> None:
@@ -64,18 +64,20 @@ class _ReferenceLazy:
 
 
 def system_for(variant: str):
-    """The system under test for a variant: the program, one of its
-    lower-precision paths, or the reference one precision below."""
+    """The system under test for a variant, from the configuration's net
+    (spec.net): the program, one of its lower-precision paths, or the
+    reference one precision below."""
     if variant == "program":
-        return build_scorer
+        return lambda config, net, device: specs.net(config).build(config, net, device)
     if variant == "bf16":
-        return lambda config, net, device: build_scorer(config, net, device,
-                                                        engine={"input_precision": "default"})
+        return lambda config, net, device: specs.net(config).build(
+            config, net, device, engine={"input_precision": "default"})
     if variant == "int4":
-        return lambda config, net, device: build_scorer(config, net, device, hidden_bits=4)
+        return lambda config, net, device: specs.net(config).build(config, net, device,
+                                                                   hidden_bits=4)
     if variant == "tf32":
         return lambda config, net, device: ReferenceScorer(
-            ReferenceNet(net, config["cutoff"], device, input_rounding="tf32"))
+            specs.net(config).reference(config, net, device, input_rounding="tf32"))
     raise ValueError(f"unknown variant {variant!r}")
 
 

@@ -1,7 +1,7 @@
 """output_lazy.host_ms_per_request.lazy: host ms inside the program's
 `fastdnn.output_lazy` spans per request, less the device's busy time
-inside them: the host's side of a frame's output layer, the row padding
-to K5's tile, K5's launch and the masked softmax's torch ops
+inside them: the host's side of a frame's output layer, the wrapper's
+checks, its output's allocation and the one `lazy_output` launch
 (benchmark.spans)."""
 
 from benchmark.spans import host_ms_per_request

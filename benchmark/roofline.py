@@ -1,6 +1,7 @@
 """The yardstick of the per-layer rooflines and of the step's share of the
 peak: the work each layer of the net does for a request, counted from the
-configuration's shapes, and the card's published peaks.
+configuration's shapes by the net's module (spec.net: its `work`; the
+feed-forward net's counts are below), and the card's published peaks.
 
 A layer's own work is counted once, whatever kernel computes it: each input
 byte read once and each output byte written once, the operations of its
@@ -20,6 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from . import kernel_table
+from . import spec as specs
 
 PEAK_OPS_PER_S = {"tf32": 495e12, "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -84,7 +86,7 @@ def output_lazy(config: dict, active: int) -> Work:
 
 def request_work(config: dict, counts: dict) -> dict:
     """A request's counters (see caller.py) -> {layer: Work} for the
-    layers it ran."""
+    layers it ran: the feed-forward net's `work` (nets/feedforward.py)."""
     work = {}
     if counts.get("hidden_frames"):
         work["input_layer"] = input_layer(config, counts["hidden_frames"])
@@ -97,23 +99,25 @@ def request_work(config: dict, counts: dict) -> dict:
 
 
 def _requests_work(run):
-    return [request_work(run.config, counts) for _, _, counts in run.timeline.requests]
+    work = specs.net(run.config).work
+    return [work(run.config, counts) for _, _, counts in run.timeline.requests]
 
 
 def layer_share(run, layer: str):
     """The layer's roofline share in a traced run, in %: the least time of
     the work its requests asked for, over the device time of the kernels
     that kernel_table assigns to it, in the window.  The lazy output layer
-    also takes every PyTorch kernel of the window: in a lazily scored frame
-    those are its masked softmax and the padding of its activation row.
-    None where the layer did no work or ran no kernel."""
+    also takes every PyTorch kernel of the window, as it has since its
+    masked softmax ran in torch ops; a lazily scored frame now runs
+    `lazy_output` alone, so the lazy cells' traces hold none.  None where
+    the layer did no work or ran no kernel."""
     tl = run.timeline
     if tl is None:
         return None
     a, b = tl.window
     rows = [(sym, min(e, b) - max(s, a)) for s, e, sym in tl.device if e > a and s < b]
     ours, other = kernel_table.by_kernel(rows)
-    device_s = sum(t for name, t in ours.items() if kernel_table.LAYER_OF[name] == layer)
+    device_s = sum(t for name, t in ours.items() if kernel_table.layer_of(name) == layer)
     if layer == "output_lazy":
         device_s += sum(t for sym, t in other.items() if not kernel_table.is_copy(sym))
     bound_s = sum(w[layer].bound_s for w in _requests_work(run) if layer in w)

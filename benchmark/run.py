@@ -4,10 +4,11 @@
 
 from the root of a checkout that holds the program (fastdnn_tpu_torch).
 The run draws the net's weights and the cell's traffic from the seed,
-builds the program's Scorer, warms every shape the traffic uses, then
+builds the program's system through the configuration's net module
+(spec.net), warms every shape the traffic uses, then
 drives the cell's entry in a closed loop for `--seconds`.  Once the window
 has closed it frees the program and judges the answers it kept against the
-plain reference (reference/), and prints, as the last line of standard
+net's plain reference, and prints, as the last line of standard
 output, one JSON object: `correct`, `attempted`, `failed`, `metrics` (the
 cell's end-to-end metrics, or with `--trace 1` its per-layer metrics, read
 from a torch.profiler trace of the window), `device`, with `--trace 1`
@@ -40,10 +41,9 @@ os.environ["CUDA_CACHE_PATH"] = str(_CACHE / "cuda")
 
 import torch  # noqa: E402
 
-from . import generate, model, timeline  # noqa: E402
+from . import generate, timeline  # noqa: E402
 from .record import Run  # noqa: E402
 from .reference import compare  # noqa: E402
-from .reference.net import ReferenceNet  # noqa: E402
 
 #: top-level modules that no run may load (compared whole)
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "fastdnn_tpu"})
@@ -62,6 +62,14 @@ def forbidden_modules() -> list:
     return sorted({name.split(".")[0] for name in sys.modules} & FORBIDDEN)
 
 
+def _leaked() -> bool:
+    """Whether a forbidden module is loaded; names it on standard error."""
+    leaked = forbidden_modules()
+    if leaked:
+        print(f"forbidden modules loaded: {', '.join(leaked)}", file=sys.stderr)
+    return bool(leaked)
+
+
 def power_limit() -> str | None:
     """The card's power limit as nvidia-smi states it, or None."""
     try:
@@ -78,24 +86,25 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
              build=None, config_overrides: dict | None = None,
              traffic_overrides: dict | None = None):
     """One run of `cell` on `device` -> the result object, or None when a
-    forbidden module was loaded.  `build(config, net, device)` makes the
-    system under test (the program's Scorer by default; the controls put
-    other things in its place); the overrides (tests only) replace keys of
-    the configuration and the parameters of the traffic mix's
-    input parts."""
-    if build is None:
-        from .program import build_scorer as build  # the system under test
-
+    forbidden module was loaded: when the window closed, or by the time the
+    result is made (the net's reference and work run after the window).
+    `build(config, net, device)` makes the system under test (the net
+    module's `build`, the program, by default; the controls put other
+    things in its place); the overrides (tests only) replace keys of the
+    configuration and the parameters of the traffic mix's input parts."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     config = dict(specs.config(spec, cell), **(config_overrides or {}))
+    net_module = specs.net(config)
+    if build is None:
+        build = net_module.build  # the system under test
     params = specs.traffic(cell)
     for part, values in (traffic_overrides or {}).items():
         params["inputs"][part] = dict(params["inputs"][part], **values)
     limits = specs.limits(cell)
 
     marks = [("start", process_age_s())]
-    net = model.draw(config, seed, device)
+    net = net_module.draw(config, seed, device)
     marks.append(("weights", process_age_s()))
     scorer = build(config, net, device)
     marks.append(("system", process_age_s()))
@@ -127,9 +136,7 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
         del prof
     memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
-    leaked = forbidden_modules()
-    if leaked:
-        print(f"forbidden modules loaded: {', '.join(leaked)}", file=sys.stderr)
+    if _leaked():
         return None
 
     caller.release()
@@ -141,7 +148,7 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
     torch.backends.cudnn.allow_tf32 = False
     t_ref = time.perf_counter()
     with torch.inference_mode():
-        reference = ReferenceNet(net, config["cutoff"], device)
+        reference = net_module.reference(config, net, device)
         readings = compare.numbers(caller.distances(reference))
     print(f"reference s: {time.perf_counter() - t_ref:.3f}", file=sys.stderr)
     correct, checks = compare.judge(readings, limits)
@@ -168,6 +175,8 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
         dev["window_s"] = tl.window_s
         result["breakdown"] = timeline.breakdown(tl)
     result["checks"] = checks
+    if _leaked():  # again: the net's reference and work ran since
+        return None
     return result
 
 

@@ -1,12 +1,14 @@
 """Finding a cell's pieces by name: BENCHMARK.json at the checkout's root,
-the configuration file it names, the traffic mix traffic/<mix>.json, its
-entry's caller entries/<entry>.py and input parts inputs/<part>.py, the
-limits of the comparison checks/<cell>.json, and each metric's reader
-metrics/<metric>.py.  A new cell, entry, input part or metric is new
+the configuration file it names and the net module nets/<net>.py that the
+configuration names, the traffic mix traffic/<mix>.json, its entry's
+caller entries/<entry>.py and input parts inputs/<part>.py, the limits of
+the comparison checks/<cell>.json, and each metric's reader
+metrics/<metric>.py.  A new net, cell, entry, input part or metric is new
 entries and new files; nothing here changes."""
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -53,7 +55,7 @@ def metrics(spec: dict, cell: dict, trace: bool) -> list:
 
 def module(kind: str, name: str):
     """The module <kind>/<name>.py of the benchmark (kind: metrics,
-    entries or inputs), loaded from its file."""
+    entries, inputs or nets), loaded from its file."""
     path = HERE / kind / f"{name}.py"
     if not path.is_file():
         raise KeyError(f"no module {kind}/{name}.py in the benchmark")
@@ -72,3 +74,30 @@ def reader(name: str):
 def caller(entry: str):
     """The caller class of a public entry, entries/<entry>.py's `CALLER`."""
     return module("entries", entry).CALLER
+
+
+def net(config: dict):
+    """The configuration's net, nets/<config["net"]>.py (feedforward
+    without the key).  A net module provides
+
+      draw(config, seed, device)              the float weights, from the seed
+      build(config, weights, device, engine=None, hidden_bits=None)
+                                              the program's system, through
+                                              its public set-up path
+      reference(config, weights, device, input_rounding=None)
+                                              the plain reference: posteriors,
+                                              masked_posteriors, hidden, logits
+      work(config, counts)                    {layer: roofline.Work} of a
+                                              request's counters (caller.py)
+      TINY                                    the configuration keys that
+                                              shrink the net for the CPU tests
+
+    Each net is loaded once a process, so that every lookup finds the same
+    module and whatever state it keeps.
+    """
+    return _net(config.get("net", "feedforward"))
+
+
+@functools.lru_cache(maxsize=None)
+def _net(name: str):
+    return module("nets", name)

@@ -1,6 +1,7 @@
-"""The harness on the CPU: its generators, its yardsticks, BENCHMARK.json
-against its format, a run of every cell at a small size, the faults that
-must read as not correct, and the import guard."""
+"""The harness on the CPU: its generators, its yardsticks, the net modules
+and kernel files, BENCHMARK.json against its format, a run of every cell at
+a small size, the faults that must read as not correct, and the import
+guard."""
 
 import json
 import math
@@ -10,6 +11,7 @@ import shutil
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,7 +23,9 @@ from benchmark.record import Run
 ROOT = spec.ROOT
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [c["name"] for c in BENCH["workloads"]]
-TINY_CONFIG = {"hidden_widths": [256, 256, 256], "output_dim": 1000}
+#: lazy_output's symbol as the profiler demangles it
+LAZY_OUTPUT = ("void (anonymous namespace)::lazy_output_kernel(signed char const*, "
+               "signed char const*, int const*, float const*, unsigned char const*, float*)")
 SHORT = {"median": 150, "sigma": 0.6, "min": 100, "max": 400}
 TINY_TRAFFIC = {  # entry -> {input part: parameters replaced}
     "score_device": {"ring": {"frames": 256}},
@@ -29,10 +33,16 @@ TINY_TRAFFIC = {  # entry -> {input part: parameters replaced}
 }
 
 
+def tiny(cell) -> dict:
+    """The configuration keys that shrink the cell's net (its net module's
+    TINY)."""
+    return spec.net(spec.config(BENCH, spec.workload(BENCH, cell))).TINY
+
+
 def tiny_run(cell, seed=5, seconds=0.3, trace=False, build=None):
     entry = spec.traffic(spec.workload(BENCH, cell))["entry"]
     return run.run_cell(BENCH, spec.workload(BENCH, cell), seed, seconds, trace, "cpu",
-                        build=build, config_overrides=TINY_CONFIG,
+                        build=build, config_overrides=tiny(cell),
                         traffic_overrides=TINY_TRAFFIC[entry])
 
 
@@ -44,7 +54,7 @@ def test_traffic_repeats_under_a_seed_and_differs_across_seeds(cell):
     params = spec.traffic(spec.workload(BENCH, cell))
     for part, values in TINY_TRAFFIC[params["entry"]].items():
         params["inputs"][part].update(values)
-    config = dict(spec.config(BENCH, spec.workload(BENCH, cell)), **TINY_CONFIG)
+    config = dict(spec.config(BENCH, spec.workload(BENCH, cell)), **tiny(cell))
     a, b, c = (generate.make(params, s, config, "cpu") for s in (2**33 + 1, 2**33 + 1, 7))
     tensors = lambda t: t.batches or [torch.from_numpy(u) for u in t.utterances]
     assert all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))
@@ -74,7 +84,8 @@ def test_masks_keep_their_density_and_churn():
 
 
 def test_weights_repeat_under_a_seed():
-    config = dict(spec.config(BENCH, spec.workload(BENCH, "flagship-dense")), **TINY_CONFIG)
+    config = dict(spec.config(BENCH, spec.workload(BENCH, "flagship-dense")),
+                  **tiny("flagship-dense"))
     a, b, c = (model.draw(config, s, "cpu") for s in (9, 9, 10))
     assert all(torch.equal(x, y) for x, y in zip(a.weights, b.weights))
     assert not torch.equal(a.weights[1], c.weights[1])
@@ -128,12 +139,13 @@ def test_kernel_table_is_the_programs():
         "void fdn::resident_softmax_wgmma_kernel<0, false, 2>(...)",
         "void fdn::flash_stats_kernel<1, 0, true>(...)",
         "void fdn::input_layer_kernel<2>(...)", "fdn::hidden_stack_wgmma_kernel<1>",
+        LAZY_OUTPUT,
         "Memcpy DtoH (Device -> Pageable)", "void at::native::reduce_kernel<512, 1>(...)",
     ]
     for s in symbols:
         assert kernel_table.kernel_of(s) == profile.kernel_of(s)
     ours, other = kernel_table.by_kernel([(s, 1.0) for s in symbols])
-    assert {kernel_table.LAYER_OF[n] for n in ours} == {"output_lazy", "trunk", "output_dense",
+    assert {kernel_table.layer_of(n) for n in ours} == {"output_lazy", "trunk", "output_dense",
                                                          "input_layer"}
     assert list(other) == symbols[-2:]
     assert kernel_table.is_copy(symbols[-2]) and not kernel_table.is_copy(symbols[-1])
@@ -185,6 +197,122 @@ def test_readers_without_a_trace_read_nothing():
     r = Run({"name": "x"}, _config("flagship"), {}, 1.0, [], None)
     for entry in BENCH["per_layer"]:
         assert spec.reader(entry["name"]).read(r) is None
+
+
+# -- net modules and kernel files --------------------------------------------------------
+
+
+def test_a_configuration_without_a_net_is_the_feedforward_net():
+    path = lambda m: Path(m.__file__)
+    default = ROOT / "benchmark" / "nets" / "feedforward.py"
+    assert path(spec.net({})) == default == path(spec.net({"net": "feedforward"}))
+    assert spec.net({}) is spec.net({"net": "feedforward"})  # loaded once a process
+    for cell in BENCH["workloads"]:
+        assert path(spec.net(spec.config(BENCH, cell))) == default
+    with pytest.raises(KeyError, match="nets/no_such_net.py"):
+        spec.net({"net": "no_such_net"})
+
+
+def test_the_feedforward_net_binds_the_harness_functions():
+    from benchmark import program
+    from benchmark.reference.net import ReferenceNet
+
+    ff = spec.net({})
+    assert ff.draw is model.draw and ff.build is program.build_scorer
+    assert ff.work is roofline.request_work
+    config = dict(_config("flagship"), **ff.TINY)
+    weights = ff.draw(config, 4, "cpu")
+    frames = torch.randn(40, 429, generator=torch.Generator().manual_seed(4))
+    for rounding in (None, "tf32"):
+        ref = ff.reference(config, weights, "cpu", input_rounding=rounding)
+        assert isinstance(ref, ReferenceNet) and ref.input_rounding == rounding
+        plain = ReferenceNet(weights, config["cutoff"], "cpu", input_rounding=rounding)
+        assert torch.equal(ref.posteriors(frames), plain.posteriors(frames))
+
+
+@pytest.mark.parametrize("name", ["run.py", "roofline.py", "controls.py"])
+def test_the_harness_reaches_a_net_only_through_its_module(name):
+    source = (ROOT / "benchmark" / name).read_text()
+    assert "specs.net(" in source
+    for hook in ("model.draw", "build_scorer", "ReferenceNet"):
+        assert hook not in source, hook
+
+
+def test_kernel_files_name_lazy_output():
+    files = kernel_table.kernel_files(kernel_table.KERNELS)
+    assert files == (("lazy_output", "lazy_output_kernel", "output_lazy"),)
+    assert kernel_table.kernel_of(LAZY_OUTPUT) == "lazy_output"
+    assert kernel_table.layer_of("lazy_output") == "output_lazy"
+    assert kernel_table.op_name(LAZY_OUTPUT) == "lazy_output"
+
+
+def _kernel_files(tmp_path, monkeypatch, files: dict):
+    for name, symbol in files.items():
+        (tmp_path / f"{name}.json").write_text(json.dumps({"symbol": symbol, "layer": "trunk"}))
+    monkeypatch.setattr(kernel_table, "KERNELS", tmp_path)
+
+
+def test_a_kernel_file_may_not_take_a_built_in_name(tmp_path, monkeypatch):
+    _kernel_files(tmp_path, monkeypatch, {"bottleneck": "bottleneck_kernel",
+                                          "hidden_stack": "stack_v2_kernel"})
+    with pytest.raises(ValueError, match="hidden_stack.json.*built-in"):
+        kernel_table.kernel_of("void bottleneck_kernel<1>(...)")
+
+
+def test_no_symbol_may_match_two_kernel_files(tmp_path, monkeypatch):
+    _kernel_files(tmp_path, monkeypatch, {"bottleneck": "bottleneck_kernel",
+                                          "bottleneck_wide": "bottleneck_kernel_wide"})
+    assert kernel_table.kernel_of("void bottleneck_kernel<1>(...)") == "bottleneck"
+    assert kernel_table.layer_of("bottleneck") == "trunk"
+    with pytest.raises(ValueError, match="bottleneck, bottleneck_wide"):
+        kernel_table.kernel_of("void bottleneck_kernel_wide<1>(...)")
+    assert kernel_table.kernel_of("void hidden_stack_wgmma_kernel<1>") == "hidden_stack"
+
+
+@pytest.mark.parametrize("sub, symbol, built_in", [
+    ("flash_stats_kernel<1, 0, false, 7>", "void fdn::flash_stats_kernel<1, 0, false, 7>(...)",
+     "flash_stats"),
+    ("SigmoidEpilogue<256>", "void fdn::streamed_layer_kernel<fdn::SigmoidEpilogue<256> >(...)",
+     "hidden_layer"),
+])
+def test_no_symbol_may_match_a_built_in_rule_and_a_kernel_file(tmp_path, monkeypatch, sub,
+                                                               symbol, built_in):
+    _kernel_files(tmp_path, monkeypatch, {"factored_layer": sub})
+    with pytest.raises(ValueError, match=f"named {built_in!r} by a built-in rule.*factored_layer"):
+        kernel_table.kernel_of(symbol)
+    other = symbol.replace("256", "128").replace("7>", "0>")  # what the file does not match
+    assert kernel_table.kernel_of(other) == built_in
+
+
+def _synthetic_lazy_run():
+    """Four lazily scored frames: each the mask's upload, lazy_output and
+    the posteriors' download; the third also a PyTorch kernel."""
+    device, requests = [], []
+    for i in range(4):
+        t = i * 1.7e-4
+        requests.append((t, t + 1.6e-4, {"frames": 1, "lazy_active": 3000 + 100 * i}))
+        device += [(t + 1e-5, t + 1.3e-5, "Memcpy HtoD (Pinned -> Device)"),
+                   (t + 2e-5, t + 2e-5 + (1.21 + 0.07 * i) * 1e-5, LAZY_OUTPUT),
+                   (t + 4e-5, t + 4.3e-5, "Memcpy DtoH (Device -> Pinned)")]
+    device.append((3.9e-4, 3.93e-4, "void at::native::vectorized_elementwise_kernel<4>(...)"))
+    tl = timeline.Timeline(window=(0.0, 6.7e-4), requests=requests, device=sorted(device),
+                           host=[(s, e, "bench.request") for s, e, _ in requests])
+    return Run({"name": "flagship-lazy-context"}, _config("flagship"), {}, 1.0, [], tl)
+
+
+def test_output_lazy_roofline_is_the_same_with_and_without_its_kernel_file(tmp_path,
+                                                                              monkeypatch):
+    r = _synthetic_lazy_run()
+    read = lambda: spec.reader("output_lazy_roofline").read(r)
+    named = read()
+    device_s = sum((1.21 + 0.07 * i) * 1e-5 for i in range(4)) + 3e-6
+    bound_s = sum(roofline.output_lazy(r.config, 3000 + 100 * i).bound_s for i in range(4))
+    assert named == pytest.approx(100 * bound_s / device_s, rel=1e-9)
+    assert dict(timeline.breakdown(r.timeline)["device_ops"])["lazy_output"] > 0
+    monkeypatch.setattr(kernel_table, "KERNELS", tmp_path)  # no kernel file
+    assert kernel_table.kernel_of(LAZY_OUTPUT) is None
+    assert read() == named  # to the last bit
+    assert "lazy_output" not in dict(timeline.breakdown(r.timeline)["device_ops"])
 
 
 # -- BENCHMARK.json against its format ------------------------------------------------------
@@ -480,3 +608,189 @@ def test_a_cell_an_entry_and_a_metric_are_added_as_files_alone(tmp_path):
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["correct"] and result["metrics"]["frames_per_request"]["value"] >= 100
     assert all(p.read_bytes() == b for p, b in before.items())
+
+
+TOY_NET = textwrap.dedent('''
+    """toy: the feed-forward net under a name of its own, a throwaway net
+    module that appends the name of each hook it is called through to the
+    file that $TOY_CALLS names, and imports fastdnn_tpu in the hook that
+    $TOY_IMPORTS names."""
+
+    import os
+
+    from benchmark import spec
+
+    _ff = spec.module("nets", "feedforward")
+    TINY = _ff.TINY
+
+
+    def _called(hook):
+        with open(os.environ["TOY_CALLS"], "a") as f:
+            f.write(hook + "\\n")
+        if os.environ.get("TOY_IMPORTS") == hook:
+            import fastdnn_tpu  # noqa: F401
+
+
+    def draw(config, seed, device):
+        _called("draw")
+        return _ff.draw(config, seed, device)
+
+
+    def build(config, weights, device, engine=None, hidden_bits=None):
+        _called("build")
+        return _ff.build(config, weights, device, engine, hidden_bits)
+
+
+    def reference(config, weights, device, input_rounding=None):
+        _called("reference")
+        return _ff.reference(config, weights, device, input_rounding)
+
+
+    def work(config, counts):
+        _called("work")
+        return _ff.work(config, counts)
+''')
+
+TOY_RUN = textwrap.dedent('''
+    import json, os
+    from benchmark import roofline, run, spec, timeline
+    from benchmark.record import Run
+    from benchmark.tests.test_benchmark_harness import TINY_TRAFFIC, Faulty
+
+    resolved = []
+    _net = spec.net
+
+
+    def net(config):  # every lookup of a net, as the harness makes it
+        module = _net(config)
+        resolved.append(os.path.basename(module.__file__))
+        return module
+
+
+    spec.net = net
+    s = spec.load()
+    cell = spec.workload(s, "toy-lazy-context")  # its seed keeps the pool's first utterance
+    config = spec.config(s, cell)
+    small = dict(config_overrides=spec.net(config).TINY,
+                 traffic_overrides=TINY_TRAFFIC["lazy_context"])
+    ok = run.run_cell(s, cell, 2**33 + 1, 0.3, True, "cpu", **small)
+    fault = lambda c, w, d: Faulty(spec.net(c).build(c, w, d), "altered")
+    bad = run.run_cell(s, cell, 2**33 + 1, 0.3, False, "cpu", build=fault, **small)
+    frame = {"frames": 1, "lazy_active": 300}
+    tl = timeline.Timeline(window=(0.0, 1e-3), requests=[(0.0, 1e-3, frame)],
+                           device=[(1e-4, 2e-4, "void toy_output_kernel<1>(signed char*)")])
+    toy = Run(cell, dict(config, **small["config_overrides"]), {}, 1.0, [], tl)
+    print(json.dumps({"resolved": sorted(set(resolved)), "ok": ok, "bad": bad,
+                      "share": roofline.layer_share(toy, "output_lazy"),
+                      "breakdown": timeline.breakdown(tl)}))
+''')
+
+
+def _only_added(old, new) -> bool:
+    """Whether `new` is `old` with entries added: list items at the end,
+    dict keys anywhere, at any depth."""
+    if isinstance(old, dict):
+        return isinstance(new, dict) and all(k in new and _only_added(v, new[k])
+                                             for k, v in old.items())
+    if isinstance(old, list):
+        return (isinstance(new, list) and len(new) >= len(old)
+                and all(_only_added(a, b) for a, b in zip(old, new)))
+    return old == new
+
+
+def _toy_checkout(tmp_path):
+    """A copy of the checkout with the toy net added as new files and
+    entries: its module, a configuration that names it, a cell on the
+    lazy frames, its limits and a kernel file.  -> (the copy, its benchmark
+    files before the additions, the toy configuration)."""
+    copy = tmp_path / "checkout"
+    copy.mkdir()
+    shutil.copy(ROOT / "BENCHMARK.json", copy)
+    shutil.copytree(ROOT / "benchmark", copy / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench_dir = copy / "benchmark"
+    before = {p: p.read_bytes() for p in bench_dir.rglob("*") if p.is_file()}
+    bench = json.loads((copy / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "toy", "source": "https://github.com/ahmetaa/fast-dnn",
+                             "file": "benchmark/configs/toy.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": "toy-lazy-context", "config": "toy",
+                               "traffic": "lazy_frames", "chips": 1, "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "flagship-lazy-context" in m.get("workloads", []):
+            m["workloads"].append("toy-lazy-context")
+    (copy / "BENCHMARK.json").write_text(json.dumps(bench))
+    (bench_dir / "nets" / "toy.py").write_text(TOY_NET)
+    toy_config = dict(_config("flagship"), name="toy", net="toy")
+    (bench_dir / "configs" / "toy.json").write_text(json.dumps(toy_config))
+    shutil.copy(bench_dir / "checks" / "flagship-lazy-context.json",
+                bench_dir / "checks" / "toy-lazy-context.json")
+    (bench_dir / "kernels" / "toy_output.json").write_text(
+        json.dumps({"symbol": "toy_output_kernel", "layer": "output_lazy"}))
+    return copy, before, toy_config
+
+
+def test_a_net_is_added_as_new_files_alone(tmp_path):
+    """The toy net, added as new files and entries in a copy, run on the
+    CPU: every lookup of a net finds the new module, each of its hooks is
+    called, the run is correct and a planted fault is not, and the new
+    kernel's time counts in its layer."""
+    copy, before, toy_config = _toy_checkout(tmp_path)
+    bench_dir = copy / "benchmark"
+    calls = tmp_path / "toy.calls"
+    out = subprocess.run([sys.executable, "-c", TOY_RUN], capture_output=True, text=True,
+                         cwd=str(copy), timeout=300,
+                         env={**os.environ, "PYTHONPATH": f"{copy}:{ROOT}",
+                              "TOY_CALLS": str(calls)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["resolved"] == ["toy.py"]
+    assert set(calls.read_text().split()) == {"draw", "build", "reference", "work"}
+    ok, bad = result["ok"], result["bad"]
+    assert ok["correct"] and ok["failed"] == 0 and ok["attempted"] > 0
+    assert bad["failed"] == 0 and not bad["correct"]
+    lazy = roofline.output_lazy(dict(toy_config, **spec.net({}).TINY), 300)
+    assert result["share"] == pytest.approx(100 * lazy.bound_s / 1e-4)
+    assert result["breakdown"]["device_ops"] == [["toy_output", pytest.approx(1e-4)]]
+
+    assert all(p.read_bytes() == b for p, b in before.items())
+    added = {p for p in bench_dir.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+    assert {p.relative_to(bench_dir).as_posix() for p in added - set(before)} == {
+        "nets/toy.py", "configs/toy.json", "checks/toy-lazy-context.json",
+        "kernels/toy_output.json"}
+    assert _only_added(BENCH, json.loads((copy / "BENCHMARK.json").read_text()))
+
+
+TOY_LEAK = textwrap.dedent('''
+    import json, sys
+    from benchmark import run, spec
+    from benchmark.tests.test_benchmark_harness import TINY_TRAFFIC
+
+    s = spec.load()
+    cell = spec.workload(s, "toy-lazy-context")
+    result = run.run_cell(s, cell, 2**33 + 5, 0.3, True, "cpu",
+                          config_overrides=spec.net(spec.config(s, cell)).TINY,
+                          traffic_overrides=TINY_TRAFFIC["lazy_context"])
+    print(json.dumps({"result": result, "loaded": "fastdnn_tpu" in sys.modules}))
+''')
+
+
+@pytest.mark.parametrize("hook", ["reference", "work"])
+def test_a_net_that_loads_the_jax_package_after_the_window_gives_no_result(tmp_path, hook):
+    """A net module whose reference or work, which run once the window has
+    closed, imports the JAX package (here a stub under its name): the run
+    gives no result and names what it found."""
+    copy, _, _ = _toy_checkout(tmp_path)
+    stub = tmp_path / "stub" / "fastdnn_tpu"
+    stub.mkdir(parents=True)
+    (stub / "__init__.py").write_text('"""A stub under the JAX package\'s name."""\n')
+    calls = tmp_path / "toy.calls"
+    out = subprocess.run([sys.executable, "-c", TOY_LEAK], capture_output=True, text=True,
+                         cwd=str(copy), timeout=300,
+                         env={**os.environ, "PYTHONPATH": f"{stub.parent}:{copy}:{ROOT}",
+                              "TOY_CALLS": str(calls), "TOY_IMPORTS": hook})
+    assert out.returncode == 0, out.stderr[-2000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert hook in calls.read_text().split() and result["loaded"]
+    assert result["result"] is None
+    assert "forbidden modules loaded: fastdnn_tpu" in out.stderr
