@@ -59,6 +59,10 @@ launches count): the headline line at B = 8192, `--config midsize-lazy`
 and `--config scaling` (up to eight ranks sharing the card over gloo),
 each line's keys and values, each run's launches, one headline call
 against the plain route, and `score_device_ms` against phase 6's time.
+Last, the SVD-restructured net's kernels: the low-rank layer (K10) and its
+bottleneck bitwise their plain versions, K4 and lazy_output with a per-row
+scale, the net through the Scorer with every launch counted, and the new
+kernels' times, bounds and products alone.
 Phases 1-25 run with the registry off (FASTDNN_TUNED=0), so that their
 launch counts are the defaults'.  Any failed check raises and the script
 exits non-zero.
@@ -886,6 +890,147 @@ def bench_phase(torch, dev, smi: str, drive, score_device_ms: float) -> None:
           and "from the plain route" in held_lines[0][1],
           f"scaling: dp{d0} tp{m0} held to the plain route, the other "
           f"{len(bench.SCALING_GRID) - 1} points to it")
+
+
+def lowrank_phase(torch, dev, smi: str, report: dict, path_launches: dict) -> None:
+    """Phase 32: the SVD-restructured net's kernels.  K10 (lowrank_layer) and
+    its bottleneck bitwise their plain versions (ranks 128 and 256, odd frame
+    blocks, a zero projection), K4 and lazy_output with a per-row scale
+    within 3e-5 (lazy_output's active logits bitwise), the 432 -> 2048 -> 4
+    x low-rank 2048 -> low-rank 5976 net (rank 256) through the Scorer with
+    its launches counted exactly (input_layer, lowrank_layer 4,
+    lowrank_bottleneck, resident_softmax; a LazyContext frame one
+    lazy_output), then each new kernel timed in turns with its plain
+    version, its bound and its product alone."""
+    import fastdnn_tpu_torch as fdt
+    from fastdnn_tpu_torch.ops import kernels
+    from fastdnn_tpu_torch.ops import matmul as plain
+
+    g = torch.Generator().manual_seed(SEED + 32)
+    d = lambda t: t.to(dev)
+    lay = lambda t: d(kernels.kernel_layout(t))
+    worst = {"lowrank_layer": 0.0, "lowrank_bottleneck": 0.0}
+    shapes = [(64, 2048, 256, 2048), (8192, 2048, 256, 2048), (8320, 2048, 256, 2048),
+              (192, 384, 128, 640)]
+    for b, k, rank, n in shapes:
+        acts = torch.randint(-128, 128, (b, k), generator=g, dtype=torch.int8)
+        p = torch.randint(-20, 21, (k, rank), generator=g, dtype=torch.int8)
+        e = torch.randint(-60, 61, (rank, n), generator=g, dtype=torch.int8)
+        pcs = 128 * p.to(torch.int32).sum(0, dtype=torch.int32)
+        ecs = torch.zeros(n, dtype=torch.int32)
+        bias = torch.randn(n, generator=g) * 0.5
+        inv = (torch.tensor(1 / (31.0 * 255.0)), torch.tensor(1 / 40.0))
+        want = plain.lowrank_layer_step(acts, p, pcs, inv[0], e, ecs, inv[1], bias)
+        p_t, e_t, pcs_d, bias_d = lay(p), lay(e), d(pcs), d(bias)
+        kernels.check_lowrank_layer(p_t, pcs_d, e_t, bias_d)
+        got = kernels.lowrank_layer(d(acts), p_t, pcs_d, inv[0], e_t, d(ecs), inv[1],
+                                    bias_d).cpu()
+        check(torch.equal(got, want), f"lowrank_layer B={b} K={k} rank={rank} N={n}: bitwise its "
+                                      f"plain version ({(got != want).sum().item()} differ)")
+        w_codes, w_scale = plain.bottleneck_step(acts, p, pcs, *inv)
+        codes, scale = kernels.lowrank_bottleneck(d(acts), p_t, pcs_d, *inv)
+        check(torch.equal(codes.cpu(), w_codes) and torch.equal(scale.cpu(), w_scale),
+              f"lowrank_bottleneck B={b} K={k} rank={rank}: codes and scales bitwise")
+    acts = torch.randint(-128, 128, (128, 256), generator=g, dtype=torch.int8)
+    zero_p, zero_cs = lay(torch.zeros(256, 128, dtype=torch.int8)), torch.zeros(128, device=dev,
+                                                                                  dtype=torch.int32)
+    kernels.check_lowrank_layer(zero_p, zero_cs)
+    codes, scale = kernels.lowrank_bottleneck(d(acts), zero_p, zero_cs, 0.01, 0.5)
+    check(not codes.any() and not scale.any(), "lowrank_bottleneck, a zero projection: codes 0, "
+                                               "scales 0")
+    # K4 and lazy_output with a per-row scale at the net's output shape
+    b, k, n, out_dim = 8192, 256, 6016, 5976
+    codes = torch.randint(-127, 128, (b, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    cs = torch.zeros(n, dtype=torch.int32)
+    bias = torch.randn(n, generator=g)
+    rs = torch.rand(b, generator=g) * 0.01
+    masks = (torch.rand(b, n, generator=g) < 0.4).to(torch.uint8)
+    for m, sem in ((None, "reference"), (masks, "reference"), (masks, "active_only")):
+        want = plain.output_posteriors(codes, w, cs, 1.0, bias, m, out_dim=out_dim, semantics=sem,
+                                       row_scale=rs)
+        got = kernels.resident_softmax(d(codes), lay(w), d(cs), 1.0, d(bias),
+                                       None if m is None else d(m), out_dim=out_dim,
+                                       semantics=sem, row_scale=d(rs)).cpu()
+        err = (got - want).abs().max().item()
+        check(err < 3e-5, f"resident_softmax with a per-row scale, masked={m is not None} {sem}: "
+                          f"max |d| {err:.2e}")
+    kernels.check_lazy_output_layer(lay(w), d(cs), d(bias))
+    for sem in ("reference", "active_only"):
+        z = plain.output_logits(codes[:4], w, cs, 1.0, bias, rs[:4])[:, :out_dim]
+        active = masks[:4, :out_dim] != 0
+        got = kernels.lazy_output(d(codes[:4]), lay(w), d(cs), 1.0, d(bias), d(masks[:4]),
+                                  out_dim=out_dim, semantics=sem, row_scale=d(rs[:4])).cpu()
+        logits = kernels.lazy_output(d(codes[:4]), lay(w), d(cs), 1.0, d(bias), d(masks[:4]),
+                                     out_dim=out_dim, logits=True, row_scale=d(rs[:4])).cpu()
+        err = (got - plain.masked_softmax(z, active, sem)).abs().max().item()
+        check(err < 3e-5 and torch.equal(logits, torch.where(active, z, 0.0)),
+              f"lazy_output with a per-row scale, {sem}: active logits bitwise, max |d| {err:.2e}")
+
+    rng = np.random.default_rng(SEED + 33)
+    net = fdt.random_lowrank_net(rng, INPUT_DIM, [HIDDEN] * 5, 5976, 256)
+    q = fdt.quantize_net(net)
+    sc = fdt.Scorer(q, device=dev)
+    ref = fdt.Scorer(q, fdt.EngineConfig(backend="torch"), device=dev)
+    x = torch.from_numpy(rng.standard_normal((8192, INPUT_DIM), dtype=np.float32)).to(dev)
+    kernels.reset_launch_counts()
+    got = sc.score_device(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name, v in counts.items():
+        path_launches[name] += v
+    close(got.cpu().numpy(), ref.score_device(x).cpu().numpy(),
+          "score_device on the SVD net, B = 8192, kernel route against the plain route")
+    want = {"input_layer": 1, "lowrank_layer": 4, "lowrank_bottleneck": 1, "resident_softmax": 1}
+    check({k: v for k, v in counts.items() if v} == want, f"launches per score_device: {want}")
+    xs = x[:300].cpu().numpy()
+    m = rng.random((300, 5976)) < 0.4
+    ctx = sc.new_lazy_context(300)
+    ctx.calculate_until_output(xs)
+    kernels.reset_launch_counts()
+    lazy = np.stack([ctx.calculate_for_output_nodes(m[i]) for i in range(300)])
+    lazy_counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(lazy_counts == {"lazy_output": 300}, "a LazyContext frame is one lazy_output launch")
+    close(lazy, ref.score_masked(xs, m), "LazyContext on the SVD net against the plain route's "
+                                         "score_masked", 3e-5)
+
+    # times in turns with the plain versions, bounds, products alone
+    acts = torch.randint(-128, 128, (8192, HIDDEN), dtype=torch.int8, device=dev)
+    bn, layer = sc.net.bottlenecks[1], (sc.net.weights[1], sc.net.colsum128[1],
+                                        sc.net.inv_scales[1], sc.net.biases[1])
+    pbn, player = ref.net.bottlenecks[1], (ref.net.weights[1], ref.net.colsum128[1],
+                                           ref.net.inv_scales[1], ref.net.biases[1])
+    times = in_turns(torch, {
+        "lowrank_layer": lambda: kernels.lowrank_layer(acts, bn.weight, bn.colsum128,
+                                                       bn.inv_scale, *layer),
+        "lowrank_layer.plain": lambda: plain.lowrank_layer_step(
+            acts, pbn.weight, pbn.colsum128, pbn.inv_scale, *player),
+        "lowrank_bottleneck": lambda: kernels.lowrank_bottleneck(
+            acts, bn.weight, bn.colsum128, bn.inv_scale, sc.net.inv_scales[-1]),
+        "lowrank_bottleneck.plain": lambda: plain.bottleneck_step(
+            acts, pbn.weight, pbn.colsum128, pbn.inv_scale, ref.net.inv_scales[-1]),
+    })
+    codes_dev = torch.randint(-127, 128, (8192, 256), dtype=torch.int8, device=dev)
+    work = {  # ops, bytes, the product alone
+        "lowrank_layer": (2 * 8192 * 256 * (2 * HIDDEN),
+                          2 * 8192 * HIDDEN + 2 * HIDDEN * 256 + 4 * 256 + 4 * HIDDEN,
+                          lambda: torch._int_mm(codes_dev, player[0])),
+        "lowrank_bottleneck": (2 * 8192 * HIDDEN * 256,
+                               8192 * HIDDEN + HIDDEN * 256 + 4 * 256 + 8192 * (256 + 4),
+                               lambda: torch._int_mm(acts, pbn.weight)),
+    }
+    for name, (ops, nbytes, product) in work.items():
+        report[name]["ms"] = sum(times[name]) / len(times[name])
+        report[name]["plain_ms"] = sum(times[name + ".plain"]) / len(times[name + ".plain"])
+        report[name]["max_abs_err"] = worst[name]
+        report[name]["bound_ms"], report[name]["bound_by"] = bound(ops, "int8", nbytes)
+        report[name]["product_ms"] = time_ms(torch, product)
+        print(f"  {name:29s} {report[name]['ms']:.4f} ms (plain {report[name]['plain_ms']:.4f}), "
+              f"bound {report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']}, "
+              f"{ops / 1e9:.1f} G ops), {report[name]['bound_ms'] / report[name]['ms']:.1%} of it; "
+              f"product alone (torch._int_mm) {report[name]['product_ms']:.4f} ms  [{smi}]")
+    sd = in_turns(torch, {"score_device": lambda: sc.score_device(x)})["score_device"]
+    print(f"  score_device on the SVD net, B = 8192: {sum(sd) / len(sd):.4f} ms  [{smi}]")
 
 
 def free_port() -> int:
@@ -2816,6 +2961,10 @@ def main() -> int:
     phase(f"31. the headline benchmark: python -m fastdnn_tpu_torch.cli.bench at B = {BENCH_BATCH}, "
           f"then --config midsize-lazy and --config scaling (card: {smi})")
     bench_phase(torch, dev, smi, drive, turn_ms["score_device"]["kernels"])
+
+    phase(f"32. the SVD-restructured net: K10 (lowrank_layer) and its bottleneck, K4 and "
+          f"lazy_output with a per-row scale, {INPUT_DIM}-{HIDDEN}-4x{HIDDEN}r256-5976 (card: {smi})")
+    lowrank_phase(torch, dev, smi, report, path_launches)
 
     rows = [
         {

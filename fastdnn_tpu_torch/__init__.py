@@ -40,13 +40,16 @@ from .formats.binary import (
 )
 from .models.feedforward import (
     FeedForwardNet,
+    LowRank,
     align,
     apply_transform,
     extend,
     forward,
     from_raw,
     fuse_transform,
+    random_lowrank_net,
     random_net,
+    restructure,
     to_raw,
 )
 from .quant.quantize import (
@@ -76,6 +79,7 @@ __all__ = [
     "EngineConfig",
     "FeedForwardNet",
     "LazyContext",
+    "LowRank",
     "Lexicon",
     "QuantizedNet",
     "RawNetwork",
@@ -100,9 +104,11 @@ __all__ = [
     "quantize_layer",
     "quantize_net",
     "random_lexicon",
+    "random_lowrank_net",
     "random_net",
     "read_features",
     "read_model",
+    "restructure",
     "save_qnet",
     "score_fn",
     "score_masked_fn",

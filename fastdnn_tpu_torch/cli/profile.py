@@ -143,7 +143,9 @@ def kernel_of(symbol: str) -> Optional[str]:
                          ("hidden_stack", "hidden_stack_wgmma_kernel"),
                          ("hidden_layer_packed", "hidden_layer_packed_kernel"),
                          ("normalize_stats", "normalize_stats_kernel"),
-                         ("lazy_output", "lazy_output_kernel")):
+                         ("lazy_output", "lazy_output_kernel"),
+                         ("lowrank_layer", "lowrank_layer_kernel"),
+                         ("lowrank_bottleneck", "lowrank_bottleneck_kernel")):
         if kernel in symbol:
             return name
     return None

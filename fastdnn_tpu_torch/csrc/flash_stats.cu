@@ -143,7 +143,8 @@ __device__ __forceinline__ void skip_epilogue(const int (&d)[64], float* z, int 
   const int r0 = m0 + warp * 16 + lane / 4;
   float* rows[2] = {z + static_cast<size_t>(r0) * N, z + static_cast<size_t>(r0 + 8) * N};
   float v[64], tile_max[2];
-  rs::tile_logits<true>(d, v, tile_max, r0, col, colsum, bias, inv, mask, N, fill, valid_count,
+  const float invs[2] = {inv, inv};
+  rs::tile_logits<true>(d, v, tile_max, r0, col, colsum, bias, invs, mask, N, fill, valid_count,
                         [&](int h, int n, float v0, float v1) {
                           *reinterpret_cast<float2*>(rows[h] + n) = make_float2(v0, v1);
                         });

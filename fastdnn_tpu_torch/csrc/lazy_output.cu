@@ -32,7 +32,10 @@
 // each merges them in the same fixed tree, so every block gets the same
 // bits and writes its own columns as exp(z - m) / s, or 0 in a row with no
 // active senone under active_only.  No device-memory scratch, atomic or
-// memset: launches on different streams share nothing.
+// memset: launches on different streams share nothing.  ROWSCALE (a
+// low-rank output layer's expand product on the bottleneck's codes,
+// csrc/lowrank_layer.cu): each row dequantizes with its own scale,
+// row_scale[row], in place of the layer's, as K4's ROWSCALE does.
 //
 // Bound: one row at the flagship's widths (K = 2048, out_dim = 8000) with
 // 3,200 active senones reads 6.6 MB of weight rows (2 us at 3.35 TB/s)
@@ -154,16 +157,19 @@ __device__ __forceinline__ float2 merge_lanes(float2 st) {
   return st;
 }
 
+template <bool ROWSCALE>
 __global__ void __launch_bounds__(kThreads, 1)
     lazy_output_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
                        const int* __restrict__ colsum, const float* __restrict__ bias,
                        float inv_scale, const uint8_t* __restrict__ mask, int mask_stride,
-                       int semantics, float* __restrict__ out, int K, int out_dim) {
+                       int semantics, float* __restrict__ out, int K, int out_dim,
+                       const float* __restrict__ row_scale) {
   extern __shared__ int4 acts[];
   __shared__ Shared sh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rank = static_cast<int>(hp::cluster_rank());
   const int row = blockIdx.x / kCluster;
+  if constexpr (ROWSCALE) inv_scale = row_scale[row];
   const int per = block_columns(out_dim);
   const int c0 = min(out_dim, rank * per);
   const int c1 = min(out_dim, c0 + per);
@@ -249,14 +255,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_wait();  // no block leaves while another reads its stats
 }
 
-// The launch over `rows` clusters at input width k and output width
-// out_dim; 16-block clusters allowed.
-cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int rows, int k,
-                      int out_dim, void* stream) {
+// The launch of `kernel` over `rows` clusters at input width k and output
+// width out_dim; 16-block clusters allowed.
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int rows,
+                      int k, int out_dim, void* stream) {
   const size_t smem = dynamic_smem_bytes(k, out_dim);
   cudaError_t err =
-      cudaFuncSetAttribute(lazy_output_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess) err = fdn::allow_smem(lazy_output_kernel, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) err = fdn::allow_smem(kernel, smem);
   *cfg = {};
   cfg->gridDim = dim3(rows * kCluster);
   cfg->blockDim = dim3(kThreads);
@@ -271,25 +278,41 @@ cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int ro
   return err;
 }
 
+template <bool ROWSCALE>
+cudaError_t launch(const void* x, const void* wt, const void* colsum, const void* bias,
+                   float inv_scale, const void* mask, int mask_stride, int semantics, void* out,
+                   int rows, int k, int out_dim, const void* row_scale, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(lazy_output_kernel<ROWSCALE>, &cfg, &attr, rows, k, out_dim, stream);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, lazy_output_kernel<ROWSCALE>, static_cast<const int8_t*>(x),
+                             static_cast<const int8_t*>(wt), static_cast<const int*>(colsum),
+                             static_cast<const float*>(bias), inv_scale,
+                             static_cast<const uint8_t*>(mask), mask_stride, semantics,
+                             static_cast<float*>(out), k, out_dim,
+                             static_cast<const float*>(row_scale));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 // Requires rows >= 1, K % 16 == 0, 16-byte aligned x and wt,
 // 0 < out_dim <= N, mask_stride >= out_dim; semantics 0 reference,
 // 1 active_only, 2 the masked logits (out holds them, inactive 0).
+// row_scale: nullptr, or f32 [rows], each row's scale in place of
+// inv_scale (the ROWSCALE variant).
 extern "C" int fdn_lazy_output(const void* x, const void* wt, const void* colsum, const void* bias,
                                float inv_scale, const void* mask, int mask_stride, int semantics,
-                               void* out, int rows, int k, int out_dim, int device, void* stream) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
+                               void* out, int rows, int k, int out_dim, const void* row_scale,
+                               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = configure(&cfg, &attr, rows, k, out_dim, stream);
   if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&cfg, lazy_output_kernel, static_cast<const int8_t*>(x),
-                             static_cast<const int8_t*>(wt), static_cast<const int*>(colsum),
-                             static_cast<const float*>(bias), inv_scale,
-                             static_cast<const uint8_t*>(mask), mask_stride, semantics,
-                             static_cast<float*>(out), k, out_dim);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+    err = row_scale ? launch<true>(x, wt, colsum, bias, inv_scale, mask, mask_stride, semantics,
+                                   out, rows, k, out_dim, row_scale, stream)
+                    : launch<false>(x, wt, colsum, bias, inv_scale, mask, mask_stride, semantics,
+                                    out, rows, k, out_dim, row_scale, stream);
+  return static_cast<int>(err);
 }
 
 // Shared memory of a block at input width k and output width out_dim:
@@ -305,8 +328,8 @@ extern "C" int fdn_lazy_output_max_clusters(int k, int out_dim, int device) {
   cudaLaunchAttribute attr;
   int clusters = 0;
   if (cudaSetDevice(device) != cudaSuccess ||
-      configure(&cfg, &attr, 64, k, out_dim, nullptr) != cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&clusters, lazy_output_kernel, &cfg) != cudaSuccess)
+      configure(lazy_output_kernel<false>, &cfg, &attr, 64, k, out_dim, nullptr) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&clusters, lazy_output_kernel<false>, &cfg) != cudaSuccess)
     return -1;
   return clusters;
 }

@@ -1,6 +1,10 @@
 // K4: output layer + full row softmax, s8[B, K] x s8[K, N] -> f32 or bf16
 // [B, out_dim], optionally masked (u8 [B, N], nonzero = active).
 // K6: the masked K4 skipping every all-inactive (64-frame x 128-senone) tile.
+// K4's ROWSCALE variant (f32, masked or not): each row dequantizes with its
+// own scale, row_scale[r], in place of the layer's: a low-rank output
+// layer's expand product on the bottleneck's signed codes (no zero point,
+// csrc/lowrank_layer.cu), at K = the rank.
 // Both take the weight transposed, Wt s8[N, K] (ops/kernels.py:kernel_layout),
 // and run one kernel, resident_softmax_wgmma_kernel, on csrc/hopper.cuh's
 // warp-specialised wgmma loop; K6 is its SPARSE variant.
@@ -115,7 +119,7 @@ __device__ __forceinline__ void store_p(__nv_bfloat16* p, float v) { *p = __floa
 template <bool MASKED>
 __device__ __forceinline__ void softmax_epilogue(const int (&d)[64], float* logits, int out_dim,
                                                  int m0, int n0, const int* colsum,
-                                                 const float* bias, float inv,
+                                                 const float* bias, const float (&inv)[2],
                                                  const uint8_t* mask, int N, float fill,
                                                  int thread_in_wg, float (&m)[2], float (&s)[2]) {
   const int warp = thread_in_wg / 32, lane = thread_in_wg % 32;
@@ -228,15 +232,18 @@ __device__ __forceinline__ void rescale_rows(const float* logits, OutT* out, int
 // of the column tiles (no multicast), and the blocks trade their rows'
 // (max, sum-exp) through distributed shared memory before each rescales
 // its own columns.  MASKED: the mask is read; SPARSE (K6, MASKED): tiles
-// with no active senone are skipped.
-template <bool MASKED, bool SPARSE, typename OutT>
+// with no active senone are skipped; ROWSCALE: row r dequantizes with
+// row_scale[r], not inv_scale.
+template <bool MASKED, bool SPARSE, typename OutT, bool ROWSCALE = false>
 __global__ void __launch_bounds__(hp::kThreads, 1)
     resident_softmax_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
                                   const int8_t* __restrict__ x, const int* __restrict__ colsum,
                                   const float* __restrict__ bias, float inv_scale,
                                   const uint8_t* __restrict__ mask, int semantics, float* logits,
-                                  OutT* out, int K, int N, int out_dim) {
+                                  OutT* out, int K, int N, int out_dim,
+                                  const float* __restrict__ row_scale) {
   static_assert(MASKED || !SPARSE, "K6 is the masked variant");
+  static_assert(!(SPARSE && ROWSCALE), "no skipping variant takes a per-row scale");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = hp::align_smem(smem_raw);
   int8_t* acts = reinterpret_cast<int8_t*>(smem);
@@ -294,11 +301,17 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
     for (int i = 0; i < 64; ++i) d[i] = 0;
     float m[2] = {-INFINITY, -INFINITY};
     float s[2] = {0.0f, 0.0f};
+    float inv[2] = {inv_scale, inv_scale};  // the scales of the thread's rows r0 and r0 + 8
+    if constexpr (ROWSCALE) {
+      const int r0 = m0 + (tw / 32) * 16 + (tw % 32) / 4;
+      inv[0] = row_scale[r0];
+      inv[1] = row_scale[r0 + 8];
+    }
     for (int e = wg, n = 0; e < count; e += hp::kConsumers, ++n) {
       const int g = SPARSE ? sp->list[e] : e;
       hp::tile_products(d, ring, stages, acts, K, e * steps, wg, n, tw);
       softmax_epilogue<MASKED>(d, logits, out_dim, m0, (part.g0 + g) * hp::kTileN, colsum, bias,
-                               inv_scale, mask, N, fill, tw, m, s);
+                               inv, mask, N, fill, tw, m, s);
     }
     if (tw % 4 == 0) {
       const int r = (tw / 32) * 16 + (tw % 32) / 4;
@@ -332,20 +345,20 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
   }
 }
 
-template <bool MASKED, bool SPARSE, typename OutT>
+template <bool MASKED, bool SPARSE, typename OutT, bool ROWSCALE = false>
 int launch(const void* x, const void* wt, const void* colsum, const void* bias, float inv_scale,
            const void* mask, int semantics, void* logits, void* out, int b, int k, int n,
-           int out_dim, int device, void* stream) {
+           int out_dim, int device, void* stream, const void* row_scale = nullptr) {
   CUtensorMap map;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = hp::weight_map(&map, wt, n, k, hp::kTileN);
   if (err == cudaSuccess)
     err = hp::launch_clustered(
-        resident_softmax_wgmma_kernel<MASKED, SPARSE, OutT>, kSplit * b / hp::kFrames, kSplit,
-        smem_bytes<SPARSE>(k), stream, map, static_cast<const int8_t*>(x),
+        resident_softmax_wgmma_kernel<MASKED, SPARSE, OutT, ROWSCALE>, kSplit * b / hp::kFrames,
+        kSplit, smem_bytes<SPARSE>(k), stream, map, static_cast<const int8_t*>(x),
         static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
         static_cast<const uint8_t*>(mask), semantics, static_cast<float*>(logits),
-        static_cast<OutT*>(out), k, n, out_dim);
+        static_cast<OutT*>(out), k, n, out_dim, static_cast<const float*>(row_scale));
   return static_cast<int>(err);
 }
 
@@ -373,6 +386,20 @@ extern "C" int fdn_resident_softmax_wgmma(const void* x, const void* wt, const v
                                       b, k, n, out_dim, device, stream);
   return launch<false, false, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b,
                                      k, n, out_dim, device, stream);
+}
+
+// K4's ROWSCALE variant: f32 out [B, out_dim], masked or not, row r's
+// logits dequantized with row_scale[r] (f32 [B]); K4's requirements.
+extern "C" int fdn_resident_softmax_rowscale(const void* x, const void* wt, const void* colsum,
+                                             const void* bias, const void* row_scale,
+                                             const void* mask, int semantics, void* out, int b,
+                                             int k, int n, int out_dim, int device, void* stream) {
+  if (row_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (mask)
+    return launch<true, false, float, true>(x, wt, colsum, bias, 0.0f, mask, semantics, out, out,
+                                            b, k, n, out_dim, device, stream, row_scale);
+  return launch<false, false, float, true>(x, wt, colsum, bias, 0.0f, mask, semantics, out, out, b,
+                                           k, n, out_dim, device, stream, row_scale);
 }
 
 extern "C" long long fdn_resident_softmax_wgmma_smem_bytes(int k) {

@@ -65,15 +65,16 @@ struct SparseTiles {
 // r0 + 8, columns col + 8 q + {0, 1}, col = col0 + 2 (lane % 4)):
 // dequantized, then MASKED (u8 [B, N], nonzero = active) an inactive
 // senone's logit is `fill` (0 under reference, -1e30 under active_only),
-// then every column at or beyond `cap` is -1e30.  tile_max[h] gets the
-// thread's max of row r0 + 8 h; store(h, n, v0, v1) sees each pair of
+// then every column at or beyond `cap` is -1e30; row r0 + 8 h dequantizes
+// with inv[h] (the layer's scale, or K4's per-row scale of a low-rank
+// output layer).  tile_max[h] gets the thread's max of row r0 + 8 h; store(h, n, v0, v1) sees each pair of
 // columns (n, n + 1) of row r0 + 8 h as it is made.  The mask's byte pairs
 // are loaded first, all in flight at once; the other warpgroup's products
 // run meanwhile.
 template <bool MASKED, class Store>
 __device__ __forceinline__ void tile_logits(const int (&d)[64], float (&z)[64], float (&tile_max)[2],
                                             int r0, int col, const int* colsum, const float* bias,
-                                            float inv, const uint8_t* mask, int N, float fill,
+                                            const float (&inv)[2], const uint8_t* mask, int N, float fill,
                                             int cap, Store store) {
   uchar2 active[16][2];
   if constexpr (MASKED) {
@@ -94,8 +95,8 @@ __device__ __forceinline__ void tile_logits(const int (&d)[64], float (&z)[64], 
     for (int h = 0; h < 2; ++h) {
       float& v0 = z[4 * q + 2 * h];
       float& v1 = z[4 * q + 2 * h + 1];
-      v0 = dequantize(d[4 * q + 2 * h], cs.x, inv, b.x);
-      v1 = dequantize(d[4 * q + 2 * h + 1], cs.y, inv, b.y);
+      v0 = dequantize(d[4 * q + 2 * h], cs.x, inv[h], b.x);
+      v1 = dequantize(d[4 * q + 2 * h + 1], cs.y, inv[h], b.y);
       if constexpr (MASKED) {
         if (!active[q][h].x) v0 = fill;
         if (!active[q][h].y) v1 = fill;

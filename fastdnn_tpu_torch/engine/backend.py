@@ -9,7 +9,8 @@ A backend owns three things:
     for the kernels, transposed into their layout ([N, K], K contiguous:
     ops.kernels.kernel_layout) with the input kernel's operand;
   * the steps, under one set of names and signatures: the input layer, a
-    hidden layer (packed or not), the hidden stack, the output logits, the
+    hidden layer (packed or not, or low-rank), the hidden stack, a low-rank
+    output layer's bottleneck, the output logits, the
     fused posteriors (resident, or the stats and the normalize; masked or
     not, block-sparse or not), the stats and the normalize a tensor-parallel
     output combines, and a few rows' masked posteriors from activations;
@@ -31,7 +32,7 @@ import torch
 
 from ..ops import kernels
 from ..ops import matmul as xops
-from ..quant.quantize import QuantizedNet, pack_int4_trunk, pad_qnet
+from ..quant.quantize import Bottleneck, QuantizedNet, pack_int4_trunk, pad_qnet
 from ..utils.timer import span
 
 
@@ -54,9 +55,21 @@ def uses_resident_output(net: QuantizedNet, *, block_sparse: bool = False) -> bo
     (K read from the previous layer's bias, the same in either layout).
     K6 is the same kernel with a list of its active tiles beside the ring,
     which fits at that K too, so `block_sparse` does not change the
-    answer."""
-    k = (net.biases[-2] if len(net.biases) > 1 else net.input_b).shape[0]
+    answer.  A low-rank output layer's K is its rank, the width of its
+    bottleneck's codes."""
+    bn = net.bottleneck(len(net.weights) - 1)
+    if bn is not None:
+        k = bn.colsum128.shape[0]
+    else:
+        k = (net.biases[-2] if len(net.biases) > 1 else net.input_b).shape[0]
     return k <= kernels.RESIDENT_SOFTMAX_MAX_K
+
+
+def output_bottleneck(net: QuantizedNet):
+    """(bottleneck, the expand factor's inv_scale) of a low-rank output
+    layer, as the `bottleneck` step takes them; None for a dense one."""
+    bn = net.bottleneck(len(net.weights) - 1)
+    return None if bn is None else (bn, net.inv_scales[-1])
 
 
 @dataclasses.dataclass(eq=False)
@@ -86,9 +99,13 @@ class Backend:
     hidden_layer_packed: Callable
     #: (acts, engine.scorer.build_hidden_stack's stack) -> acts
     hidden_stack: Callable
+    #: (acts, Bottleneck, expand weight, colsum128, inv_scale, bias) -> acts
+    lowrank_layer: Callable
+    #: (acts, Bottleneck, the expand factor's inv_scale) -> (codes s8 [B, k], scale f32 [B])
+    bottleneck: Callable
     #: (acts, *output layer) -> f32 logits [B, N]
     output_logits: Callable
-    #: (acts, *output layer, masks, *, out_dim, semantics, fast) -> [B, out_dim]
+    #: (acts, *output layer, masks, *, out_dim, semantics, fast, row_scale) -> [B, out_dim]
     resident_softmax: Callable
     #: (acts, *output layer, masks, *, out_dim, semantics) -> f32 [B, out_dim]
     resident_softmax_block_sparse: Callable
@@ -98,7 +115,7 @@ class Backend:
     flash_stats_block_sparse: Callable
     #: (z, m, s, *, out_dim, tile_max) -> [B, out_dim]
     normalize_stats: Callable
-    #: (acts, *output layer, masks, *, out_dim, semantics) -> f32 [rows, out_dim]
+    #: (acts, *output layer, masks, *, out_dim, semantics, row_scale) -> f32 [rows, out_dim]
     lazy_output: Callable
 
     def prepare(self, net: QuantizedNet, device, *, mesh=None, int4_packed: bool = False,
@@ -116,6 +133,8 @@ class Backend:
         if mesh is not None:
             from ..parallel.mesh import mesh_shape
 
+            if net.has_lowrank:  # make_gspmd_scorer and score_shard_map come here unchecked
+                raise ValueError("a net with low-rank layers runs on one device: refused: a mesh")
             model = mesh_shape(mesh)[1]
         out_lanes = kernels.TILE_N * model if model > 1 else self.lanes
         net = pad_qnet(net, lanes=self.lanes, out_lanes=out_lanes)
@@ -129,15 +148,20 @@ class Backend:
 
     def posteriors(self, net: QuantizedNet, acts: torch.Tensor, masks, *, out_dim: int,
                    semantics: str = "reference", fast: bool = False,
-                   block_sparse: bool = False) -> torch.Tensor:
+                   block_sparse: bool = False, row_scale=None) -> torch.Tensor:
         """Output layer + softmax -> [B, out_dim]: K4 (masks optional, bf16
         with `fast`), or K6 for masked block-sparse calls (f32 only), when
         the output layer fits them (uses_resident_output); otherwise one K8
         launch (skipping for block-sparse) and one normalize launch, inside
         the span `fastdnn.output_stats`.  Unlike the JAX package, no batch
         is cut into 8192-row chunks: that bounded a VMEM scratch of the TPU
-        kernel, and K8 keeps its row stats in registers."""
+        kernel, and K8 keeps its row stats in registers.  A low-rank output
+        layer takes `acts` as its bottleneck's codes and `row_scale` their
+        scales: K4's ROWSCALE variant (f32, never skipping)."""
         args = (acts, *output_layer(net))
+        if row_scale is not None:
+            return self.resident_softmax(*args, masks, out_dim=out_dim, semantics=semantics,
+                                         row_scale=row_scale)
         if not uses_resident_output(net):
             with span("fastdnn.output_stats"):
                 return self.stats_posteriors(*args, masks, out_dim=out_dim, semantics=semantics,
@@ -167,15 +191,26 @@ class Backend:
 def _kernel_layout(net: QuantizedNet, input_precision: str) -> QuantizedNet:
     """The net with its int8 weights in the kernels' layout (a packed int4
     layer [K/2, N] becomes [N, K/2]) and its input weight also as the input
-    kernel's operand for `input_precision` (input_w stays as it is).  The
-    output layer is checked here for lazy_output, which takes it once a
-    frame (ops.kernels.check_lazy_output_layer)."""
+    kernel's operand for `input_precision` (input_w stays as it is), checked
+    once here for it (ops.kernels.check_input_layer).  The output layer is
+    checked here for lazy_output, which takes it once a
+    frame (ops.kernels.check_lazy_output_layer), and each low-rank layer's
+    factors for K10 and the bottleneck (ops.kernels.check_lowrank_layer)."""
+    operand = kernels.input_layer_operand(net.input_w, input_precision)
+    kernels.check_input_layer(net.input_w, operand, net.input_b, input_precision)
     net = dataclasses.replace(
         net,
         weights=tuple(kernels.kernel_layout(w) for w in net.weights),
-        input_operand=kernels.input_layer_operand(net.input_w, input_precision),
+        input_operand=operand,
+        bottlenecks=tuple(None if bn is None else dataclasses.replace(
+            bn, weight=kernels.kernel_layout(bn.weight)) for bn in net.bottlenecks),
     )
     kernels.check_lazy_output_layer(net.weights[-1], net.colsum128[-1], net.biases[-1])
+    last = len(net.weights) - 1
+    for i, bn in enumerate(net.bottlenecks):
+        if bn is not None:
+            expand = (net.weights[i], net.biases[i]) if i < last else ()
+            kernels.check_lowrank_layer(bn.weight, bn.colsum128, *expand)
     return net
 
 
@@ -188,10 +223,20 @@ def _kernels_input_layer(net: QuantizedNet, frames: torch.Tensor, precision: str
 
 
 def _plain_lazy_output(acts, w, colsum, inv_scale, bias, masks, *, out_dim: int,
-                       semantics: str = "reference"):
+                       semantics: str = "reference", row_scale=None):
     """The logits, then the masked softmax of `semantics` in tensor ops."""
-    logits = xops.output_logits(acts, w, colsum, inv_scale, bias)[:, :out_dim]
+    logits = xops.output_logits(acts, w, colsum, inv_scale, bias, row_scale)[:, :out_dim]
     return xops.masked_softmax(logits, masks[:, :out_dim] != 0, semantics)
+
+
+def _kernels_lowrank_layer(acts, bn: Bottleneck, w, colsum, inv_scale, bias):
+    return kernels.lowrank_layer(acts, bn.weight, bn.colsum128, bn.inv_scale, w, colsum,
+                                 inv_scale, bias)
+
+
+def _plain_lowrank_layer(acts, bn: Bottleneck, w, colsum, inv_scale, bias):
+    return xops.lowrank_layer_step(acts, bn.weight, bn.colsum128, bn.inv_scale, w, colsum,
+                                   inv_scale, bias)
 
 
 KERNELS = Backend(
@@ -208,6 +253,9 @@ KERNELS = Backend(
     hidden_layer=kernels.hidden_layer,
     hidden_layer_packed=kernels.hidden_layer_packed,
     hidden_stack=lambda acts, hstack: kernels.hidden_stack(acts, *hstack),
+    lowrank_layer=_kernels_lowrank_layer,
+    bottleneck=lambda acts, bn, inv: kernels.lowrank_bottleneck(
+        acts, bn.weight, bn.colsum128, bn.inv_scale, inv),
     output_logits=kernels.output_logits,
     resident_softmax=kernels.resident_softmax,
     resident_softmax_block_sparse=kernels.resident_softmax_block_sparse,
@@ -230,6 +278,9 @@ PLAIN = Backend(
     hidden_layer=xops.hidden_layer_step,
     hidden_layer_packed=xops.hidden_layer_step_packed,
     hidden_stack=xops.hidden_stack_step,
+    lowrank_layer=_plain_lowrank_layer,
+    bottleneck=lambda acts, bn, inv: xops.bottleneck_step(
+        acts, bn.weight, bn.colsum128, bn.inv_scale, inv),
     output_logits=xops.output_logits,
     resident_softmax=xops.output_posteriors,
     resident_softmax_block_sparse=xops.output_posteriors_block_sparse,

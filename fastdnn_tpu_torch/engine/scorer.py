@@ -28,6 +28,14 @@ lazy_mode="gathered" runs engine.lazy's library product.  With backend
 through the same routes: a `Route` holds the backend (engine.backend) and
 calls its steps.
 
+A net with low-rank layers (models.feedforward.LowRank) runs each low-rank
+hidden layer as one K10 launch, and a low-rank output layer as its
+bottleneck (one launch: the signed codes and a scale per frame, inside the
+span `fastdnn.output_bottleneck`) then K4's per-row-scale variant, or, in a
+LazyContext, lazy_output's over the codes, which `calculate_until_output`
+keeps.  Such a net raises at set-up under the knobs that have no low-rank
+route (check_lowrank).
+
 Each public entry, and the host stages inside them, record a span while a
 torch.profiler runs (utils.timer.span; SPANS below lists the names).
 
@@ -55,7 +63,7 @@ from ..utils.align import aligned_size
 from ..utils.timer import span
 from . import lazy as _lazy
 # uses_resident_output: the gate keeps the JAX package's module and name
-from .backend import Backend, output_layer, uses_resident_output  # noqa: F401
+from .backend import Backend, output_bottleneck, output_layer, uses_resident_output  # noqa: F401
 from .backend import get as get_backend
 
 #: every span this module records: the public entries, then the stages
@@ -70,6 +78,7 @@ SPANS = (
     "fastdnn.trunk_layers",  # the trunk one layer kernel at a time (no stack)
     "fastdnn.output_stats",  # the output layer through the stats: K8 and the normalize
     "fastdnn.output_lazy",  # a frame's output layer: one lazy_output launch
+    "fastdnn.output_bottleneck",  # a low-rank output layer's first product: one launch
     "fastdnn.finish",  # the gather under a mesh, the wait, the download and numpy
 )
 
@@ -83,7 +92,7 @@ def build_hidden_stack(net: QuantizedNet):
     layer the stack kernel holds in shared memory (such a trunk runs one
     layer kernel per layer)."""
     hw = net.weights[:-1]
-    if net.packed_int4 or len(hw) < 2:
+    if net.packed_int4 or len(hw) < 2 or net.has_lowrank:
         return None
     shape = hw[0].shape
     if shape[0] != shape[1] or any(w.shape != shape for w in hw):
@@ -130,7 +139,7 @@ class Route:
         frame count is within `stack_max_frames`, all hidden layers run as
         one launch; otherwise one layer step per layer, inside the span
         `fastdnn.trunk_layers`.  A packed int4 trunk (net.packed_int4) runs
-        the packed layer step.
+        the packed layer step, a low-rank layer the low-rank step (K10).
         """
         be = self.backend
         acts = be.input_layer(net, frames, self.input_precision)
@@ -139,18 +148,37 @@ class Route:
         layer_step = be.hidden_layer_packed if net.packed_int4 else be.hidden_layer
         with span("fastdnn.trunk_layers"):
             for i in range(len(net.weights) - 1):
-                acts = layer_step(
-                    acts, net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i]
-                )
+                layer = (net.weights[i], net.colsum128[i], net.inv_scales[i], net.biases[i])
+                bn = net.bottleneck(i)
+                acts = layer_step(acts, *layer) if bn is None else be.lowrank_layer(acts, bn, *layer)
         return acts
+
+    def until_output(self, net: QuantizedNet, frames: torch.Tensor):
+        """`hidden`, then a low-rank output layer's bottleneck -> (what the
+        output product takes: the last hidden activations, or the
+        bottleneck's codes s8 [B, k]; their scales f32 [B], or None)."""
+        acts = self.hidden(net, frames)
+        out_bn = output_bottleneck(net)
+        if out_bn is None:
+            return acts, None
+        with span("fastdnn.output_bottleneck"):
+            return self.backend.bottleneck(acts, *out_bn)
+
+    def _output_input(self, net: QuantizedNet, frames: torch.Tensor):
+        """`until_output` for the dense routes, which take a low-rank output
+        layer's codes through the fused softmax alone (check_lowrank)."""
+        acts, row_scale = self.until_output(net, frames)
+        if row_scale is not None and not self.fused_softmax:
+            raise ValueError("a low-rank output layer runs with the fused softmax only")
+        return acts, row_scale
 
     def score(self, net: QuantizedNet, frames: torch.Tensor) -> torch.Tensor:
         """Full forward pass -> posteriors [B, out_dim] (bf16 only with
         fused_softmax and fast_posteriors)."""
-        acts = self.hidden(net, frames)
+        acts, row_scale = self._output_input(net, frames)
         if self.fused_softmax:
             return self.backend.posteriors(net, acts, None, out_dim=self.out_dim,
-                                           fast=self.fast_posteriors)
+                                           fast=self.fast_posteriors, row_scale=row_scale)
         logits = self.backend.output_logits(acts, *output_layer(net))
         return torch.softmax(logits[:, : self.out_dim], dim=-1)
 
@@ -161,7 +189,7 @@ class Route:
         frames' device, nonzero = senone active for that frame.
         block_sparse selects the tile-skipping kernel (fused_softmax only;
         see config.lazy_mode="block_sparse")."""
-        acts = self.hidden(net, frames)
+        acts, row_scale = self._output_input(net, frames)
         if self.fused_softmax:
             # the kernels read masks at the tile-padded width (padding
             # columns are excluded by the out_dim cutoff anyway)
@@ -170,19 +198,44 @@ class Route:
                 masks = torch.nn.functional.pad(masks, (0, n_pad - masks.shape[-1]))
             return self.backend.posteriors(
                 net, acts, masks, out_dim=self.out_dim, semantics=self.semantics,
-                fast=self.fast_posteriors, block_sparse=self.block_sparse,
+                fast=self.fast_posteriors, block_sparse=self.block_sparse, row_scale=row_scale,
             )
         logits = self.backend.output_logits(acts, *output_layer(net))[:, : self.out_dim]
         return xops.masked_softmax(logits, masks[:, : self.out_dim] != 0, self.semantics)
 
     def masked_from_acts(self, net: QuantizedNet, acts: torch.Tensor,
-                         masks: torch.Tensor) -> torch.Tensor:
-        """Masked posteriors for a few rows of last-hidden activations: on
+                         masks: torch.Tensor, row_scale=None) -> torch.Tensor:
+        """Masked posteriors for a few rows of what `until_output` gave: on
         the kernels one lazy_output launch, which computes the active
         senones' logits only; on the plain versions the logits and the
         masked softmax in tensor ops."""
         return self.backend.lazy_output(acts, *output_layer(net), masks, out_dim=self.out_dim,
-                                        semantics=self.semantics)
+                                        semantics=self.semantics, row_scale=row_scale)
+
+
+def check_lowrank(net: QuantizedNet, config: EngineConfig, mesh=None) -> None:
+    """Raise ValueError, at set-up, for a net with low-rank layers under a
+    knob that has no low-rank route: the output's bottleneck codes take K4's
+    per-row-scale variant (f32, dense, fused) and lazy_output's, and K10
+    holds a rank of at most ops.kernels.LOWRANK_MAX_RANK.  Either backend
+    refuses alike."""
+    if not net.has_lowrank:
+        return
+    refused = {
+        "a mesh": mesh is not None,
+        "int4_packed=True (a low-rank layer has no int4 form)": config.int4_packed,
+        "fused_softmax=False": not config.fused_softmax,
+        "fast_posteriors=True": config.fast_posteriors,
+        f"lazy_mode={config.lazy_mode!r}": config.lazy_mode in ("block_sparse", "gathered"),
+    }
+    bad = [name for name, on in refused.items() if on]
+    if bad:
+        raise ValueError(f"a net with low-rank layers runs on one device with the fused f32 "
+                         f"softmax and the dense lazy mode; refused: {', '.join(bad)}")
+    for bn in net.bottlenecks:
+        if bn is not None and bn.colsum128.shape[0] > kernels.LOWRANK_MAX_RANK:
+            raise ValueError(f"rank {bn.colsum128.shape[0]} exceeds the "
+                             f"{kernels.LOWRANK_MAX_RANK} the low-rank kernel holds")
 
 
 def check_block_sparse(backend: Backend, fused_softmax: bool) -> None:
@@ -319,6 +372,7 @@ class Scorer:
         # measured launch knobs for this (net topology, card) replace those
         # left at their defaults; explicit knobs win (tuning.py)
         self.config = tuned_config(self.config, net, self._backend, self.device)
+        check_lowrank(net, self.config, mesh)
         if self.config.lazy_mode == "block_sparse":
             check_block_sparse(self._backend, self.config.fused_softmax)
         self._data_size, model_size = 1, 1
@@ -477,6 +531,14 @@ class Scorer:
             return gather_rows(acts, self.mesh).to(self.device)
         return self._route.hidden(self.net, frames)
 
+    def _until_output(self, frames: torch.Tensor) -> tuple:
+        """`_hidden`, then a low-rank output layer's bottleneck -> (what the
+        output product takes for the whole batch, its row scales or None;
+        Route.until_output).  A mesh holds no low-rank net (check_lowrank)."""
+        if self._programs is not None:
+            return self._hidden(frames), None
+        return self._route.until_output(self.net, frames)
+
     def _gathered(self, acts, masks, idx) -> torch.Tensor:
         return _lazy.gathered_output_posteriors(
             self.net, acts, masks, idx, out_dim=self._output_dim,
@@ -576,16 +638,18 @@ class Scorer:
             return dict(zip(keys, splits))
         return list(splits)
 
-    def _masked_from_acts(self, acts: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    def _masked_from_acts(self, acts: torch.Tensor, masks: torch.Tensor,
+                          row_scale=None) -> torch.Tensor:
         """Device posteriors for a few rows of stored last-hidden
-        activations and their device masks (_masks), which have the rows
-        padded to split over the data axis under a mesh."""
+        activations (a low-rank output layer's codes, with their row
+        scales) and their device masks (_masks), which have the rows padded
+        to split over the data axis under a mesh."""
         rows = masks.shape[0]
         if rows != acts.shape[0]:
             acts = torch.nn.functional.pad(acts, (0, 0, 0, rows - acts.shape[0]))
         if self._programs is not None:
             return self._programs[3](self.net, self._local(acts), self._local(masks, True))
-        return self._route.masked_from_acts(self.net, acts, masks)
+        return self._route.masked_from_acts(self.net, acts, masks, row_scale)
 
     def new_lazy_context(self, input_vector_count: int) -> "LazyContext":
         """The reference's QuantizedDnn.getNewLazyContext."""
@@ -638,6 +702,7 @@ class LazyContext:
         self.input_vector_count = input_vector_count
         self.current_vector_index = 0
         self._acts: Optional[torch.Tensor] = None
+        self._row_scale: Optional[torch.Tensor] = None
         self._staged = scorer.device.type == "cuda" and scorer.mesh is None
         self._staging: Optional[_LazyStaging] = None
 
@@ -650,7 +715,7 @@ class LazyContext:
                 )
             padded, _ = self._scorer._prepare(frames)
             with torch.inference_mode():
-                self._acts = self._scorer._hidden(padded)
+                self._acts, self._row_scale = self._scorer._until_output(padded)
             self.current_vector_index = 0  # the context is reusable across utterances
 
     def calculate_for_output_nodes(self, mask) -> np.ndarray:
@@ -663,29 +728,30 @@ class LazyContext:
                 raise IndexError("all frames already consumed")
             with torch.inference_mode():
                 acts_i = self._acts[i : i + 1]
+                scale_i = None if self._row_scale is None else self._row_scale[i : i + 1]
                 if self._staged:
-                    res = self._staged_frame(acts_i, mask)
+                    res = self._staged_frame(acts_i, scale_i, mask)
                 else:
-                    res = self._pageable_frame(acts_i, mask)
+                    res = self._pageable_frame(acts_i, scale_i, mask)
             self.current_vector_index += 1
             return res
 
-    def _output(self, acts_i: torch.Tensor, mask_p: np.ndarray, mask_d: torch.Tensor):
+    def _output(self, acts_i: torch.Tensor, scale_i, mask_p: np.ndarray, mask_d: torch.Tensor):
         scorer = self._scorer
         with span("fastdnn.output_lazy"):
             if scorer._use_gathered(mask_p):
                 idx, _ = _lazy.union_active_indices(mask_p, scorer._gather_capacity)
                 return scorer._gathered(acts_i, mask_d, scorer._to_device(idx))
-            return scorer._masked_from_acts(acts_i, mask_d)
+            return scorer._masked_from_acts(acts_i, mask_d, scale_i)
 
-    def _pageable_frame(self, acts_i: torch.Tensor, mask) -> np.ndarray:
+    def _pageable_frame(self, acts_i: torch.Tensor, scale_i, mask) -> np.ndarray:
         scorer = self._scorer
         # under a mesh the row is padded to split over the data axis
         mask_p, mask_d = scorer._masks(np.asarray(mask).reshape(1, -1),
                                        aligned_size(1, scorer._data_size))
-        return scorer._finish(self._output(acts_i, mask_p, mask_d), 1)[0]
+        return scorer._finish(self._output(acts_i, scale_i, mask_p, mask_d), 1)[0]
 
-    def _staged_frame(self, acts_i: torch.Tensor, mask) -> np.ndarray:
+    def _staged_frame(self, acts_i: torch.Tensor, scale_i, mask) -> np.ndarray:
         st = self._staging
         if st is None:
             scorer = self._scorer
@@ -695,7 +761,7 @@ class LazyContext:
             # a mask of another size raises here, as _pad_masks's copy does
             np.not_equal(np.asarray(mask).reshape(-1), 0, out=st.active)
             st.mask_device.copy_(st.mask_host, non_blocking=True)
-        out = self._output(acts_i, st.mask, st.mask_device)
+        out = self._output(acts_i, scale_i, st.mask, st.mask_device)
         with span("fastdnn.finish"):
             st.posteriors_host.copy_(out, non_blocking=True)
             st.done.record(torch.cuda.current_stream(acts_i.device))

@@ -33,7 +33,7 @@ from __future__ import annotations
 import io
 import os
 from dataclasses import dataclass
-from typing import BinaryIO, List, Union
+from typing import BinaryIO, List, Optional, Union
 
 import numpy as np
 
@@ -45,13 +45,20 @@ _BE_F4 = np.dtype(">f4")
 
 @dataclass
 class RawLayer:
-    """One affine layer exactly as stored: weights [out, in] + bias [out]."""
+    """One affine layer exactly as stored: weights [out, in] + bias [out].
+    A low-rank layer (a Kaldi nnet1 `<LinearTransform>` followed by an
+    `<AffineTransform>`) also holds the bias-free product before it,
+    `bottleneck` [rank, in], and `weights` is then [out, rank]; the binary
+    model format has no such layer."""
 
     weights: np.ndarray  # float32 [output_dim, input_dim]
     bias: np.ndarray  # float32 [output_dim]
+    bottleneck: Optional[np.ndarray] = None  # float32 [rank, input_dim]
 
     @property
     def input_dim(self) -> int:
+        if self.bottleneck is not None:
+            return self.bottleneck.shape[1]
         return self.weights.shape[1]
 
     @property
@@ -159,6 +166,9 @@ def write_model(net: RawNetwork, f: PathOrFile, *, little_endian: bool = False) 
     out = io.BytesIO()
     out.write(np.array([len(net.layers)], i4).tobytes())
     for layer in net.layers:
+        if layer.bottleneck is not None:
+            raise ValueError("the binary model format holds affine layers only; a low-rank "
+                             "layer has no place in it")
         out.write(np.array([layer.input_dim, layer.output_dim], i4).tobytes())
         out.write(np.ascontiguousarray(layer.weights, dtype=np.float32).astype(f4).tobytes())
         out.write(np.ascontiguousarray(layer.bias, dtype=np.float32).astype(f4).tobytes())

@@ -5,7 +5,10 @@ Three text formats, those the reference's Java layer accepts:
 1. Network file: a sequence of `<AffineTransform> <out> <in>` components,
    each followed by `out` rows of `in` weights and one bias row of `out`
    values; activation markers like `<Sigmoid>`/`<Softmax>` and
-   bracket-only lines are skipped.
+   bracket-only lines are skipped.  A `<LinearTransform> <k> <in>` (`k`
+   rows of `in` weights, no bias) followed by an `<AffineTransform> <out>
+   <k>` is one low-rank layer (a RawLayer with that bottleneck), as an
+   SVD-restructured net stores it.
 2. Feature-transform file: bracketed `[ ... ]` blocks; with three blocks
    the first is a `<Splice>` block and is dropped; the other two are the
    shift and scale vectors, which must match the network's input dim.
@@ -90,27 +93,38 @@ def _next_line(lines):
 
 
 def parse_network_text(text: str) -> List[RawLayer]:
-    """Parse nnet1 text into affine layers (weights [out, in], bias [out])."""
+    """Parse nnet1 text into affine layers (weights [out, in], bias [out]);
+    a `<LinearTransform>` and the `<AffineTransform>` after it make one
+    low-rank layer (bottleneck [k, in], weights [out, k])."""
     layers: List[RawLayer] = []
     lines = iter(text.splitlines())
     node_count = -1
     input_count = -1
+    linear = False  # the component being read is a <LinearTransform>
+    pending = None  # a <LinearTransform>'s weights, waiting for its <AffineTransform>
     for line in lines:
         line = line.strip()
         if not line:
             continue
-        if line.startswith("<AffineTransform>"):
+        if line.startswith(("<AffineTransform>", "<LinearTransform>")):
+            if pending is not None and line.startswith("<LinearTransform>"):
+                raise ValueError("a <LinearTransform> must be followed by an <AffineTransform>")
+            linear = line.startswith("<LinearTransform>")
             rest = line[line.index(">") + 1 :].split()
             node_count, input_count = int(rest[0]), int(rest[1])
+            if pending is not None and input_count != pending.shape[0]:
+                raise ValueError(f"<AffineTransform> takes {input_count} inputs after a "
+                                 f"<LinearTransform> of {pending.shape[0]} outputs")
             continue
         if node_count == -1 or line.startswith("<") or line in ("[", "]"):
             continue
         # this line is the first weight row: node_count rows of weights,
-        # then one bias row (the reference reads node_count + 1 rows)
+        # then one bias row (the reference reads node_count + 1 rows); a
+        # <LinearTransform> has no bias row
         weights = np.empty((node_count, input_count), dtype=np.float32)
         bias = np.empty(node_count, dtype=np.float32)
         row = line
-        for i in range(node_count + 1):
+        for i in range(node_count + (0 if linear else 1)):
             if i > 0:
                 row = _next_line(lines)
             vals = _floats(row.replace("[", " ").replace("]", " "))
@@ -126,8 +140,14 @@ def parse_network_text(text: str) -> List[RawLayer]:
                         f"bias row has {vals.shape[0]} values, expected {node_count}"
                     )
                 bias = vals
-        layers.append(RawLayer(weights, bias))
         node_count = -1
+        if linear:
+            pending = weights
+            continue
+        layers.append(RawLayer(weights, bias, pending))
+        pending = None
+    if pending is not None:
+        raise ValueError("a <LinearTransform> must be followed by an <AffineTransform>")
     return layers
 
 

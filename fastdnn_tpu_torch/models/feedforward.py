@@ -4,6 +4,14 @@ Topology as in fastdnn_tpu/models/feedforward.py: an input layer (float),
 N sigmoid hidden layers and a softmax output layer, with a per-frame feature
 transform `(x + shift) * scale` before the first layer.  Weights are stored
 [input_dim, output_dim], so a frame batch is scored as `x @ W + b`.
+
+A layer after the input layer may instead be low-rank (`LowRank`), the
+restructured layer of Xue, Li and Gong (Interspeech 2013): W [m, n] of a
+trained net replaced by its rank-k truncated SVD, W ~ A B with A [m, k]
+and B [k, n], so the layer computes f(A (B x) + b), its bottleneck B x
+linear and bias-free.  Stored [in, out] as the dense weights are, that is
+`x @ project @ expand + b` with project = B^T [in, k] and expand = A^T
+[k, out] (`restructure` makes them from a dense net).
 """
 
 from __future__ import annotations
@@ -20,10 +28,28 @@ from ..utils.align import aligned_size
 
 
 @dataclasses.dataclass(frozen=True)
+class LowRank:
+    """A low-rank layer's two factors: x @ project [in, k] @ expand [k, out].
+    `shape` is (in, out), the shape of the dense weight it stands for."""
+
+    project: torch.Tensor
+    expand: torch.Tensor
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.project.shape[0], self.expand.shape[1])
+
+    @property
+    def rank(self) -> int:
+        return self.project.shape[1]
+
+
+@dataclasses.dataclass(frozen=True)
 class FeedForwardNet:
     """Float network.
 
-    weights[i]: f32 [in_dim_i, out_dim_i]  (transposed from file layout)
+    weights[i]: f32 [in_dim_i, out_dim_i]  (transposed from file layout),
+        or a LowRank for a restructured layer after the input layer
     biases[i]:  f32 [out_dim_i]
     shift/scale: f32 [input_dim]
     """
@@ -53,10 +79,17 @@ def _f32(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.float32))
 
 
+def _t(a: np.ndarray) -> torch.Tensor:
+    return _f32(np.ascontiguousarray(a.T))
+
+
 def from_raw(raw: RawNetwork) -> FeedForwardNet:
-    """Build the net from a parsed model file (transposes weights)."""
+    """Build the net from a parsed model file (transposes weights); a raw
+    layer with a bottleneck becomes a LowRank (the JAX package's raw layers
+    have none)."""
     return FeedForwardNet(
-        tuple(_f32(np.ascontiguousarray(l.weights.T)) for l in raw.layers),
+        tuple(_t(l.weights) if getattr(l, "bottleneck", None) is None
+              else LowRank(_t(l.bottleneck), _t(l.weights)) for l in raw.layers),
         tuple(_f32(l.bias) for l in raw.layers),
         _f32(raw.shift),
         _f32(raw.scale),
@@ -66,13 +99,18 @@ def from_raw(raw: RawNetwork) -> FeedForwardNet:
 def to_raw(net: FeedForwardNet) -> RawNetwork:
     """Inverse of `from_raw`, for writing reference-format files."""
     layers = [
-        RawLayer(w.numpy().T.copy(), b.numpy().copy())
+        RawLayer(w.numpy().T.copy(), b.numpy().copy()) if not isinstance(w, LowRank)
+        else RawLayer(w.expand.numpy().T.copy(), b.numpy().copy(), w.project.numpy().T.copy())
         for w, b in zip(net.weights, net.biases)
     ]
     return RawNetwork(layers, net.shift.numpy().copy(), net.scale.numpy().copy())
 
 
-def _pad_to(t: torch.Tensor, *shape: int) -> torch.Tensor:
+def _pad_to(t, *shape: int):
+    """Zero-pad a weight to `shape` (in, out); a LowRank pads its project's
+    rows and its expand's columns."""
+    if isinstance(t, LowRank):
+        return LowRank(_pad_to(t.project, shape[0], t.rank), _pad_to(t.expand, t.rank, shape[1]))
     out = torch.zeros(shape, dtype=t.dtype)
     out[tuple(slice(0, s) for s in t.shape)] = t
     return out
@@ -104,7 +142,9 @@ def extend(net: FeedForwardNet, hidden_width: int, output_count: int) -> FeedFor
     large benchmark net from a small trained one): hidden layers are tiled
     circularly along both dims (the input layer along its nodes only); the
     output layer is zero-padded, so the added senones have zero weights and
-    bias."""
+    bias.  A net with low-rank layers is refused."""
+    if any(isinstance(w, LowRank) for w in net.weights):
+        raise ValueError("extend tiles dense layers; this net has low-rank layers")
     n = net.layer_count
     ws, bs = [], []
     for i, (w, b) in enumerate(zip(net.weights, net.biases)):
@@ -126,6 +166,8 @@ def fuse_transform(net: FeedForwardNet) -> FeedForwardNet:
                                      + (b1 + (shift * scale) @ W1)
     """
     w0, b0 = net.weights[0], net.biases[0]
+    if isinstance(w0, LowRank):
+        raise ValueError("the input layer must be dense: it stays float and unfactorized")
     fused_w0 = net.scale[:, None] * w0
     fused_b0 = b0 + matmul_f32((net.shift * net.scale)[None, :], w0)[0]
     return FeedForwardNet(
@@ -152,7 +194,9 @@ def forward(
     x = apply_transform(net, frames) if apply_input_transform else frames
     n = net.layer_count
     for i in range(n):
-        x = matmul_f32(x, net.weights[i]) + net.biases[i]
+        w = net.weights[i]
+        x = (matmul_f32(matmul_f32(x, w.project), w.expand) if isinstance(w, LowRank)
+             else matmul_f32(x, w)) + net.biases[i]
         if i < n - 1:
             x = torch.sigmoid(x)
     return torch.softmax(x, dim=-1)
@@ -180,3 +224,49 @@ def random_net(
     shift = _f32(rng.standard_normal(input_dim, dtype=np.float32))
     scale = _f32(rng.uniform(0.5, 1.5, input_dim))
     return FeedForwardNet(tuple(ws), tuple(bs), shift, scale)
+
+
+def restructure(net: FeedForwardNet, rank: int, layers: Sequence[int] | None = None
+                ) -> FeedForwardNet:
+    """The paper's SVD split: each listed layer's W [in, out] (every layer
+    after the input layer by default) replaced by its rank-`rank` truncated
+    SVD, W = U S V^T ~ project @ expand with project = U_k S_k [in, k] and
+    expand = V_k^T [k, out]: the bottleneck, applied first, carries the
+    singular values, as the paper's N = S V^T does.  At rank min(in, out)
+    the product is W to float rounding.  The SVD runs in float64."""
+    if layers is None:
+        layers = range(1, net.layer_count)
+    ws = list(net.weights)
+    for i in layers:
+        if i == 0:
+            raise ValueError("the input layer stays dense")
+        w = ws[i]
+        if isinstance(w, LowRank):
+            raise ValueError(f"layer {i} is already low-rank")
+        if not 0 < rank <= min(w.shape):
+            raise ValueError(f"rank {rank} must be in [1, {min(w.shape)}] for layer {i}")
+        u, sv, vh = torch.linalg.svd(w.to(torch.float64), full_matrices=False)
+        ws[i] = LowRank((u[:, :rank] * sv[:rank]).to(torch.float32).contiguous(),
+                        vh[:rank].to(torch.float32).contiguous())
+    return dataclasses.replace(net, weights=tuple(ws))
+
+
+def random_lowrank_net(
+    rng: np.random.Generator,
+    input_dim: int,
+    hidden_widths: Sequence[int],
+    output_dim: int,
+    rank: int,
+) -> FeedForwardNet:
+    """`random_net`'s topology with every layer after the input layer low-rank
+    at `rank`, its factors drawn directly (a random matrix has no low-rank
+    structure to truncate): project ~ N(0, 1 / in), expand ~ N(0, 1 / rank),
+    so that each factor keeps its output in the sigmoid's useful range."""
+    base = random_net(rng, input_dim, hidden_widths, output_dim)
+    dims = [input_dim, *hidden_widths, output_dim]
+    ws = [base.weights[0]]
+    for a, b in zip(dims[1:], dims[2:]):
+        ws.append(LowRank(
+            _f32(rng.standard_normal((a, rank), dtype=np.float32) * a ** -0.5),
+            _f32(rng.standard_normal((rank, b), dtype=np.float32) * rank ** -0.5)))
+    return dataclasses.replace(base, weights=tuple(ws))

@@ -76,6 +76,17 @@ _SIGNATURES = {
         [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, *[ctypes.c_int] * 6, _P],
     ),
     "fdn_resident_softmax_wgmma_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_resident_softmax_rowscale": (
+        ctypes.c_int, [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P, *[ctypes.c_int] * 5, _P],
+    ),
+    "fdn_lowrank_layer": (
+        ctypes.c_int,
+        [_P, _P, _P, ctypes.c_float, _P, ctypes.c_float, _P, _P, *[ctypes.c_int] * 6, _P],
+    ),
+    "fdn_lowrank_bottleneck": (
+        ctypes.c_int, [_P, _P, _P, ctypes.c_float, ctypes.c_float, _P, _P, *[ctypes.c_int] * 5, _P],
+    ),
+    "fdn_lowrank_smem_bytes": (ctypes.c_longlong, []),
     "fdn_resident_softmax_wgmma_max_clusters": (ctypes.c_int, [ctypes.c_int] * 2),
     "fdn_output_logits": (
         ctypes.c_int,
@@ -91,8 +102,8 @@ _SIGNATURES = {
     "fdn_normalize_stats": (ctypes.c_int, [_P, _P, _P, _P, _P, *[ctypes.c_int] * 4, _P]),
     "fdn_lazy_output": (
         ctypes.c_int,
-        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P, *[ctypes.c_int] * 4,
-         _P],
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P, *[ctypes.c_int] * 3,
+         _P, ctypes.c_int, _P],
     ),
     "fdn_lazy_output_smem_bytes": (ctypes.c_longlong, [ctypes.c_int] * 2),
     "fdn_lazy_output_max_clusters": (ctypes.c_int, [ctypes.c_int] * 3),

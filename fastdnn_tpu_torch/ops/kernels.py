@@ -3,9 +3,13 @@
 Dispatch rule, with no fallback: a tensor on the CPU goes to the kernel's
 plain PyTorch version (ops/matmul.py); a CUDA tensor goes to the kernel,
 and a kernel that cannot build or launch raises.  Each wrapper checks
-device, dtype, shape and contiguity (lazy_output, called once a decoder
-frame, leaves its constant output layer to check_lazy_output_layer, which
-engine.backend.Backend.prepare calls once a net), allocates its output with
+device, dtype, shape and contiguity (five leave a net's constant operands
+to a check that engine.backend.Backend.prepare calls once a net:
+lazy_output, called once a decoder frame, its output layer to
+check_lazy_output_layer; K9 and its bf16 variant, the first launch of
+every dense request, the input layer to check_input_layer; K10 and its
+bottleneck, whose host time per call matched their device time, the
+factors to check_lowrank_layer), allocates its output with
 `torch.empty`, launches on the current stream of the tensor's device and
 adds one to its launch count (`launch_counts`), which is how a run shows
 that its main path went through the kernels.
@@ -39,6 +43,13 @@ A wrapper given CPU tensors transposes back for its plain version.
        lazy_output                    a few rows' masked posteriors in one launch:
                                       the active senones' logits only, folded
                                       into each row's (max, sum-exp)
+    K10 lowrank_layer                 one low-rank hidden layer (models.feedforward.
+                                      LowRank): the bottleneck product, its signed
+                                      codes with a scale per frame, the expand
+                                      product and the sigmoid, in one launch
+        lowrank_bottleneck            K10's first half for a low-rank output layer:
+                                      the codes and each frame's scale, which K4
+                                      and lazy_output take as a per-row scale
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 
@@ -58,6 +69,7 @@ the configured precision (engine.backend.Backend.prepare).
 
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
 
@@ -96,6 +108,10 @@ HIDDEN_STACK_MAX_H = 2304
 INPUT_K_MULTIPLE = 4
 #: the bf16 operand's K is padded to a multiple of one bf16 wgmma step
 INPUT_BF16_K_MULTIPLE = 16
+#: the frame tile of K10 and its bottleneck, and the largest rank they hold
+#: (one 128-column tile of the bottleneck per consumer warpgroup)
+LOWRANK_FRAMES = 64
+LOWRANK_MAX_RANK = 256
 #: blocks per thread-block cluster of K2, K3 and K7: each weight stage
 #: leaves L2 once per cluster and is multicast to its blocks.  On the H100
 #: clusters of 2 beat 1, and clusters of 4 lost to both (PERF.md)
@@ -157,6 +173,9 @@ KERNELS = {
         "fastdnn_tpu_torch/csrc/lazy_output.cu",
         "fastdnn_tpu/ops/pallas_kernels.py:1104, fastdnn_tpu/ops/matmul.py:106, :118",
     ),
+    # the JAX package has no low-rank layer: these replace no TPU kernel
+    "lowrank_layer": Kernel("fastdnn_tpu_torch/csrc/lowrank_layer.cu", "none"),
+    "lowrank_bottleneck": Kernel("fastdnn_tpu_torch/csrc/lowrank_layer.cu", "none"),
 }
 
 #: the lazy semantics as the resident-softmax kernels number them
@@ -252,11 +271,15 @@ def _require_multiples(name: str, **dims) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    """The opt-in shared memory per block of CUDA device `index`, read once."""
+    return getattr(torch.cuda.get_device_properties(index), "shared_memory_per_block_optin",
+                   HOPPER_BLOCK_SMEM)
+
+
 def _require_smem(name: str, device: torch.device, need: int) -> None:
-    limit = getattr(
-        torch.cuda.get_device_properties(device), "shared_memory_per_block_optin",
-        HOPPER_BLOCK_SMEM,
-    )
+    limit = _smem_limit(device.index)
     if need > limit:
         raise ValueError(
             f"{name}: needs {need} bytes of shared memory per block, the card allows {limit}"
@@ -292,32 +315,59 @@ def bias_sigmoid_i8(lin: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def check_input_layer(w, operand, bias, precision: str = "high") -> None:
+    """K9's checks of a net's constant input layer, or, for precision
+    "default", its bf16 variant's: w f32 [K, H], operand =
+    input_layer_operand(w, precision) and bias f32 [H] on one CUDA device,
+    contiguous, H a multiple of 128, the operand on a 16-byte boundary, the
+    block's shared memory.  engine.backend.Backend.prepare makes them once a
+    net: made on every call they lay between a dense request's start and its
+    first launch, a stretch of 82-93 us of host time on an H100's host
+    (PERF.md).  CPU tensors need none."""
+    if w.device.type == "cpu":
+        return
+    k, h = w.shape if w.dim() == 2 else (-1, -1)
+    if precision == "default":
+        name, dtype = "input_layer_bf16", torch.bfloat16
+        shape = (h, k + -k % INPUT_BF16_K_MULTIPLE)
+    else:
+        name, dtype, shape = "input_layer", torch.float32, (2, h, k + -k % INPUT_K_MULTIPLE)
+    device = _check(name, (w, operand, bias), (torch.float32, dtype, torch.float32),
+                    ((k, h), shape, (h,)))
+    _require_multiples(name, H=(h, TILE_N))
+    _check_tma_weight(name, operand, "the operand")
+    _require_smem(name, device, _build.load().fdn_input_layer_smem_bytes())
+
+
+def _input_frames(name: str, frames, w, operand) -> torch.device:
+    """A call's own checks of K9 and its bf16 variant: frames f32 [B, K]
+    contiguous on the operand's CUDA device (the input layer as
+    check_input_layer passed it)."""
+    device = _check(name, (frames,), (torch.float32,), ((None, w.shape[0]),))
+    if operand.device != device:
+        raise ValueError(f"{name}: the operand is on {operand.device}, the frames on {device}")
+    return device
+
+
 def input_layer(frames, w, operand, bias) -> torch.Tensor:
     """K9: quantized_sigmoid_shifted_i8(f32(frames @ w) + bias), f32 [B, K]
     x f32 [K, H] -> shifted s8 [B, H], in one launch; the kernel reads the
     weight as operand = input_layer_operand(w), [2, H, K4].  Frames whose K
     is not a multiple of INPUT_K_MULTIPLE (or that start off a 16-byte
-    boundary) are copied, zero-padded, first.  Within 1 count, on at most
-    1e-4 of the entries, of its plain version, ops.matmul.input_layer_step
-    (the f64 product rounded once to f32)."""
+    boundary) are copied, zero-padded, first.  The input layer is taken as
+    check_input_layer passed it; the frames are checked here.  Within 1
+    count, on at most 1e-4 of the entries, of its plain version,
+    ops.matmul.input_layer_step (the f64 product rounded once to f32)."""
     if frames.device.type == "cpu":
         return plain.input_layer_step(frames, w, bias)
-    b, k = frames.shape
-    h = w.shape[1]
-    k4 = k + -k % INPUT_K_MULTIPLE
-    device = _check(
-        "input_layer", (frames, w, operand, bias), (torch.float32,) * 4,
-        ((b, k), (k, h), (2, h, k4), (h,)),
-    )
-    _require_multiples("input_layer", H=(h, TILE_N))
-    _check_tma_weight("input_layer", operand, "the operand")
+    device = _input_frames("input_layer", frames, w, operand)
     frames = _tma_frames(frames)
+    b, h = frames.shape[0], operand.shape[1]
     out = torch.empty((b, h), dtype=torch.int8, device=device)
     if b:
-        lib = _build.load()
-        _require_smem("input_layer", device, lib.fdn_input_layer_smem_bytes())
-        _launch("input_layer", device, lib.fdn_input_layer,
-                frames.data_ptr(), operand.data_ptr(), bias.data_ptr(), out.data_ptr(), b, k4, h)
+        _launch("input_layer", device, _build.load().fdn_input_layer,
+                frames.data_ptr(), operand.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+                operand.shape[2], h)
     return out
 
 
@@ -336,28 +386,21 @@ def input_layer_bf16(frames, w, operand, bias) -> torch.Tensor:
     @ bf16(w)) + bias), f32 [B, K] x f32 [K, H] -> shifted s8 [B, H], in one
     launch; the kernel reads the weight as operand =
     input_layer_operand(w, "default"), bf16 [H, K16], and rounds the frames
-    itself.  Frames are padded as for K9.  Within 1 count, on at most 1e-4
-    of the entries, of its plain version, ops.matmul.input_layer_step(...,
+    itself.  Frames are padded as for K9, and the input layer is taken as
+    check_input_layer(..., "default") passed it.  Within 1 count, on at most
+    1e-4 of the entries, of its plain version, ops.matmul.input_layer_step(...,
     "default") (the f64 product of the rounded operands rounded once to
     f32)."""
     if frames.device.type == "cpu":
         return plain.input_layer_step(frames, w, bias, "default")
-    b, k = frames.shape
-    h = w.shape[1]
-    device = _check(
-        "input_layer_bf16", (frames, w, operand, bias),
-        (torch.float32, torch.float32, torch.bfloat16, torch.float32),
-        ((b, k), (k, h), (h, k + -k % INPUT_BF16_K_MULTIPLE), (h,)),
-    )
-    _require_multiples("input_layer_bf16", H=(h, TILE_N))
-    _check_tma_weight("input_layer_bf16", operand, "the operand")
+    device = _input_frames("input_layer_bf16", frames, w, operand)
     frames = _tma_frames(frames)
+    b, h = frames.shape[0], operand.shape[0]
     out = torch.empty((b, h), dtype=torch.int8, device=device)
     if b:
-        lib = _build.load()
-        _require_smem("input_layer_bf16", device, lib.fdn_input_layer_smem_bytes())
-        _launch("input_layer_bf16", device, lib.fdn_input_layer_bf16, frames.data_ptr(),
-                operand.data_ptr(), bias.data_ptr(), out.data_ptr(), b, frames.shape[1], h)
+        _launch("input_layer_bf16", device, _build.load().fdn_input_layer_bf16,
+                frames.data_ptr(), operand.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+                frames.shape[1], h)
     return out
 
 
@@ -473,18 +516,25 @@ def _resident_args(name, acts, w_t, colsum, bias, masks, out_dim, semantics):
 
 
 def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, out_dim: int,
-                     semantics: str = "reference", fast: bool = False) -> torch.Tensor:
+                     semantics: str = "reference", fast: bool = False,
+                     row_scale=None) -> torch.Tensor:
     """K4: output layer + row softmax over the first `out_dim` columns,
     s8 [B, K] x s8 [K, N] -> [B, out_dim], f32 or (fast) bf16; the weight
     given as w_t = kernel_layout(w), [N, K].  masks: None or u8 [B, N],
-    softmax under `semantics` ("reference" or "active_only").  Plain
-    version: ops.matmul.output_posteriors."""
+    softmax under `semantics` ("reference" or "active_only").  row_scale:
+    None, or f32 [B], each row's scale in place of inv_scale (K4's ROWSCALE
+    variant, f32 only: a low-rank output layer on its bottleneck's codes).
+    Plain version: ops.matmul.output_posteriors."""
     if acts.device.type == "cpu":
         return plain.output_posteriors(acts, w_t.t(), colsum, inv_scale, bias, masks,
-                                       out_dim=out_dim, semantics=semantics, fast=fast)
+                                       out_dim=out_dim, semantics=semantics, fast=fast,
+                                       row_scale=row_scale)
     device, code = _resident_args("resident_softmax", acts, w_t, colsum, bias, masks, out_dim,
                                   semantics)
     b, k = acts.shape
+    if row_scale is not None:
+        return _resident_rowscale(acts, w_t, colsum, bias, masks, row_scale, code, out_dim,
+                                  fast, device)
     out = torch.empty((b, out_dim), dtype=torch.bfloat16 if fast else torch.float32,
                       device=device)
     # bf16 posteriors cannot hold the logits between the kernel's two sweeps
@@ -497,6 +547,24 @@ def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, o
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), None if masks is None else masks.data_ptr(), code,
                 logits.data_ptr(), out.data_ptr(), int(fast), b, k, w_t.shape[0], out_dim)
+    return out
+
+
+def _resident_rowscale(acts, w_t, colsum, bias, masks, row_scale, code, out_dim, fast, device):
+    """K4's ROWSCALE variant, the shapes checked by resident_softmax."""
+    if fast:
+        raise ValueError("resident_softmax: a per-row scale has no bf16 variant")
+    b, k = acts.shape
+    _check("resident_softmax", (acts, row_scale), (torch.int8, torch.float32), ((b, k), (b,)))
+    _check_tma_weight("resident_softmax", w_t)
+    out = torch.empty((b, out_dim), dtype=torch.float32, device=device)
+    if b:
+        lib = _build.load()
+        _require_smem("resident_softmax", device, lib.fdn_resident_softmax_wgmma_smem_bytes(k))
+        _launch("resident_softmax", device, lib.fdn_resident_softmax_rowscale,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                row_scale.data_ptr(), None if masks is None else masks.data_ptr(), code,
+                out.data_ptr(), b, k, w_t.shape[0], out_dim)
     return out
 
 
@@ -685,7 +753,8 @@ def check_lazy_output_layer(w_t, colsum, bias) -> None:
 
 
 def lazy_output(acts, w_t, colsum, inv_scale: float, bias, masks, *, out_dim: int,
-                semantics: str = "reference", logits: bool = False) -> torch.Tensor:
+                semantics: str = "reference", logits: bool = False,
+                row_scale=None) -> torch.Tensor:
     """Masked posteriors of a few rows in one launch: s8 [rows, K] x s8
     [K, N] under masks u8 [rows, W] (nonzero = active, W >= out_dim; only
     the first out_dim columns are read) -> f32 [rows, out_dim], the softmax
@@ -694,10 +763,12 @@ def lazy_output(acts, w_t, colsum, inv_scale: float, bias, masks, *, out_dim: in
     computed, bitwise K5's; `logits` returns them (inactive 0) without the
     softmax.  One cluster per row, so the launch suits a few rows.  The
     output layer's tensors are taken as check_lazy_output_layer passed
-    them; each call's own tensors are checked here.  Plain version:
-    ops.matmul.output_logits followed by ops.matmul.masked_softmax."""
+    them; each call's own tensors are checked here.  row_scale: None, or f32
+    [rows], each row's scale in place of inv_scale (the kernel's ROWSCALE
+    variant).  Plain version: ops.matmul.output_logits followed by
+    ops.matmul.masked_softmax."""
     if acts.device.type == "cpu":
-        z = plain.output_logits(acts, w_t.t(), colsum, inv_scale, bias)[:, :out_dim]
+        z = plain.output_logits(acts, w_t.t(), colsum, inv_scale, bias, row_scale)[:, :out_dim]
         active = masks[:, :out_dim] != 0
         return torch.where(active, z, 0.0) if logits else plain.masked_softmax(z, active, semantics)
     code = 2 if logits else _SEMANTICS.get(semantics)
@@ -707,6 +778,8 @@ def lazy_output(acts, w_t, colsum, inv_scale: float, bias, masks, *, out_dim: in
     n, k = w_t.shape
     device = _check("lazy_output", (acts, masks), (torch.int8, torch.uint8),
                     ((rows, k), (rows, None)))
+    if row_scale is not None:
+        _check("lazy_output", (acts, row_scale), (torch.int8, torch.float32), ((rows, k), (rows,)))
     if w_t.device != device:
         raise ValueError(f"lazy_output: the weight is on {w_t.device}, the activations on {device}")
     if not 0 < out_dim <= min(n, masks.shape[1]):
@@ -718,5 +791,91 @@ def lazy_output(acts, w_t, colsum, inv_scale: float, bias, masks, *, out_dim: in
         _launch("lazy_output", device, _build.load().fdn_lazy_output,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
                 float(inv_scale), masks.data_ptr(), masks.shape[1], code, out.data_ptr(), rows,
-                k, out_dim)
+                k, out_dim, None if row_scale is None else row_scale.data_ptr())
     return out
+
+
+def check_lowrank_layer(p_t, p_colsum, e_t=None, bias=None) -> None:
+    """K10's and the bottleneck's checks of a net's constant factors: the
+    bottleneck p_t [k, K] with its colsum128 [k] and, for K10, the expand
+    factor e_t [N, k] with the bias [N]: dtypes, shapes and contiguity, K
+    and N multiples of 128, the rank a multiple of 128 and at most
+    LOWRANK_MAX_RANK, 16-byte boundaries, the block's shared memory.
+    engine.backend.Backend.prepare makes them once a net: made on every
+    call they cost about as much host time as the layer's kernel takes (a
+    K10 call's wrapper took ≈ 60 us on an H100's host, beside 60 us of
+    device time).  CPU tensors need none."""
+    if p_t.device.type == "cpu":
+        return
+    rank, k = p_t.shape if p_t.dim() == 2 else (-1, -1)
+    tensors, dtypes, shapes = [p_t, p_colsum], [torch.int8, torch.int32], [(rank, k), (rank,)]
+    n = e_t.shape[0] if e_t is not None and e_t.dim() == 2 else -1
+    if e_t is not None:
+        tensors += [e_t, bias]
+        dtypes += [torch.int8, torch.float32]
+        shapes += [(n, rank), (n,)]
+    device = _check("lowrank_layer", tensors, dtypes, shapes)
+    _require_multiples("lowrank_layer", K=(k, TILE_K), rank=(rank, TILE_N),
+                       **({"N": (n, TILE_N)} if e_t is not None else {}))
+    if rank > LOWRANK_MAX_RANK:
+        raise ValueError(f"lowrank_layer: rank {rank} exceeds the {LOWRANK_MAX_RANK} the kernel "
+                         "holds")
+    for w in tensors[:: 2]:  # p_t, e_t
+        _check_tma_weight("lowrank_layer", w)
+    _require_smem("lowrank_layer", device, _build.load().fdn_lowrank_smem_bytes())
+
+
+def _lowrank_acts(name, acts, p_t) -> torch.device:
+    """A call's own checks of K10 and its bottleneck: the activations s8
+    [B, K] on the factors' CUDA device, B a multiple of LOWRANK_FRAMES, from
+    a 16-byte boundary (the factors as check_lowrank_layer passed them)."""
+    device = _check(name, (acts,), (torch.int8,), ((None, p_t.shape[1]),))
+    if p_t.device != device:
+        raise ValueError(f"{name}: the factors are on {p_t.device}, the activations on {device}")
+    _require_multiples(name, B=(acts.shape[0], LOWRANK_FRAMES))
+    _check_tma_weight(name, acts, "the activations")
+    return device
+
+
+def lowrank_layer(acts, p_t, p_colsum, p_inv: float, e_t, e_colsum, e_inv: float,
+                  bias) -> torch.Tensor:
+    """K10: one low-rank hidden layer, s8 [B, K] -> shifted s8 [B, N]: the
+    bottleneck s8 [K, k] (given as p_t = kernel_layout, [k, K]) with its
+    colsum128 and 1 / (multiplier * 255), its signed codes with a scale per
+    frame, the expand factor s8 [k, N] (e_t [N, k]) with 1 / multiplier, the
+    bias and the quantized sigmoid, in one launch (the contract of
+    quant/quantize.py).  The factors and bias are taken as
+    check_lowrank_layer passed them; e_colsum, the expand factor's zero
+    colsum128, only reaches the plain version.  Plain version:
+    ops.matmul.lowrank_layer_step."""
+    if acts.device.type == "cpu":
+        return plain.lowrank_layer_step(acts, p_t.t(), p_colsum, p_inv, e_t.t(), e_colsum,
+                                        e_inv, bias)
+    device = _lowrank_acts("lowrank_layer", acts, p_t)
+    b, n = acts.shape[0], e_t.shape[0]
+    out = torch.empty((b, n), dtype=torch.int8, device=device)
+    if b:
+        _launch("lowrank_layer", device, _build.load().fdn_lowrank_layer,
+                acts.data_ptr(), p_t.data_ptr(), p_colsum.data_ptr(), float(p_inv),
+                e_t.data_ptr(), float(e_inv), bias.data_ptr(), out.data_ptr(), b,
+                p_t.shape[1], p_t.shape[0], n, wgmma_cluster(b))
+    return out
+
+
+def lowrank_bottleneck(acts, p_t, p_colsum, p_inv: float, e_inv: float):
+    """K10's first half, for a low-rank output layer: s8 [B, K] -> (codes
+    s8 [B, k], scale f32 [B]), each row's scale already times e_inv, the
+    expand factor's 1 / multiplier, as K4's and lazy_output's ROWSCALE
+    variants take it.  The factor is taken as check_lowrank_layer passed
+    it.  Plain version: ops.matmul.bottleneck_step."""
+    if acts.device.type == "cpu":
+        return plain.bottleneck_step(acts, p_t.t(), p_colsum, p_inv, e_inv)
+    device = _lowrank_acts("lowrank_bottleneck", acts, p_t)
+    b, rank = acts.shape[0], p_t.shape[0]
+    codes = torch.empty((b, rank), dtype=torch.int8, device=device)
+    scale = torch.empty((b,), dtype=torch.float32, device=device)
+    if b:
+        _launch("lowrank_bottleneck", device, _build.load().fdn_lowrank_bottleneck,
+                acts.data_ptr(), p_t.data_ptr(), p_colsum.data_ptr(), float(p_inv), float(e_inv),
+                codes.data_ptr(), scale.data_ptr(), b, p_t.shape[1], rank, wgmma_cluster(b))
+    return codes, scale

@@ -16,7 +16,10 @@ from __future__ import annotations
 import torch
 
 from ..config import INPUT_PRECISIONS
-from .sigmoid import quantized_sigmoid_shifted_i8
+from .sigmoid import _round_half_away, quantized_sigmoid_shifted_i8
+
+#: the bottleneck codes' range, symmetric: [-CODE_MAX, CODE_MAX]
+CODE_MAX = 127.0
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -101,6 +104,32 @@ def hidden_layer_step(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32):
     return quantized_sigmoid_shifted_i8(dequantize(acc, colsum128_i32, inv_scale, bias_f32))
 
 
+def bottleneck_step(acts_i8, w_i8, colsum128_i32, inv_scale, next_inv_scale):
+    """A low-rank layer's first product, the bottleneck, as signed codes
+    with a scale per frame (the contract of quant/quantize.py):
+    z = f32(acc + colsum128) * inv_scale, s = max|z| / 127 per row, codes
+    clip(round_half_away(z / s), -127, 127) (0 in a row whose s is 0), and
+    each row's scale s * next_inv_scale, the expand factor's 1 / multiplier.
+    -> (codes s8 [B, k], scale f32 [B]).  The plain version of the
+    bottleneck kernel."""
+    z = (int8_matmul(acts_i8, w_i8) + colsum128_i32).to(torch.float32) * inv_scale
+    s = z.abs().amax(dim=1) / CODE_MAX
+    live = s[:, None] > 0
+    codes = torch.clamp(_round_half_away(z / torch.where(live, s[:, None], 1.0)),
+                        -CODE_MAX, CODE_MAX)
+    return torch.where(live, codes, 0.0).to(torch.int8), (s * next_inv_scale).to(torch.float32)
+
+
+def lowrank_layer_step(acts_i8, w1_i8, colsum1, inv1, w2_i8, colsum2, inv2, bias_f32):
+    """One low-rank hidden layer: the bottleneck's codes and scales
+    (bottleneck_step), the expand product on them, each row dequantized with
+    its own scale, then the quantized sigmoid -> shifted int8.  The plain
+    version of the low-rank layer kernel (K10)."""
+    codes, scale = bottleneck_step(acts_i8, w1_i8, colsum1, inv1, inv2)
+    acc = int8_matmul(codes, w2_i8)
+    return quantized_sigmoid_shifted_i8(dequantize(acc, colsum2, scale[:, None], bias_f32))
+
+
 def unpack_int4_pair(packed_i8: torch.Tensor):
     """[K/2, N] two-nibbles-per-byte int8 -> (lo, hi) int8 weight halves,
     the inverse of quant.quantize.pack_int4_trunk: lo[k] is weight row k,
@@ -131,9 +160,13 @@ def hidden_stack_step(acts_i8, hstack):
     return acts_i8
 
 
-def output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32):
+def output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, row_scale=None):
     """Output layer linear activations (pre-softmax), f32 [B, N]: the plain
-    version of the logits kernel."""
+    version of the logits kernel.  row_scale: None, or f32 [B], each row's
+    scale in place of inv_scale (a low-rank output layer's expand product
+    on the bottleneck's codes)."""
+    if row_scale is not None:
+        inv_scale = row_scale[:, None]
     return dequantize(int8_matmul(acts_i8, w_i8), colsum128_i32, inv_scale, bias_f32)
 
 
@@ -188,6 +221,7 @@ def output_posteriors(
     out_dim: int,
     semantics: str = "reference",
     fast: bool = False,
+    row_scale=None,
 ):
     """Output layer + stable row softmax over the first `out_dim` columns
     -> [B, out_dim]: the plain version of the resident softmax kernel.
@@ -195,8 +229,9 @@ def output_posteriors(
 
     masks: None, or [B, >= out_dim] with nonzero = active; the masked
     softmax follows `semantics` (masked_softmax).  `fast` returns bfloat16
-    posteriors (the f32 result, rounded to nearest even)."""
-    z = output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32)[:, :out_dim]
+    posteriors (the f32 result, rounded to nearest even).  row_scale: as
+    output_logits (the kernel's ROWSCALE variant)."""
+    z = output_logits(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, row_scale)[:, :out_dim]
     if masks is None:
         m = z.amax(dim=1, keepdim=True)
         e = torch.exp(z - m)

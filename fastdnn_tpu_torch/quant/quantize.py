@@ -19,6 +19,22 @@ For every quantized layer `colsum128 = 128 * sum_k(w_q[k, n])` (int32) lets
 uint8 activations ride an s8 x s8 product:
 
     sum_k a_u8[k] * w[k, n] = sum_k (a_u8[k] - 128) * w[k, n] + colsum128[n]
+
+A low-rank layer (models.feedforward.LowRank) quantizes each factor by the
+same rule.  Its first product, the bottleneck z = h @ project, takes the
+previous sigmoid's shifted codes as every layer does; z is signed and
+unbounded, so it travels as int8 codes with a scale per frame, which keeps
+each frame's posteriors independent of its batch companions.  Per frame r:
+
+    z_r     = f32(h_r @ project_q + colsum128) * (1 / (mult_p * 255))
+    s_r     = max|z_r| / 127                     (an all-zero row: s_r = 0)
+    q_r     = clip(round_half_away(z_r / s_r), -127, 127)   (0 where s_r = 0)
+    scale_r = f32(s_r * (1 / mult_e))
+    pre_r   = f32(f32(q_r @ expand_q) * scale_r) + b
+
+then the sigmoid table (a hidden layer) or the softmax (the output layer).
+The codes have no zero point, so the expand factor's colsum128 is zero and
+`inv_scales[i]` is 1 / mult_e, not 1 / (mult_e * 255).
 """
 
 from __future__ import annotations
@@ -30,7 +46,7 @@ import numpy as np
 import torch
 
 from ..config import ACTIVATION_SCALE, WEIGHT_SCALE, EngineConfig
-from ..models.feedforward import FeedForwardNet, fuse_transform
+from ..models.feedforward import FeedForwardNet, LowRank, fuse_transform
 
 #: int4 weight scale and code range (one code point below -scale, as int8's -128)
 INT4_SCALE = 7.0
@@ -43,6 +59,21 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 def _round_half_away_np(x: np.ndarray) -> np.ndarray:
     return np.sign(x) * np.floor(np.abs(x) + np.float32(0.5))
+
+
+@dataclasses.dataclass(frozen=True)
+class Bottleneck:
+    """A low-rank layer's first product: the quantized projection int8
+    [in, k] (the kernels' layout [k, in] once laid out), its colsum128 int32
+    [k], and 1 / (multiplier * 255), 0-d f32 on the host."""
+
+    weight: torch.Tensor
+    colsum128: torch.Tensor
+    inv_scale: torch.Tensor
+
+    def to(self, device) -> "Bottleneck":
+        return dataclasses.replace(self, weight=self.weight.to(device),
+                                   colsum128=self.colsum128.to(device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +97,10 @@ class QuantizedNet:
     input_operand: the input weight as the input-layer kernel reads it
         (ops.kernels.input_layer_operand), set by engine.backend.KERNELS.prepare;
         None otherwise.
+    bottlenecks: empty for a net of dense layers; otherwise one entry per
+        quantized layer, a Bottleneck for a low-rank layer, whose weights[i]
+        is then its expand factor int8 [k, out] (colsum128 zero, inv_scales
+        1 / multiplier), or None for a dense one.
     """
 
     input_w: torch.Tensor
@@ -79,6 +114,7 @@ class QuantizedNet:
     hidden_bits: int = 8
     packed_int4: bool = False
     input_operand: Optional[torch.Tensor] = None
+    bottlenecks: Tuple[Optional[Bottleneck], ...] = ()
 
     @property
     def input_dim(self) -> int:
@@ -106,6 +142,14 @@ class QuantizedNet:
     def layer_dims(self):
         return [self.input_b.shape[0]] + [b.shape[0] for b in self.biases]
 
+    def bottleneck(self, i: int) -> Optional[Bottleneck]:
+        """Quantized layer i's first product when it is low-rank, else None."""
+        return self.bottlenecks[i] if self.bottlenecks else None
+
+    @property
+    def has_lowrank(self) -> bool:
+        return any(b is not None for b in self.bottlenecks)
+
     def to(self, device) -> "QuantizedNet":
         """The same net with its arrays on `device`.  The 0-d scales and
         multipliers stay on the host: kernels take them by value, and a
@@ -123,6 +167,7 @@ class QuantizedNet:
             colsum128=mv(self.colsum128),
             biases=mv(self.biases),
             input_operand=None if self.input_operand is None else self.input_operand.to(device),
+            bottlenecks=tuple(None if b is None else b.to(device) for b in self.bottlenecks),
         )
 
 
@@ -166,23 +211,37 @@ def quantize_net(
 
     hidden_bits=4 stores the hidden trunk as int4 (scale 7); the output
     layer stays int8, because 4-bit logit steps would visibly move the
-    posteriors."""
+    posteriors.  A low-rank layer (LowRank) quantizes both factors at int8
+    (the module's docstring has its contract); it has no int4 form."""
     if cutoff <= 0:
         raise ValueError(f"weight cutoff must be positive, got {cutoff}")
     if net.layer_count < 2:
         raise ValueError("need at least an input layer and an output layer")
     if hidden_bits not in (8, 4):
         raise ValueError(f"hidden_bits must be 8 or 4, got {hidden_bits}")
+    lowrank = any(isinstance(w, LowRank) for w in net.weights[1:])
+    if lowrank and hidden_bits != 8:
+        raise ValueError("a low-rank layer has no int4 form: quantize a net with low-rank "
+                         "layers at hidden_bits=8")
     if fuse_input_transform:
         net = fuse_transform(net)
-    weights, colsums, biases, inv_scales, multipliers = [], [], [], [], []
+    weights, colsums, biases, inv_scales, multipliers, bottlenecks = [], [], [], [], [], []
     n_quant = net.layer_count - 1
     for i, (w, b) in enumerate(zip(net.weights[1:], net.biases[1:])):
         bits = hidden_bits if i < n_quant - 1 else 8
-        w_q, mult = quantize_layer(w, cutoff, bits=bits)
+        if isinstance(w, LowRank):
+            p_q, p_mult = quantize_layer(w.project, cutoff)
+            bottlenecks.append(Bottleneck(p_q, _colsum128(p_q),
+                                          (1.0 / (p_mult * ACTIVATION_SCALE)).to(torch.float32)))
+            w_q, mult = quantize_layer(w.expand, cutoff)
+            colsums.append(torch.zeros(w_q.shape[1], dtype=torch.int32))
+            inv_scales.append((1.0 / mult).to(torch.float32))
+        else:
+            bottlenecks.append(None)
+            w_q, mult = quantize_layer(w, cutoff, bits=bits)
+            colsums.append(_colsum128(w_q))
+            inv_scales.append((1.0 / (mult * ACTIVATION_SCALE)).to(torch.float32))
         weights.append(w_q)
-        colsums.append(128 * torch.sum(w_q.to(torch.int32), dim=0, dtype=torch.int32))
-        inv_scales.append((1.0 / (mult * ACTIVATION_SCALE)).to(torch.float32))
         biases.append(b.to(torch.float32))
         multipliers.append(mult)
     return QuantizedNet(
@@ -194,7 +253,12 @@ def quantize_net(
         inv_scales=tuple(inv_scales),
         multipliers=tuple(multipliers),
         hidden_bits=hidden_bits,
+        bottlenecks=tuple(bottlenecks) if lowrank else (),
     )
+
+
+def _colsum128(w_q: torch.Tensor) -> torch.Tensor:
+    return 128 * torch.sum(w_q.to(torch.int32), dim=0, dtype=torch.int32)
 
 
 def pack_int4_trunk(qnet: QuantizedNet) -> QuantizedNet:
@@ -238,8 +302,10 @@ def pad_qnet(qnet: QuantizedNet, lanes: int = 128, out_lanes: int = 128) -> Quan
     and zero bias, so a padded hidden unit sees a linear value of exactly 0,
     which quantizes to sigmoid(0) = 128, shifted int8 0, and its outgoing
     weight rows are zero anyway; padded output logits are excluded from the
-    softmax (capped at -1e30) and sliced away.  A packed net is refused:
-    pad first, then pack (pack_int4_trunk).
+    softmax (capped at -1e30) and sliced away.  A low-rank layer's rank
+    pads the same way: a padded bottleneck column is 0 in every frame, so its
+    code is 0 and its expand row zero.  A packed net is refused: pad first,
+    then pack (pack_int4_trunk).
     """
     if qnet.packed_int4:
         raise ValueError(
@@ -260,8 +326,15 @@ def pad_qnet(qnet: QuantizedNet, lanes: int = 128, out_lanes: int = 128) -> Quan
         weights.append(_pad2(w, k, n))
         colsums.append(torch.nn.functional.pad(cs, (0, n - cs.shape[0])))
         biases.append(torch.nn.functional.pad(b, (0, n - b.shape[0])))
+    bottlenecks = tuple(
+        None if bn is None else dataclasses.replace(
+            bn, weight=_pad2(bn.weight, up(bn.weight.shape[0], lanes), up(bn.weight.shape[1], lanes)),
+            colsum128=torch.nn.functional.pad(
+                bn.colsum128, (0, up(bn.weight.shape[1], lanes) - bn.colsum128.shape[0])))
+        for bn in qnet.bottlenecks)
     return dataclasses.replace(
         qnet,
+        bottlenecks=bottlenecks,
         input_w=_pad2(qnet.input_w, qnet.input_w.shape[0], h0),
         input_b=torch.nn.functional.pad(qnet.input_b, (0, h0 - qnet.input_b.shape[0])),
         weights=tuple(weights),

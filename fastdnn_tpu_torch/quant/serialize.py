@@ -23,6 +23,9 @@ FORMAT_VERSION = 1
 
 def qnet_arrays(qnet: QuantizedNet) -> dict:
     """The arrays `save_qnet` writes, by key."""
+    if qnet.has_lowrank:
+        raise ValueError("the checkpoint format holds dense layers only; a net with low-rank "
+                         "layers is quantized from its float net at load")
     if qnet.packed_int4:
         raise ValueError(
             "save the unpacked net: packed-nibble weights would persist as "

@@ -143,6 +143,11 @@ SYMBOLS = [
     ("(anonymous namespace)::lazy_output_kernel(signed char const*, signed char const*, int "
      "const*, float const*, float, unsigned char const*, int, int, float*, int, int)",
      "lazy_output"),
+    ("void (anonymous namespace)::lowrank_layer_kernel<2>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, int const*, float, float, float const*, signed char*, int, int, int)",
+     "lowrank_layer"),
+    ("void (anonymous namespace)::lowrank_bottleneck_kernel<1>(CUtensorMap_st, CUtensorMap_st, "
+     "int const*, float, float, signed char*, float*, int, int)", "lowrank_bottleneck"),
     ("ampere_sgemm_128x64_nn", None),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
      None),
