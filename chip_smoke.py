@@ -62,7 +62,10 @@ against the plain route, and `score_device_ms` against phase 6's time.
 Last, the SVD-restructured net's kernels: the low-rank layer (K10) and its
 bottleneck bitwise their plain versions, K4 and lazy_output with a per-row
 scale, the net through the Scorer with every launch counted, and the new
-kernels' times, bounds and products alone.
+kernels' times, bounds and products alone.  Then K4's two paths, the two
+passes over its products and the logits' round trip, each against the
+plain version and timed in turns at K = 256 to 2048: the data behind the
+widest K that takes the two passes.
 Phases 1-25 run with the registry off (FASTDNN_TUNED=0), so that their
 launch counts are the defaults'.  Any failed check raises and the script
 exits non-zero.
@@ -803,14 +806,14 @@ def bench_phase(torch, dev, smi: str, drive, score_device_ms: float) -> None:
             mid_host = bench.uniform_masks(mid_b, mid_out, density)
             mid_masks = bench.device_masks(mid, mid_host)
             got = drive(f"one midsize-lazy masked call at {density:.0%}", per_call,
-                        lambda: mid._run_masked(mid_frames, mid_masks))
+                        lambda: mid._run_masked(mid_frames, mid_masks), bench.MIDSIZE[1][-1])
             held(f"midsize-lazy {mid_in}-{len(bench.MIDSIZE[1])}x{bench.MIDSIZE[1][0]}-{mid_out} "
                  f"masked at {density:.0%}, B={mid_b}", got,
                  mid_plain._run_masked(mid_frames, bench.device_masks(mid_plain, mid_host)),
                  mid_out)
         del mid, mid_plain, got
 
-    def run(argv, expect):
+    def run(argv, expect, output_k=HIDDEN):
         out, err = io.StringIO(), io.StringIO()
 
         def call():
@@ -818,7 +821,7 @@ def bench_phase(torch, dev, smi: str, drive, score_device_ms: float) -> None:
                 return bench.main(argv)
 
         t0 = time.perf_counter()
-        rc = drive("bench " + " ".join(argv), expect, call)
+        rc = drive("bench " + " ".join(argv), expect, call, output_k)
         lines = out.getvalue().splitlines()
         check(rc == 0 and len(lines) == 1,
               f"bench {' '.join(argv)}: exit 0, one line, {time.perf_counter() - t0:.1f} s")
@@ -860,7 +863,7 @@ def bench_phase(torch, dev, smi: str, drive, score_device_ms: float) -> None:
           f" ms per batch), score_device {head['score_device_ms']:.4f} ms  [{smi}]")
 
     mid_line, _ = run(["--config", "midsize-lazy", "--iters", str(iters)],
-                      dict.fromkeys(per_call, 2 * chain_calls))
+                      dict.fromkeys(per_call, 2 * chain_calls), bench.MIDSIZE[1][-1])
     check(set(mid_line) == {"config", "lazy_frames_per_s_30pct", "lazy_frames_per_s_50pct"},
           "midsize-lazy keys: config, lazy_frames_per_s_30pct, lazy_frames_per_s_50pct")
     positive(mid_line, ("lazy_frames_per_s_30pct", "lazy_frames_per_s_50pct"))
@@ -983,6 +986,9 @@ def lowrank_phase(torch, dev, smi: str, report: dict, path_launches: dict) -> No
           "score_device on the SVD net, B = 8192, kernel route against the plain route")
     want = {"input_layer": 1, "lowrank_layer": 4, "lowrank_bottleneck": 1, "resident_softmax": 1}
     check({k: v for k, v in counts.items() if v} == want, f"launches per score_device: {want}")
+    paths = kernels.resident_paths()
+    check(paths == {"round_trip": 0, "recompute": 1},
+          f"K4 at K = 256 takes the two passes once per score_device: {paths}")
     xs = x[:300].cpu().numpy()
     m = rng.random((300, 5976)) < 0.4
     ctx = sc.new_lazy_context(300)
@@ -1031,6 +1037,76 @@ def lowrank_phase(torch, dev, smi: str, report: dict, path_launches: dict) -> No
               f"product alone (torch._int_mm) {report[name]['product_ms']:.4f} ms  [{smi}]")
     sd = in_turns(torch, {"score_device": lambda: sc.score_device(x)})["score_device"]
     print(f"  score_device on the SVD net, B = 8192: {sum(sd) / len(sd):.4f} ms  [{smi}]")
+
+
+def resident_paths_phase(torch, dev, smi: str) -> None:
+    """Phase 33: K4's two paths at B = 8192, the two passes over the
+    products and the logits' round trip (ops.kernels._resident_launch),
+    each within 3e-5 of the plain version and within 1e-6 of the other,
+    then timed in turns, single and queued, at K = 256, 512, 1024 and 2048
+    and N = 6016 (out_dim 5976, the svd net's) and 8064 (8000, the
+    flagship's): the data behind kernels.RESIDENT_RECOMPUTE_MAX_K.  The two
+    passes must win at K = 256 and lose at K = 2048."""
+    from fastdnn_tpu_torch.ops import kernels
+    from fastdnn_tpu_torch.ops import matmul as plain
+
+    rng = np.random.default_rng(SEED + 33)
+    print(f"  kernels.RESIDENT_RECOMPUTE_MAX_K = {kernels.RESIDENT_RECOMPUTE_MAX_K}")
+    # out_dim whose rows are not 16-byte aligned for f32 (5974, 5975) or bf16
+    # (5972): the two passes store from registers there, not by TMA
+    w, colsum, inv, bias = random_layer(rng, 256, 6016)
+    x = torch.from_numpy(rng.integers(-128, 128, (8192, 256), dtype=np.int8)).to(dev)
+    w, colsum, bias = (torch.from_numpy(a).to(dev) for a in (w, colsum, bias))
+    masks = torch.from_numpy((rng.random((8192, 6016)) < 0.4).astype(np.uint8)).to(dev)
+    args = (x, kernels.kernel_layout(w), colsum, inv, bias)
+    for out_dim in (5972, 5974, 5975):
+        for m, fast in ((None, False), (masks, False), (None, True)):
+            got = {rec: kernels._resident_launch(*args, m, out_dim=out_dim, semantics="reference",
+                                                 fast=fast, row_scale=None,
+                                                 recompute=rec).float()
+                   for rec in (True, False)}
+            err = float((got[True] - got[False]).abs().max())
+            check(err <= 1e-6, f"K=256 out_dim={out_dim} masked={m is not None} fast={fast}: the "
+                               f"two passes within {err:.2e} of the round trip")
+    for n, out_dim in ((6016, 5976), (8064, SENONES)):
+        for k in (256, 512, 1024, 2048):
+            w, colsum, inv, bias = random_layer(rng, k, n)
+            x = torch.from_numpy(rng.integers(-128, 128, (8192, k), dtype=np.int8)).to(dev)
+            w, colsum, bias = (torch.from_numpy(a).to(dev) for a in (w, colsum, bias))
+            args = (x, kernels.kernel_layout(w), colsum, inv, bias, None)
+            want = plain.output_posteriors(x, w, colsum, inv, bias, out_dim=out_dim)
+            fns, got = {}, {}
+            for name, recompute in (("round_trip", False), ("recompute", True)):
+                fns[name] = (lambda recompute=recompute: kernels._resident_launch(
+                    *args, out_dim=out_dim, semantics="reference", fast=False, row_scale=None,
+                    recompute=recompute))
+                got[name] = fns[name]()
+                err = float((got[name] - want).abs().max())
+                check(err <= 3e-5, f"K={k} N={n} {name}: max |d| {err:.2e} from the plain version")
+            err = float((got["recompute"] - got["round_trip"]).abs().max())
+            check(err <= 1e-6, f"K={k} N={n}: the two paths within {err:.2e} of each other")
+            single = in_turns(torch, fns)
+            queued = in_turns(torch, fns, back_to_back_ms)
+            ms = {name: statistics.mean(single[name]) for name in fns}
+            q = {name: statistics.mean(queued[name]) for name in fns}
+            faster = "recompute" if q["recompute"] < q["round_trip"] else "round_trip"
+            print(f"  K={k:4d} N={n} out_dim={out_dim}: round trip {ms['round_trip']:.4f} ms "
+                  f"(queued {q['round_trip']:.4f}), recompute {ms['recompute']:.4f} ms (queued "
+                  f"{q['recompute']:.4f}); queued, {faster} faster; takes "
+                  f"{'recompute' if kernels._recomputes(k) else 'round_trip'}  [{smi}]",
+                  flush=True)
+            if k in (256, 2048):
+                want_faster = "recompute" if k == 256 else "round_trip"
+                check(faster == want_faster, f"K={k} N={n}: {want_faster} faster, queued")
+            if (k, n) == (256, 6016):  # the svd net's output layer: its yardsticks
+                nbytes = 8192 * out_dim * 4 + 8192 * k + n * k + 8 * n
+                bound_ms, by = bound(2 * 8192 * k * n, "int8", nbytes)
+                product = time_ms(torch, lambda: torch._int_mm(x, w))
+                plain_ms = time_ms(torch, lambda: plain.output_posteriors(
+                    x, w, colsum, inv, bias, out_dim=out_dim))
+                print(f"  K=256 N=6016: bound {bound_ms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), the "
+                      f"two passes at {bound_ms / ms['recompute']:.1%} of it; product alone "
+                      f"(torch._int_mm) {product:.4f} ms, plain version {plain_ms:.4f} ms  [{smi}]")
 
 
 def free_port() -> int:
@@ -1094,11 +1170,13 @@ def main() -> int:
     report = {name: {"max_abs_err": None, "ms": None, "plain_ms": None} for name in kernels.KERNELS}
     path_launches = dict.fromkeys(kernels.KERNELS, 0)
 
-    def drive(title: str, expect, fn):
+    def drive(title: str, expect, fn, output_k: int = HIDDEN):
         """Run one path with every launch count set to 0 just before, check
         each count exactly just after, and add them to the path's totals.
         `expect` is the counts, or a function of the path's result that
-        gives them (a stream launches once per batch it formed)."""
+        gives them (a stream launches once per batch it formed).  Every K4
+        launch takes the path of the net's output-layer input width
+        `output_k` (the flagship's 2048: the round trip)."""
         kernels.reset_launch_counts()
         result = fn()
         counts = kernels.launch_counts()
@@ -1109,6 +1187,10 @@ def main() -> int:
             check(count == expect.get(name, 0),
                   f"{title}: {name} launched {count} times (expected {expect.get(name, 0)})")
             path_launches[name] += count
+        k4 = counts["resident_softmax"]
+        want = {"round_trip": 0, "recompute": 0}
+        want["recompute" if kernels._recomputes(output_k) else "round_trip"] = k4
+        check(kernels.resident_paths() == want, f"{title}: K4's paths {want}")
         return result
 
     phase("3. K1 quantized sigmoid, exhaustive against the reference table")
@@ -2965,6 +3047,10 @@ def main() -> int:
     phase(f"32. the SVD-restructured net: K10 (lowrank_layer) and its bottleneck, K4 and "
           f"lazy_output with a per-row scale, {INPUT_DIM}-{HIDDEN}-4x{HIDDEN}r256-5976 (card: {smi})")
     lowrank_phase(torch, dev, smi, report, path_launches)
+
+    phase(f"33. K4's two paths, two passes over the products against the logits' round trip, "
+          f"in turns at B = 8192 (card: {smi})")
+    resident_paths_phase(torch, dev, smi)
 
     rows = [
         {

@@ -153,6 +153,13 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
 }
 
+// cluster_sync's two halves: a thread that arrives may work on and wait
+// later, so a barrier phase completes without it reaching the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait;\n" ::: "memory"); }
+
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));

@@ -58,6 +58,33 @@
 // thread; in K4 it is about a third of the kernel (PERF.md).  expf, not
 // __expf.
 //
+// RECOMPUTE: two passes over the products in place of the logits' round
+// trip, for a short K (the wrapper chooses by K alone:
+// ops/kernels.py:_recomputes).  At K = 256 (the SVD net's output layer, B =
+// 8192, N = 6016, out_dim 5976) the products are 25 G int8 operations
+// (0.013 ms), while the round trip, 196 MB of logits stored, then read back
+// and overwritten, moved 588 MB: K4 took 0.41 ms.  Pass 1 runs the block's
+// products and folds each dequantized, masked logit into its row's (max,
+// sum-exp) as above, storing nothing; the stats merge as above; pass 2
+// streams the same weight tiles a second time (the frames stay in shared
+// memory; at K = 256 the whole weight, 1.54 MB, sits in L2), runs the
+// products again, whose integers are exact, so the logits come out bitwise
+// the same, and writes each posterior once.  Bound: the posteriors once,
+// 196 MB, and the frames and weight, 3.6 MB (0.060 ms), against the
+// products twice, 50 G operations (0.026 ms).  What the design does about
+// it: the producer streams both passes without draining its ring, so pass
+// 2's first tiles land during the exchange; the warpgroups keep their turns
+// across the passes (one's epilogue beside the other's products); pass 2's
+// posteriors leave through TMA stores from two 2 KB slots per warp (stores
+// from registers, 16 rows of 32 bytes per warp instruction, held K4 at
+// 0.335 ms; the staged stores 0.255); and a row's 1 / s is taken once, each
+// quotient corrected by one FMA, where a division per element branched to
+// its slow path (0.174 ms without).  The ring is 4 stages, so the slots fit
+// at K = 2048.  The `fast` variant needs no f32 scratch.  At K = 1024 the
+// two paths are within 5% of each other, and at 2048 the second pass's
+// products cost more than the round trip saves (PERF.md, the timings in
+// turns of chip_smoke.py's phase 33).
+//
 // K6 (SPARSE).  Before any product, the producer warpgroup reads the mask
 // bytes of the block's own tiles (64 rows x 128 columns each, 16 loads in
 // flight per thread, while the consumers load the frames) and keeps one bit
@@ -98,15 +125,23 @@ using SparseTiles = rs::SparseTiles<rs::kMaxPartTiles, uint8_t>;
 
 // six stages keep the widest K that fits at 2048
 constexpr int kStages = 6;
+// RECOMPUTE: four stages, and each consumer warp's two slots of posteriors
+// on their way out (a TMA store box of 16 rows x 128 bytes, 32 f32 or 64
+// bf16 columns, in the 128-byte swizzle), so that K = 2048 fits too
+constexpr int kRecomputeStages = 4;
+constexpr int kStoreRows = 16;
+constexpr int kBoxBytes = kStoreRows * 128;
+constexpr int kStagingBytes = (hp::kConsumerThreads / 32) * 2 * kBoxBytes;
 // loads in flight per thread in the second sweep: 8 beat 4 by about 10%,
 // 16 gained nothing more (PERF.md)
 constexpr int kSweepInFlight = 8;
 
-template <bool SPARSE>
+template <bool SPARSE, bool RECOMPUTE = false>
 __host__ __device__ constexpr size_t smem_bytes(int k) {
-  return hp::kAlign + static_cast<size_t>(hp::kFrames) * k + kStages * hp::kStageBytes +
-         hp::Ring<kStages, 1>::kBytes + sizeof(float2) * hp::kConsumers * hp::kFrames +
-         (SPARSE ? sizeof(SparseTiles) : 0);
+  return hp::kAlign + static_cast<size_t>(hp::kFrames) * k +
+         (RECOMPUTE ? kRecomputeStages : kStages) * hp::kStageBytes +
+         (RECOMPUTE ? kStagingBytes : 0) + hp::Ring<RECOMPUTE ? kRecomputeStages : kStages, 1>::kBytes +
+         sizeof(float2) * hp::kConsumers * hp::kFrames + (SPARSE ? sizeof(SparseTiles) : 0);
 }
 
 __device__ __forceinline__ void store_p(float* p, float v) { *p = v; }
@@ -116,7 +151,8 @@ __device__ __forceinline__ void store_p(__nv_bfloat16* p, float v) { *p = __floa
 // 64 rows (dequantized, masked; -1e30 from out_dim on, never stored; the
 // shared tile_logits), stored to `logits`, and folded into the running
 // (max, sum-exp) of the thread's two rows r and r + 8.
-template <bool MASKED>
+// STORE false (RECOMPUTE's pass 1): the logits are folded, not stored.
+template <bool MASKED, bool STORE = true>
 __device__ __forceinline__ void softmax_epilogue(const int (&d)[64], float* logits, int out_dim,
                                                  int m0, int n0, const int* colsum,
                                                  const float* bias, const float (&inv)[2],
@@ -131,11 +167,13 @@ __device__ __forceinline__ void softmax_epilogue(const int (&d)[64], float* logi
   float z[64], tile_max[2];
   rs::tile_logits<MASKED>(d, z, tile_max, r0, col, colsum, bias, inv, mask, N, fill, out_dim,
                           [&](int h, int n, float v0, float v1) {
-                            if (pairs && n < out_dim) {
-                              *reinterpret_cast<float2*>(rows[h] + n) = make_float2(v0, v1);
-                            } else {
-                              if (n < out_dim) rows[h][n] = v0;
-                              if (n + 1 < out_dim) rows[h][n + 1] = v1;
+                            if constexpr (STORE) {
+                              if (pairs && n < out_dim) {
+                                *reinterpret_cast<float2*>(rows[h] + n) = make_float2(v0, v1);
+                              } else {
+                                if (n < out_dim) rows[h][n] = v0;
+                                if (n + 1 < out_dim) rows[h][n + 1] = v1;
+                              }
                             }
                           });
   rs::quad_max(tile_max);
@@ -144,6 +182,103 @@ __device__ __forceinline__ void softmax_epilogue(const int (&d)[64], float* logi
 
 __device__ __forceinline__ float posterior(float z, float2 ms) {
   return ms.x <= kEmptyRowMax ? 0.0f : expf(z - ms.x) / ms.y;  // no active senone: zeros
+}
+
+// RECOMPUTE's posterior of a row: m, s its merged (max, sum-exp), r =
+// RN(1 / s), or 0 for a row with no active senone (whose posteriors come
+// out 0).  exp(z - m) / s as one product and one FMA correction (Markstein),
+// the correctly rounded quotient wherever it is not subnormal, so bitwise
+// posterior()'s in that range, without the division's slow-path branch at
+// each element, which kept the compiler from overlapping the elements' work
+// and cost about a third of the kernel (PERF.md)
+struct RowNorm {
+  float m, s, r;
+};
+
+__device__ __forceinline__ RowNorm row_norm(float2 ms) {
+  return {ms.x, ms.y, ms.x <= kEmptyRowMax ? 0.0f : __frcp_rn(ms.y)};
+}
+
+__device__ __forceinline__ float posterior(float z, const RowNorm& n) {
+  const float a = expf(z - n.m);
+  const float q = __fmul_rn(a, n.r);
+  return __fmaf_rn(__fmaf_rn(-n.s, q, a), n.r, q);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// RECOMPUTE's pass 2, one consumer warpgroup's tile: the logits of columns
+// [n0, n0 + 128) of its 64 rows, made again as softmax_epilogue made them,
+// -> posteriors (posterior() with ms[h], the RowNorm of the thread's row
+// r0 + 8 h) of the columns below out_dim, into `out`.  Staged
+// (out's rows 16-byte aligned): each warp writes its 16 rows a box of 128
+// bytes of columns at a time into one of its two slots at `staging`, and
+// one lane stores the box by TMA (out_map clips the columns past out_dim)
+// while the warp fills the other slot; otherwise stores from registers.
+template <bool MASKED, typename OutT>
+__device__ __forceinline__ void posterior_epilogue(const int (&d)[64], OutT* out,
+                                                   const CUtensorMap* out_map,
+                                                   unsigned char* staging, int out_dim, int m0,
+                                                   int n0, const int* colsum, const float* bias,
+                                                   const float (&inv)[2], const uint8_t* mask,
+                                                   int N, float fill, const RowNorm (&ms)[2],
+                                                   int thread_in_wg) {
+  const int warp = thread_in_wg / 32, lane = thread_in_wg % 32;
+  const int col = n0 + 2 * (lane % 4);
+  const int r0 = m0 + warp * kStoreRows + lane / 4;
+  float z[64], tile_max[2];
+  if (out_dim % (16 / sizeof(OutT)) != 0) {
+    OutT* rows[2] = {out + static_cast<size_t>(r0) * out_dim,
+                     out + static_cast<size_t>(r0 + 8) * out_dim};
+    const bool pairs = (out_dim & 1) == 0;  // a pair's store stays aligned
+    rs::tile_logits<MASKED>(d, z, tile_max, r0, col, colsum, bias, inv, mask, N, fill, out_dim,
+                            [&](int h, int n, float v0, float v1) {
+                              if (n >= out_dim) return;
+                              const float p0 = posterior(v0, ms[h]);
+                              if (pairs) {
+                                store_pair(rows[h] + n, p0, posterior(v1, ms[h]));
+                              } else {
+                                store_p(rows[h] + n, p0);
+                                if (n + 1 < out_dim) store_p(rows[h] + n + 1, posterior(v1, ms[h]));
+                              }
+                            });
+    return;
+  }
+  constexpr int kBoxCols = 128 / sizeof(OutT);
+  constexpr int kBoxQ = kBoxCols / 8;  // the thread's column pairs per row in a box
+  rs::tile_logits<MASKED>(d, z, tile_max, r0, col, colsum, bias, inv, mask, N, fill, out_dim,
+                          [](int, int, float, float) {});
+  unsigned char* slots = staging + warp * 2 * kBoxBytes;
+#pragma unroll
+  for (int c = 0; c < hp::kTileN / kBoxCols; ++c) {
+    unsigned char* box = slots + (c % 2) * kBoxBytes;
+    if (lane == 0) hp::bulk_wait_read<1>();  // the slot's last box has left
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kBoxQ; ++j) {
+      const int q = c * kBoxQ + j;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = lane / 4 + 8 * h;  // row % 8 == lane / 4
+        const int byte = j * 2 * sizeof(OutT) * 4 + 2 * sizeof(OutT) * (lane % 4);
+        store_pair(reinterpret_cast<OutT*>(box + row * 128 + (((byte >> 4) ^ (lane / 4)) << 4) +
+                                           (byte & 15)),
+                   posterior(z[4 * q + 2 * h], ms[h]), posterior(z[4 * q + 2 * h + 1], ms[h]));
+      }
+    }
+    hp::fence_proxy_async();
+    __syncwarp();  // the box is written
+    if (lane == 0) {
+      if (n0 + c * kBoxCols < out_dim)
+        hp::tma_store(out_map, box, n0 + c * kBoxCols, m0 + warp * kStoreRows);
+      hp::bulk_commit();
+    }
+  }
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
@@ -233,27 +368,33 @@ __device__ __forceinline__ void rescale_rows(const float* logits, OutT* out, int
 // (max, sum-exp) through distributed shared memory before each rescales
 // its own columns.  MASKED: the mask is read; SPARSE (K6, MASKED): tiles
 // with no active senone are skipped; ROWSCALE: row r dequantizes with
-// row_scale[r], not inv_scale.
-template <bool MASKED, bool SPARSE, typename OutT, bool ROWSCALE = false>
+// row_scale[r], not inv_scale; RECOMPUTE: the two passes over the products
+// in place of the sweep (`logits` unused).
+template <bool MASKED, bool SPARSE, typename OutT, bool ROWSCALE = false, bool RECOMPUTE = false>
 __global__ void __launch_bounds__(hp::kThreads, 1)
     resident_softmax_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
                                   const int8_t* __restrict__ x, const int* __restrict__ colsum,
                                   const float* __restrict__ bias, float inv_scale,
                                   const uint8_t* __restrict__ mask, int semantics, float* logits,
                                   OutT* out, int K, int N, int out_dim,
-                                  const float* __restrict__ row_scale) {
+                                  const float* __restrict__ row_scale,
+                                  const __grid_constant__ CUtensorMap out_map) {
   static_assert(MASKED || !SPARSE, "K6 is the masked variant");
   static_assert(!(SPARSE && ROWSCALE), "no skipping variant takes a per-row scale");
+  static_assert(!(SPARSE && RECOMPUTE), "K6 stores no logit of a skipped tile: it keeps the sweep");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = hp::align_smem(smem_raw);
   int8_t* acts = reinterpret_cast<int8_t*>(smem);
+  constexpr int S = RECOMPUTE ? kRecomputeStages : kStages;
   int8_t* stages = acts + hp::kFrames * K;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + kStages * hp::kStageBytes);
-  hp::Ring<kStages, 1> ring{bars};
+  // RECOMPUTE: the consumer warps' posterior slots (1024-byte aligned)
+  unsigned char* staging = reinterpret_cast<unsigned char*>(stages + S * hp::kStageBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(staging + (RECOMPUTE ? kStagingBytes : 0));
+  hp::Ring<S, 1> ring{bars};
   // (m, s) per row: [warpgroup][row]; the block's merge goes to [0][row],
   // the cluster's to [1][row]
   float2* stats = reinterpret_cast<float2*>(reinterpret_cast<unsigned char*>(bars) +
-                                            hp::Ring<kStages, 1>::kBytes);
+                                            hp::Ring<S, 1>::kBytes);
   SparseTiles* sp =  // K6 only: nothing of it stays live in K4
       SPARSE ? reinterpret_cast<SparseTiles*>(stats + hp::kConsumers * hp::kFrames) : nullptr;
 
@@ -272,16 +413,33 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
       rs::named_arrive<rs::kListBarrier, hp::kThreads>();
     }
     hp::reg_dealloc<hp::kProducerRegs>();
-    if (threadIdx.x % 128 == 0) {
-      // stage e * steps + t: the t-th 128 bytes of K of the e-th tile taken
-      const int count = SPARSE ? sp->count : part.tiles;
-      for (int e = 0; e < count; ++e) {
-        const int g = SPARSE ? sp->list[e] : e;
-        for (int t = 0; t < steps; ++t)
-          ring.produce(stages, &w_map, e * steps + t, t * hp::kStageK, (part.g0 + g) * hp::kTileN, 0);
+    if constexpr (RECOMPUTE) {
+      // pass 2's stages are freed only after the consumers' exchange, so
+      // the producer warpgroup arrives at it before it streams
+      hp::cluster_arrive();
+      if (threadIdx.x % 128 == 0) {
+        // stage j * steps + t: the t-th 128 bytes of K of the block's tile
+        // j (pass 1) or j - tiles (pass 2)
+        for (int j = 0; j < 2 * part.tiles; ++j) {
+          const int g = j < part.tiles ? j : j - part.tiles;
+          for (int t = 0; t < steps; ++t)
+            ring.produce(stages, &w_map, j * steps + t, t * hp::kStageK, (part.g0 + g) * hp::kTileN,
+                         0);
+        }
       }
+      hp::cluster_wait();
+    } else {
+      if (threadIdx.x % 128 == 0) {
+        // stage e * steps + t: the t-th 128 bytes of K of the e-th tile taken
+        const int count = SPARSE ? sp->count : part.tiles;
+        for (int e = 0; e < count; ++e) {
+          const int g = SPARSE ? sp->list[e] : e;
+          for (int t = 0; t < steps; ++t)
+            ring.produce(stages, &w_map, e * steps + t, t * hp::kStageK, (part.g0 + g) * hp::kTileN, 0);
+        }
+      }
+      hp::cluster_sync();  // the consumers' exchange
     }
-    hp::cluster_sync();  // the consumers' exchange
     hp::cluster_sync();
   } else {
     const int tid = threadIdx.x;
@@ -307,18 +465,21 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
       inv[0] = row_scale[r0];
       inv[1] = row_scale[r0 + 8];
     }
-    for (int e = wg, n = 0; e < count; e += hp::kConsumers, ++n) {
+    // the warpgroups take the tiles in turn, e = wg, wg + 2, ...; under
+    // RECOMPUTE the turns run on through pass 2, e = count + the tile
+    int e = wg, n = 0;
+    for (; e < count; e += hp::kConsumers, ++n) {
       const int g = SPARSE ? sp->list[e] : e;
       hp::tile_products(d, ring, stages, acts, K, e * steps, wg, n, tw);
-      softmax_epilogue<MASKED>(d, logits, out_dim, m0, (part.g0 + g) * hp::kTileN, colsum, bias,
-                               inv, mask, N, fill, tw, m, s);
+      softmax_epilogue<MASKED, !RECOMPUTE>(d, logits, out_dim, m0, (part.g0 + g) * hp::kTileN,
+                                           colsum, bias, inv, mask, N, fill, tw, m, s);
     }
+    const int r = (tw / 32) * 16 + (tw % 32) / 4;  // the thread's rows r and r + 8
     if (tw % 4 == 0) {
-      const int r = (tw / 32) * 16 + (tw % 32) / 4;
       stats[wg * hp::kFrames + r] = make_float2(m[0], s[0]);
       stats[wg * hp::kFrames + r + 8] = make_float2(m[1], s[1]);
     }
-    __threadfence_block();  // the logits, for the sweep's other threads
+    if constexpr (!RECOMPUTE) __threadfence_block();  // the logits, for the sweep's other threads
     hp::consumer_sync();
     if (tid < hp::kFrames) {
       float2 block = rs::merge_stats(stats[tid], stats[hp::kFrames + tid]);
@@ -338,28 +499,80 @@ __global__ void __launch_bounds__(hp::kThreads, 1)
       if constexpr (SPARSE) sp->fill_p[tid] = posterior(fill, all);
     }
     hp::consumer_sync();
-    rescale_rows<SPARSE>(logits, out, out_dim, m0, min(part.g0 * hp::kTileN, out_dim),
-                         min((part.g0 + part.tiles) * hp::kTileN, out_dim), stats + hp::kFrames,
-                         sp, tid);
+    if constexpr (RECOMPUTE) {
+      const RowNorm ms[2] = {row_norm(stats[hp::kFrames + r]), row_norm(stats[hp::kFrames + r + 8])};
+      for (; e < 2 * count; e += hp::kConsumers, ++n) {
+        hp::tile_products(d, ring, stages, acts, K, e * steps, wg, n, tw);
+        posterior_epilogue<MASKED>(d, out, &out_map, staging + wg * (kStagingBytes / 2), out_dim,
+                                   m0, (part.g0 + e - count) * hp::kTileN, colsum, bias, inv, mask,
+                                   N, fill, ms, tw);
+      }
+      if (tw % 32 == 0) hp::bulk_wait_all();  // the posteriors have left the slots
+    } else {
+      rescale_rows<SPARSE>(logits, out, out_dim, m0, min(part.g0 * hp::kTileN, out_dim),
+                           min((part.g0 + part.tiles) * hp::kTileN, out_dim), stats + hp::kFrames,
+                           sp, tid);
+    }
     hp::cluster_sync();  // no block leaves while another reads its stats
   }
 }
 
-template <bool MASKED, bool SPARSE, typename OutT, bool ROWSCALE = false>
+template <bool MASKED, bool SPARSE, typename OutT, bool ROWSCALE = false, bool RECOMPUTE = false>
 int launch(const void* x, const void* wt, const void* colsum, const void* bias, float inv_scale,
            const void* mask, int semantics, void* logits, void* out, int b, int k, int n,
            int out_dim, int device, void* stream, const void* row_scale = nullptr) {
-  CUtensorMap map;
+  CUtensorMap map, out_map;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = hp::weight_map(&map, wt, n, k, hp::kTileN);
+  out_map = map;  // read only by RECOMPUTE's staged stores
+  if (err == cudaSuccess && RECOMPUTE && out_dim % (16 / sizeof(OutT)) == 0)
+    err = sizeof(OutT) == 4
+              ? hp::tensor_map(&out_map, out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, b, out_dim,
+                               kStoreRows)
+              : hp::tensor_map(&out_map, out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, b, out_dim,
+                               kStoreRows);
   if (err == cudaSuccess)
     err = hp::launch_clustered(
-        resident_softmax_wgmma_kernel<MASKED, SPARSE, OutT, ROWSCALE>, kSplit * b / hp::kFrames,
-        kSplit, smem_bytes<SPARSE>(k), stream, map, static_cast<const int8_t*>(x),
+        resident_softmax_wgmma_kernel<MASKED, SPARSE, OutT, ROWSCALE, RECOMPUTE>, kSplit * b / hp::kFrames,
+        kSplit, smem_bytes<SPARSE, RECOMPUTE>(k), stream, map, static_cast<const int8_t*>(x),
         static_cast<const int*>(colsum), static_cast<const float*>(bias), inv_scale,
         static_cast<const uint8_t*>(mask), semantics, static_cast<float*>(logits),
-        static_cast<OutT*>(out), k, n, out_dim, static_cast<const float*>(row_scale));
+        static_cast<OutT*>(out), k, n, out_dim, static_cast<const float*>(row_scale), out_map);
   return static_cast<int>(err);
+}
+
+template <bool RECOMPUTE>
+int resident(const void* x, const void* wt, const void* colsum, const void* bias, float inv_scale,
+             const void* mask, int semantics, void* logits, void* out, int fast, int b, int k,
+             int n, int out_dim, int device, void* stream) {
+  if (fast && mask)
+    return launch<true, false, __nv_bfloat16, false, RECOMPUTE>(
+        x, wt, colsum, bias, inv_scale, mask, semantics, logits, out, b, k, n, out_dim, device,
+        stream);
+  if (fast)
+    return launch<false, false, __nv_bfloat16, false, RECOMPUTE>(
+        x, wt, colsum, bias, inv_scale, mask, semantics, logits, out, b, k, n, out_dim, device,
+        stream);
+  if (mask)
+    return launch<true, false, float, false, RECOMPUTE>(x, wt, colsum, bias, inv_scale, mask,
+                                                        semantics, out, out, b, k, n, out_dim,
+                                                        device, stream);
+  return launch<false, false, float, false, RECOMPUTE>(x, wt, colsum, bias, inv_scale, mask,
+                                                       semantics, out, out, b, k, n, out_dim,
+                                                       device, stream);
+}
+
+template <bool RECOMPUTE>
+int resident_rowscale(const void* x, const void* wt, const void* colsum, const void* bias,
+                      const void* row_scale, const void* mask, int semantics, void* out, int b,
+                      int k, int n, int out_dim, int device, void* stream) {
+  if (mask)
+    return launch<true, false, float, true, RECOMPUTE>(x, wt, colsum, bias, 0.0f, mask, semantics,
+                                                       out, out, b, k, n, out_dim, device, stream,
+                                                       row_scale);
+  return launch<false, false, float, true, RECOMPUTE>(x, wt, colsum, bias, 0.0f, mask, semantics,
+                                                      out, out, b, k, n, out_dim, device, stream,
+                                                      row_scale);
 }
 
 }  // namespace
@@ -367,43 +580,45 @@ int launch(const void* x, const void* wt, const void* colsum, const void* bias, 
 // K4.  mask: nullptr (unmasked) or u8 [B, N]; semantics 0 reference,
 // 1 active_only.  fast == 0: out is f32 [B, out_dim] and `logits` is ignored
 // (the logits live in out); fast != 0: out is bf16 [B, out_dim] and `logits`
-// an f32 [B, out_dim] scratch.  Requires B % 64 == 0, K % 128 == 0,
-// N % 128 == 0, 0 < out_dim <= N, 16-byte aligned x, wt and mask, and
-// fdn_resident_softmax_wgmma_smem_bytes(K) within the block limit (checked
-// by the wrapper).
+// an f32 [B, out_dim] scratch, unused (may be nullptr) under recompute.
+// recompute != 0: the two passes over the products in place of the sweep.
+// Requires B % 64 == 0, K % 128 == 0, N % 128 == 0, 0 < out_dim <= N,
+// 16-byte aligned x, wt and mask, and fdn_resident_softmax_wgmma_smem_bytes(K)
+// (recompute: fdn_resident_softmax_recompute_smem_bytes(K)) within the block
+// limit (checked by the wrapper).
 extern "C" int fdn_resident_softmax_wgmma(const void* x, const void* wt, const void* colsum,
                                           const void* bias, float inv_scale, const void* mask,
-                                          int semantics, void* logits, void* out, int fast, int b,
-                                          int k, int n, int out_dim, int device, void* stream) {
-  if (fast && mask)
-    return launch<true, false, __nv_bfloat16>(x, wt, colsum, bias, inv_scale, mask, semantics,
-                                              logits, out, b, k, n, out_dim, device, stream);
-  if (fast)
-    return launch<false, false, __nv_bfloat16>(x, wt, colsum, bias, inv_scale, mask, semantics,
-                                               logits, out, b, k, n, out_dim, device, stream);
-  if (mask)
-    return launch<true, false, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out,
-                                      b, k, n, out_dim, device, stream);
-  return launch<false, false, float>(x, wt, colsum, bias, inv_scale, mask, semantics, out, out, b,
-                                     k, n, out_dim, device, stream);
+                                          int semantics, void* logits, void* out, int fast,
+                                          int recompute, int b, int k, int n, int out_dim,
+                                          int device, void* stream) {
+  return recompute ? resident<true>(x, wt, colsum, bias, inv_scale, mask, semantics, logits, out,
+                                    fast, b, k, n, out_dim, device, stream)
+                   : resident<false>(x, wt, colsum, bias, inv_scale, mask, semantics, logits, out,
+                                     fast, b, k, n, out_dim, device, stream);
 }
 
 // K4's ROWSCALE variant: f32 out [B, out_dim], masked or not, row r's
-// logits dequantized with row_scale[r] (f32 [B]); K4's requirements.
+// logits dequantized with row_scale[r] (f32 [B]); K4's requirements and its
+// recompute flag.
 extern "C" int fdn_resident_softmax_rowscale(const void* x, const void* wt, const void* colsum,
                                              const void* bias, const void* row_scale,
-                                             const void* mask, int semantics, void* out, int b,
-                                             int k, int n, int out_dim, int device, void* stream) {
+                                             const void* mask, int semantics, void* out,
+                                             int recompute, int b, int k, int n, int out_dim,
+                                             int device, void* stream) {
   if (row_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (mask)
-    return launch<true, false, float, true>(x, wt, colsum, bias, 0.0f, mask, semantics, out, out,
-                                            b, k, n, out_dim, device, stream, row_scale);
-  return launch<false, false, float, true>(x, wt, colsum, bias, 0.0f, mask, semantics, out, out, b,
-                                           k, n, out_dim, device, stream, row_scale);
+  return recompute ? resident_rowscale<true>(x, wt, colsum, bias, row_scale, mask, semantics, out,
+                                             b, k, n, out_dim, device, stream)
+                   : resident_rowscale<false>(x, wt, colsum, bias, row_scale, mask, semantics, out,
+                                              b, k, n, out_dim, device, stream);
 }
 
 extern "C" long long fdn_resident_softmax_wgmma_smem_bytes(int k) {
   return static_cast<long long>(smem_bytes<false>(k));
+}
+
+// K4 under recompute: a ring of four stages and the posteriors' slots
+extern "C" long long fdn_resident_softmax_recompute_smem_bytes(int k) {
+  return static_cast<long long>(smem_bytes<false, true>(k));
 }
 
 // K6: masked (mask u8 [B, N], required), f32 out [B, out_dim]; the

@@ -73,11 +73,12 @@ _SIGNATURES = {
     "fdn_resident_softmax_block_sparse_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "fdn_resident_softmax_wgmma": (
         ctypes.c_int,
-        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, *[ctypes.c_int] * 6, _P],
+        [_P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P, _P, *[ctypes.c_int] * 7, _P],
     ),
     "fdn_resident_softmax_wgmma_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
+    "fdn_resident_softmax_recompute_smem_bytes": (ctypes.c_longlong, [ctypes.c_int]),
     "fdn_resident_softmax_rowscale": (
-        ctypes.c_int, [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P, *[ctypes.c_int] * 5, _P],
+        ctypes.c_int, [_P, _P, _P, _P, _P, _P, ctypes.c_int, _P, *[ctypes.c_int] * 6, _P],
     ),
     "fdn_lowrank_layer": (
         ctypes.c_int,

@@ -29,7 +29,9 @@ A wrapper given CPU tensors transposes back for its plain version.
                                       (activations streamed: any K)
     K3 hidden_stack                   all equal-width hidden layers in one launch
     K4 resident_softmax               int8 output layer + full row softmax, optionally
-                                      masked (both lazy semantics) and bf16
+                                      masked (both lazy semantics) and bf16; at a
+                                      short K two passes over the products in place
+                                      of the logits' round trip (_recomputes)
     K5 output_logits                  int8 output layer -> f32 logits, no softmax
     K6 resident_softmax_block_sparse  K4 masked, skipping all-inactive
                                       (64-frame x 128-senone) tiles
@@ -99,6 +101,15 @@ HOPPER_BLOCK_SMEM = 232448
 #: bytes more for its tile list; one 128-deep step more exceeds
 #: HOPPER_BLOCK_SMEM); wider goes to K8
 RESIDENT_SOFTMAX_MAX_K = 2048
+#: the widest output-layer input at which K4 runs its products twice (row
+#: stats, then the posteriors) in place of a round trip of its f32 logits
+#: through device memory: a second pass costs 2 K int8 operations an output,
+#: the round trip 8 bytes.  Both paths timed in turns on an H100 at B =
+#: 8192, N = 6016 / 8064, queued (chip_smoke.py phase 33, PERF.md): the two
+#: passes 0.187 / 0.248 ms against 0.414 / 0.540 at K = 256, 0.280 / 0.366
+#: against 0.431 / 0.557 at 512, 0.431 / 0.570 against 0.454 / 0.597 at
+#: 1024, and 0.758 / 1.017 against 0.517 / 0.679 at 2048
+RESIDENT_RECOMPUTE_MAX_K = 1024
 #: the widest hidden layer K3 takes, for the same reason with 5 stages and
 #: the sigmoid table (fdn_hidden_stack_wgmma_smem_bytes(2304) = 231,779
 #: bytes); wider runs K2 per layer
@@ -183,6 +194,7 @@ _SEMANTICS = {"reference": 0, "active_only": 1}
 
 _count_lock = threading.Lock()
 _counts = dict.fromkeys(KERNELS, 0)
+_paths = {"round_trip": 0, "recompute": 0}
 
 
 def launch_counts() -> dict:
@@ -191,10 +203,28 @@ def launch_counts() -> dict:
         return dict(_counts)
 
 
+def resident_paths() -> dict:
+    """K4's launches since the last `reset_launch_counts`, by path:
+    "recompute" (two passes over the products) or "round_trip" (the logits
+    through device memory and back).  Each also counts once under
+    "resident_softmax" in `launch_counts`; K6 has one path and counts in
+    neither."""
+    with _count_lock:
+        return dict(_paths)
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
-        for name in _counts:
-            _counts[name] = 0
+        for counts in (_counts, _paths):
+            for name in counts:
+                counts[name] = 0
+
+
+def _recomputes(k: int) -> bool:
+    """Does K4 at output-layer input width `k` run two passes over its
+    products in place of the logits' round trip?  By K alone, for every
+    variant (masked or not, bf16, a per-row scale)."""
+    return k <= RESIDENT_RECOMPUTE_MAX_K
 
 
 def kernel_layout(w: torch.Tensor) -> torch.Tensor:
@@ -524,47 +554,57 @@ def resident_softmax(acts, w_t, colsum, inv_scale: float, bias, masks=None, *, o
     softmax under `semantics` ("reference" or "active_only").  row_scale:
     None, or f32 [B], each row's scale in place of inv_scale (K4's ROWSCALE
     variant, f32 only: a low-rank output layer on its bottleneck's codes).
-    Plain version: ops.matmul.output_posteriors."""
+    At K <= RESIDENT_RECOMPUTE_MAX_K the kernel runs its products twice in
+    place of the logits' round trip (`_recomputes`), with the same
+    posteriors, bitwise wherever they are not subnormal.  Plain version:
+    ops.matmul.output_posteriors."""
     if acts.device.type == "cpu":
         return plain.output_posteriors(acts, w_t.t(), colsum, inv_scale, bias, masks,
                                        out_dim=out_dim, semantics=semantics, fast=fast,
                                        row_scale=row_scale)
+    return _resident_launch(acts, w_t, colsum, inv_scale, bias, masks, out_dim=out_dim,
+                            semantics=semantics, fast=fast, row_scale=row_scale,
+                            recompute=_recomputes(acts.shape[-1]))
+
+
+def _resident_launch(acts, w_t, colsum, inv_scale, bias, masks, *, out_dim, semantics, fast,
+                     row_scale, recompute: bool) -> torch.Tensor:
+    """K4 on the card on the path `recompute` names: resident_softmax passes
+    `_recomputes(K)`; a comparison of the two paths passes either."""
     device, code = _resident_args("resident_softmax", acts, w_t, colsum, bias, masks, out_dim,
                                   semantics)
     b, k = acts.shape
     if row_scale is not None:
-        return _resident_rowscale(acts, w_t, colsum, bias, masks, row_scale, code, out_dim,
-                                  fast, device)
+        if fast:
+            raise ValueError("resident_softmax: a per-row scale has no bf16 variant")
+        _check("resident_softmax", (acts, row_scale), (torch.int8, torch.float32), ((b, k), (b,)))
+    _check_tma_weight("resident_softmax", w_t)
     out = torch.empty((b, out_dim), dtype=torch.bfloat16 if fast else torch.float32,
                       device=device)
-    # bf16 posteriors cannot hold the logits between the kernel's two sweeps
-    logits = torch.empty((b, out_dim), dtype=torch.float32, device=device) if fast else out
-    _check_tma_weight("resident_softmax", w_t)
-    if b:
-        lib = _build.load()
-        _require_smem("resident_softmax", device, lib.fdn_resident_softmax_wgmma_smem_bytes(k))
-        _launch("resident_softmax", device, lib.fdn_resident_softmax_wgmma,
-                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
-                float(inv_scale), None if masks is None else masks.data_ptr(), code,
-                logits.data_ptr(), out.data_ptr(), int(fast), b, k, w_t.shape[0], out_dim)
-    return out
-
-
-def _resident_rowscale(acts, w_t, colsum, bias, masks, row_scale, code, out_dim, fast, device):
-    """K4's ROWSCALE variant, the shapes checked by resident_softmax."""
-    if fast:
-        raise ValueError("resident_softmax: a per-row scale has no bf16 variant")
-    b, k = acts.shape
-    _check("resident_softmax", (acts, row_scale), (torch.int8, torch.float32), ((b, k), (b,)))
-    _check_tma_weight("resident_softmax", w_t)
-    out = torch.empty((b, out_dim), dtype=torch.float32, device=device)
-    if b:
-        lib = _build.load()
-        _require_smem("resident_softmax", device, lib.fdn_resident_softmax_wgmma_smem_bytes(k))
+    if not b:
+        return out
+    lib = _build.load()
+    smem = (lib.fdn_resident_softmax_recompute_smem_bytes if recompute
+            else lib.fdn_resident_softmax_wgmma_smem_bytes)
+    _require_smem("resident_softmax", device, smem(k))
+    mask_ptr = None if masks is None else masks.data_ptr()
+    if row_scale is not None:
         _launch("resident_softmax", device, lib.fdn_resident_softmax_rowscale,
                 acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
-                row_scale.data_ptr(), None if masks is None else masks.data_ptr(), code,
-                out.data_ptr(), b, k, w_t.shape[0], out_dim)
+                row_scale.data_ptr(), mask_ptr, code, out.data_ptr(), int(recompute), b, k,
+                w_t.shape[0], out_dim)
+    else:
+        # bf16 posteriors cannot hold the logits between the round trip's two sweeps
+        logits = None
+        if not recompute:
+            logits = (torch.empty((b, out_dim), dtype=torch.float32, device=device) if fast
+                      else out).data_ptr()
+        _launch("resident_softmax", device, lib.fdn_resident_softmax_wgmma,
+                acts.data_ptr(), w_t.data_ptr(), colsum.data_ptr(), bias.data_ptr(),
+                float(inv_scale), mask_ptr, code, logits, out.data_ptr(), int(fast),
+                int(recompute), b, k, w_t.shape[0], out_dim)
+    with _count_lock:
+        _paths["recompute" if recompute else "round_trip"] += 1
     return out
 
 

@@ -7,6 +7,9 @@ tensor).  Integer outputs must be bitwise equal; posteriors agree to 3e-5,
 the softmax reduction-order bound the JAX package holds Pallas to.
 """
 
+import inspect
+import itertools
+
 import jax
 import numpy as np
 import pytest
@@ -235,6 +238,93 @@ class TestResidentSoftmax:
         np.testing.assert_allclose(full.numpy(), cut.numpy(), rtol=0, atol=1e-7)
 
 
+class _FakeLibrary:
+    """The kernel library as K4's and K6's wrappers see it, on the CPU:
+    each shared-memory query answers 0 and each entry is its own name, which
+    the recording _launch keeps."""
+
+    def __getattr__(self, name):
+        return (lambda k: 0) if name.endswith("_smem_bytes") else name
+
+
+@pytest.fixture()
+def recorded_launches(monkeypatch):
+    """K4's and K6's wrappers driven on meta tensors down to the C entry:
+    the device checks pass without a card, no shared memory is asked, and
+    each launch is recorded as (C entry, its arguments)."""
+    calls = []
+    check = kernels._check
+    monkeypatch.setattr(kernels, "_check", lambda *a, cuda=True: check(*a, cuda=False))
+    monkeypatch.setattr(kernels, "_require_smem", lambda *a: None)
+    monkeypatch.setattr(kernels._build, "load", _FakeLibrary)
+    monkeypatch.setattr(kernels, "_launch", lambda name, device, fn, *args: calls.append((fn, args)))
+    kernels.reset_launch_counts()
+    yield calls
+    kernels.reset_launch_counts()
+
+
+def _meta_output_layer(k, n=256, b=64):
+    """Operands of K4 and K6 on the meta device (no storage, pointers 0)."""
+    meta = dict(device="meta")
+    return (torch.empty((b, k), dtype=torch.int8, **meta),
+            torch.empty((n, k), dtype=torch.int8, **meta),
+            torch.empty(n, dtype=torch.int32, **meta), 0.01,
+            torch.empty(n, dtype=torch.float32, **meta),
+            torch.empty((b, n), dtype=torch.uint8, **meta),
+            torch.empty(b, dtype=torch.float32, **meta))
+
+
+class TestResidentPath:
+    """K4's choice between two passes over its products and the logits'
+    round trip: by K alone."""
+
+    def test_the_path_depends_on_k_alone(self):
+        assert kernels._recomputes(256)
+        assert not kernels._recomputes(2048)
+        assert 256 <= kernels.RESIDENT_RECOMPUTE_MAX_K < 2048
+        assert kernels._recomputes(kernels.RESIDENT_RECOMPUTE_MAX_K)
+        assert not kernels._recomputes(kernels.RESIDENT_RECOMPUTE_MAX_K + kernels.TILE_K)
+        assert list(inspect.signature(kernels._recomputes).parameters) == ["k"]
+
+    @pytest.mark.parametrize("k", [256, 512, 1024, 2048])
+    @pytest.mark.parametrize("masked,fast,row_scale", [
+        (False, False, False), (True, False, False), (False, True, False), (True, True, False),
+        (False, False, True), (True, False, True),
+    ])
+    def test_every_variant_takes_the_path_of_its_k(self, recorded_launches, k, masked, fast,
+                                                   row_scale):
+        acts, w_t, colsum, inv, bias, masks, scale = _meta_output_layer(k)
+        out = kernels.resident_softmax(acts, w_t, colsum, inv, bias, masks if masked else None,
+                                       out_dim=200, fast=fast,
+                                       row_scale=scale if row_scale else None)
+        assert out.shape == (64, 200)
+        assert out.dtype == (torch.bfloat16 if fast else torch.float32)
+        (entry, args), = recorded_launches
+        recompute = kernels._recomputes(k)
+        if row_scale:
+            assert entry == "fdn_resident_softmax_rowscale" and args[8] == int(recompute)
+        else:
+            assert entry == "fdn_resident_softmax_wgmma" and args[10] == int(recompute)
+            # the f32 round trip keeps its logits in `out`; bf16 needs a scratch; recompute none
+            assert (args[7] is None) == recompute
+        want = {"round_trip": 0, "recompute": 0}
+        want["recompute" if recompute else "round_trip"] = 1
+        assert kernels.resident_paths() == want
+
+    @pytest.mark.parametrize("k", [256, 2048])
+    def test_k6_never_takes_the_two_passes(self, recorded_launches, k):
+        acts, w_t, colsum, inv, bias, masks, _ = _meta_output_layer(k)
+        kernels.resident_softmax_block_sparse(acts, w_t, colsum, inv, bias, masks, out_dim=200)
+        assert [entry for entry, _ in recorded_launches] == ["fdn_resident_softmax_block_sparse"]
+        assert kernels.resident_paths() == {"round_trip": 0, "recompute": 0}
+
+    def test_the_paths_count_beside_launch_counts(self):
+        kernels.reset_launch_counts()
+        assert set(kernels.launch_counts()) == set(kernels.KERNELS)
+        assert "resident_softmax" in kernels.launch_counts()
+        assert kernels.resident_paths() == {"round_trip": 0, "recompute": 0}
+
+
 class TestWrappers:
     def test_cpu_tensors_take_the_plain_versions(self):
         assert set(kernels.KERNELS) == set(kernels.launch_counts())
@@ -375,3 +465,91 @@ def test_kernels_match_plain_versions_on_card(cuda_device):
         got = kernels.resident_softmax(xo[:b], wo_t, co, float(io), bo, out_dim=200, fast=True)
         assert got.dtype == torch.bfloat16
         assert torch.allclose(got.float(), want, rtol=2e-2, atol=1e-3), b
+
+
+#: the `svd` configuration's output layer: K (the rank), N and out_dim
+SVD_OUTPUT = (256, 6016, 5976)
+
+
+def _both_paths(cuda_device, args, **kw):
+    """K4 through its wrapper (the path _recomputes picks, counted) and
+    through the private launch on each path -> (wrapper, recompute, round
+    trip), on the CPU."""
+    kernels.reset_launch_counts()
+    got = kernels.resident_softmax(*args, **kw)
+    recompute = kernels._recomputes(args[0].shape[1])
+    want = {"round_trip": 0, "recompute": 0}
+    want["recompute" if recompute else "round_trip"] = 1
+    assert kernels.resident_paths() == want
+    paths = {rec: kernels._resident_launch(*args, recompute=rec, **{"masks": None, "fast": False,
+                                                                     "row_scale": None, **kw})
+             for rec in (True, False)}
+    return got.float().cpu(), paths[True].float().cpu(), paths[False].float().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [64, 8128, 8192])
+def test_k4_with_a_row_scale_recomputes_at_the_svd_shapes_on_card(cuda_device, b):
+    """The svd net's output layer, K4 with a per-row scale at K = 256: the
+    two passes within 1e-6 of the round trip, unmasked and masked under
+    both semantics, and within a gate of the plain version: 3.6e-7 at row
+    scales up to 0.01 (chip_smoke's phase 32: peaked posteriors), K4's
+    3e-5 at scales up to 1e-4 (spread ones, where the round trip too reads
+    about 6e-7)."""
+    g = torch.Generator().manual_seed(b)
+    k, n, out_dim = SVD_OUTPUT
+    codes = torch.randint(-127, 128, (b, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8)
+    cz = torch.zeros(n, dtype=torch.int32)
+    bias = torch.randn(n, generator=g)
+    masks = (torch.rand(b, n, generator=g) < 0.4).to(torch.uint8)
+    masks[:64] = 0  # a frame block with no active senone
+    d = lambda t: t.to(cuda_device)
+    args = (d(codes), d(kernels.kernel_layout(w)), d(cz), 1.0, d(bias))
+    assert kernels._recomputes(k)
+    cases = itertools.product(((None, "reference"), (masks, "reference"), (masks, "active_only")),
+                              ((0.01, 3.6e-7), (1e-4, SOFTMAX_ATOL)))
+    for (m, semantics), (spread, gate) in cases:
+        scale = torch.rand(b, generator=g) * spread
+        want = tops.output_posteriors(codes, w, cz, 1.0, bias, m, out_dim=out_dim,
+                                      semantics=semantics, row_scale=scale)
+        got, recomputed, round_trip = _both_paths(
+            cuda_device, args, masks=None if m is None else d(m), out_dim=out_dim,
+            semantics=semantics, row_scale=d(scale))
+        assert torch.equal(got, recomputed)
+        what = (b, semantics, m is None, spread)
+        assert float((got - want).abs().max()) <= gate, what
+        assert float((got - round_trip).abs().max()) <= 1e-6, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [256, 512, 1024])
+@pytest.mark.parametrize("fast", [False, True])
+def test_k4_recomputes_as_it_round_trips_on_card(cuda_device, k, fast):
+    """K4 without a row scale at a short K, f32 and bf16, unmasked and
+    masked: the two passes against the plain version at K4's gates and
+    within 1e-6 of the round trip, at the svd net's N, its out_dim and two
+    whose rows are not 16-byte aligned."""
+    rng = np.random.default_rng(k + fast)
+    _, n, _ = SVD_OUTPUT
+    # the svd net's out_dim (TMA stores), and rows not 16-byte aligned (stores from registers)
+    for b, out_dim in ((64, 5976), (8192, 5976), (8192, 5974), (8192, 5975)):
+        x, w, colsum, inv, bias = _layer(rng, b, k, n)
+        masks = torch.as_tensor((rng.random((b, n)) < 0.4).astype(np.uint8))
+        d = lambda t: torch.as_tensor(t).to(cuda_device)
+        args = (d(x), d(kernels.kernel_layout(torch.as_tensor(w))), d(colsum), float(inv), d(bias))
+        for m, semantics in ((None, "reference"), (masks, "reference"), (masks, "active_only")):
+            md = None if m is None else d(m)
+            want = tops.output_posteriors(*args[:1], d(w), *args[2:], md, out_dim=out_dim,
+                                          semantics=semantics).cpu()
+            got, recomputed, round_trip = _both_paths(cuda_device, args, masks=md,
+                                                      out_dim=out_dim, semantics=semantics,
+                                                      fast=fast)
+            what = (b, out_dim, semantics, m is None)
+            if kernels._recomputes(k):
+                assert torch.equal(got, recomputed), what
+            if fast:
+                assert torch.allclose(recomputed, want, rtol=2e-2, atol=1e-3), what
+            else:
+                assert float((recomputed - want).abs().max()) <= SOFTMAX_ATOL, what
+            assert float((recomputed - round_trip).abs().max()) <= 1e-6, what
