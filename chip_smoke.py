@@ -65,7 +65,11 @@ scale, the net through the Scorer with every launch counted, and the new
 kernels' times, bounds and products alone.  Then K4's two paths, the two
 passes over its products and the logits' round trip, each against the
 plain version and timed in turns at K = 256 to 2048: the data behind the
-widest K that takes the two passes.
+widest K that takes the two passes.  Last, Kaldi's TDNN-F chain net at its
+published widths: its six kernels' launches counted exactly through the
+Scorer, the chain output bitwise the plain route's, and each kernel at the
+tdnnf-chunks cell's shapes bitwise its plain step, timed in turns with it,
+with its bound and its product alone.
 Phases 1-25 run with the registry off (FASTDNN_TUNED=0), so that their
 launch counts are the defaults'.  Any failed check raises and the script
 exits non-zero.
@@ -100,6 +104,9 @@ FRAMES_PER_AUDIO_SECOND = 100  # 10 ms frame shift
 TIMED_REPS = 12
 LAZY_DENSITY = 0.4  # the JAX bench's lazy mix: 40% of the senones active
 BF16_RTOL, BF16_ATOL = 2e-2, 1e-3
+# phase 34: the TDNN-F chain net's widths (input, hidden, bottleneck, prefinal,
+# outputs) and the tdnnf-chunks cell's batch of chunks of 150 frames
+TDNNF_WIDTHS, TDNNF_CHUNKS, TDNNF_CHUNK_FRAMES = (220, 1536, 160, 256, 7000), 64, 150
 # the normalize kernel against its plain version on the same f32 stats
 NORMALIZE_RTOL, NORMALIZE_ATOL = 1e-6, 1e-12
 DECODE_FRAMES = 60
@@ -1107,6 +1114,141 @@ def resident_paths_phase(torch, dev, smi: str) -> None:
                 print(f"  K=256 N=6016: bound {bound_ms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB), the "
                       f"two passes at {bound_ms / ms['recompute']:.1%} of it; product alone "
                       f"(torch._int_mm) {product:.4f} ms, plain version {plain_ms:.4f} ms  [{smi}]")
+
+
+def tdnnf_phase(torch, dev, smi: str, report: dict, path_launches: dict,
+                widths: tuple = TDNNF_WIDTHS, chunks: int = TDNNF_CHUNKS, timer=None) -> None:
+    """Phase 34: Kaldi's TDNN-F chain net (run_tdnn_1d's strides) at
+    `widths` (input, hidden, bottleneck, prefinal, outputs; the published
+    220, 1536, 160, 256, 7000) through quantize_net and the Scorer:
+    `score_device` on `chunks` chunks of 150 frames with the net's context
+    runs exactly tdnnf_input 1, tdnnf_project 16, tdnnf_expand 16,
+    chain_project 2, chain_expand 1, chain_logits 1 and is bitwise the
+    plain route (and `score` bitwise `score_device`); then each new
+    kernel, on the net's own matrices at the cell's shapes, bitwise its
+    plain step and timed in turns with it, with its bound and its product
+    alone (torch._int_mm, the int8 products of the call; for tdnnf_input
+    the f64 torch.matmul).  `timer` replaces time_ms (a CPU dry run)."""
+    import fastdnn_tpu_torch as fdt
+    from fastdnn_tpu_torch.models.tdnnf import LIBRISPEECH_STRIDES
+    from fastdnn_tpu_torch.ops import kernels
+    from fastdnn_tpu_torch.ops import matmul as plain
+
+    timer = timer or time_ms
+    d_in, h, k, p, n_out = widths
+    rng = np.random.default_rng(SEED + 34)
+    net = fdt.random_tdnnf_net(rng, d_in, h, k, LIBRISPEECH_STRIDES, p, n_out)
+    q = fdt.quantize_net(net)
+    sc = fdt.Scorer(q, device=dev)
+    ref = fdt.Scorer(q, fdt.EngineConfig(backend="torch"), device=dev)
+    left, right = q.context()
+    rows = left + TDNNF_CHUNK_FRAMES + right
+    x = torch.from_numpy(rng.standard_normal((chunks, rows, d_in), dtype=np.float32)).to(dev)
+    kernels.reset_launch_counts()
+    got = sc.score_device(x)
+    counts = {name: v for name, v in kernels.launch_counts().items() if v}
+    for name, v in counts.items():
+        path_launches[name] += v
+    want_counts = {"tdnnf_input": 1, "tdnnf_project": 16, "tdnnf_expand": 16,
+                   "chain_project": 2, "chain_expand": 1, "chain_logits": 1}
+    check(counts == want_counts, f"launches per score_device on the TDNN-F net: {want_counts}")
+    want = ref.score_device(x)
+    outputs = TDNNF_CHUNK_FRAMES // q.subsampling
+    check(got.shape == want.shape == (chunks, outputs, n_out) and torch.equal(got, want),
+          f"score_device on {chunks} chunks [{chunks}, {rows}, {d_in}] -> [{chunks}, {outputs}, "
+          f"{n_out}]: bitwise the plain route ({int((got != want).sum())} differ)")
+    check(np.array_equal(sc.score(x.cpu().numpy()), got.cpu().numpy()),
+          "score (numpy in and out) bitwise score_device")
+
+    # each kernel on the net's own matrices at the cell's shapes, against its
+    # plain step (the plain route's net: weights [K, N])
+    kn, pn = sc.net, ref.net
+    n, plan = chunks * rows, q.plan(TDNNF_CHUNK_FRAMES)
+    n_sel = chunks * outputs
+    select = (outputs, plan["rows_low"], plan["out_first"], 1)
+    term = lambda codes, scale, m, o=0: (codes, scale, m.weight, m.inv_scale, o)
+    frames = x.reshape(n, d_in)
+    h1 = plain.tdnnf_input_step(frames, pn.input_w, pn.input_b, pn.input_gamma, pn.input_beta)
+    layer, player = kn.layers[0], pn.layers[0]
+    c = plain.tdnnf_project_step([term(*h1, player.linear[0], -1), term(*h1, player.linear[1])],
+                                 n, plain.ROWS_IDENTITY)
+    low = torch.randint(-127, 128, (chunks * plan["rows_low"], h), dtype=torch.int8, device=dev)
+    low_scale = torch.rand(chunks * plan["rows_low"], device=dev) * 0.05
+    g = plain.tdnnf_project_step([term(low, low_scale, pn.prefinal_l)], n_sel, select)
+    v = plain.tdnnf_expand_step([term(*g, pn.prefinal_w)], n_sel, plain.ROWS_IDENTITY,
+                                pn.prefinal_b, pn.prefinal_gamma, pn.prefinal_beta)
+    pc = plain.tdnnf_project_step([term(*v, pn.prefinal_small)], n_sel, plain.ROWS_IDENTITY,
+                                  pn.prefinal_small_b)
+    by = (h1[0], h1[1], pn.bypass_scale, plain.ROWS_IDENTITY)
+    calls = {  # name -> (kernel call, plain call, ops, bytes, product alone)
+        "tdnnf_input": (
+            lambda: kernels.tdnnf_input(frames, kn.input_w, kn.input_b, kn.input_gamma,
+                                        kn.input_beta),
+            lambda: plain.tdnnf_input_step(frames, pn.input_w, pn.input_b, pn.input_gamma,
+                                           pn.input_beta),
+            2 * n * d_in * h, 4 * n * d_in + 4 * d_in * h + 12 * h + n * (h + 4), "tf32",
+            lambda: frames.double() @ pn.input_w.double()),
+        "tdnnf_project": (
+            lambda: kernels.tdnnf_project([term(*h1, layer.linear[0], -1),
+                                           term(*h1, layer.linear[1])], n),
+            lambda: plain.tdnnf_project_step([term(*h1, player.linear[0], -1),
+                                              term(*h1, player.linear[1])], n),
+            2 * 2 * n * h * k, n * (h + 4) + 2 * h * k + n * (k + 4), "int8", (n, 2 * h, k)),
+        "tdnnf_expand": (
+            lambda: kernels.tdnnf_expand([term(*c, layer.affine[0]), term(*c, layer.affine[1], 1)],
+                                         n, plain.ROWS_IDENTITY, layer.bias, layer.gamma,
+                                         layer.beta, by),
+            lambda: plain.tdnnf_expand_step([term(*c, player.affine[0]),
+                                             term(*c, player.affine[1], 1)], n,
+                                            plain.ROWS_IDENTITY, player.bias, player.gamma,
+                                            player.beta, by),
+            2 * 2 * n * k * h, n * (k + 4) + 2 * k * h + 12 * h + 2 * n * (h + 4), "int8",
+            (n, 2 * k, h)),
+        "chain_project": (
+            lambda: kernels.tdnnf_project([term(low, low_scale, kn.prefinal_l)], n_sel, select,
+                                          chain=True),
+            lambda: plain.tdnnf_project_step([term(low, low_scale, pn.prefinal_l)], n_sel, select),
+            2 * n_sel * h * p, n_sel * (h + 4) + h * p + n_sel * (p + 4), "int8", (n_sel, h, p)),
+        "chain_expand": (
+            lambda: kernels.tdnnf_expand([term(*g, kn.prefinal_w)], n_sel, plain.ROWS_IDENTITY,
+                                         kn.prefinal_b, kn.prefinal_gamma, kn.prefinal_beta,
+                                         chain=True),
+            lambda: plain.tdnnf_expand_step([term(*g, pn.prefinal_w)], n_sel, plain.ROWS_IDENTITY,
+                                            pn.prefinal_b, pn.prefinal_gamma, pn.prefinal_beta),
+            2 * n_sel * p * h, n_sel * (p + 4) + p * h + 12 * h + n_sel * (h + 4), "int8",
+            (n_sel, p, h)),
+        "chain_logits": (
+            lambda: kernels.chain_logits(*pc, kn.output.weight, kn.output.inv_scale, kn.output_b),
+            lambda: plain.chain_logits_step(*pc, pn.output.weight, pn.output.inv_scale,
+                                            pn.output_b),
+            2 * n_sel * p * n_out, n_sel * (p + 4) + p * n_out + 4 * n_out + 4 * n_sel * n_out,
+            "int8", (n_sel, p, n_out)),
+    }
+    for name, (kernel, plain_call, ops, nbytes, kind, product) in calls.items():
+        a, b = kernel(), plain_call()
+        same = all(torch.equal(u, w) for u, w in zip(a, b)) if isinstance(a, tuple) \
+            else torch.equal(a, b)
+        check(same, f"{name} at the cell's shapes: bitwise its plain step")
+        if isinstance(product, tuple):  # the call's int8 products as one torch._int_mm
+            m_rows, kk, nn = product
+            pa = torch.randint(-127, 128, (m_rows, kk), dtype=torch.int8, device=dev)
+            pb = torch.randint(-127, 128, (kk, nn), dtype=torch.int8, device=dev)
+            product = lambda pa=pa, pb=pb: torch._int_mm(pa, pb)
+        times = in_turns(torch, {name: kernel, name + ".plain": plain_call}, timer)
+        r = report[name]
+        r["ms"] = statistics.mean(times[name])
+        r["plain_ms"] = statistics.mean(times[name + ".plain"])
+        r["max_abs_err"] = 0.0
+        r["bound_ms"], r["bound_by"] = bound(ops, kind, nbytes)
+        r["product_ms"] = timer(torch, product)
+        print(f"  {name:15s} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {ops / 1e9:.2f} G ops at {kind}, "
+              f"{nbytes / 1e6:.1f} MB), {r['bound_ms'] / r['ms']:.1%} of it; product alone "
+              f"{r['product_ms']:.4f} ms  [{smi}]", flush=True)
+    sd = in_turns(torch, {"score_device": lambda: sc.score_device(x)}, timer)["score_device"]
+    print(f"  score_device on the TDNN-F net, {chunks} chunks: {statistics.mean(sd):.4f} ms "
+          f"({chunks * TDNNF_CHUNK_FRAMES / FRAMES_PER_AUDIO_SECOND / statistics.mean(sd) * 1e3:.0f}"
+          f" audio-s/s)  [{smi}]")
 
 
 def free_port() -> int:
@@ -3051,6 +3193,11 @@ def main() -> int:
     phase(f"33. K4's two paths, two passes over the products against the logits' round trip, "
           f"in turns at B = 8192 (card: {smi})")
     resident_paths_phase(torch, dev, smi)
+
+    phase(f"34. the TDNN-F chain net: tdnnf_input, K11 (tdnnf_project, chain_project), K12 "
+          f"(tdnnf_expand, chain_expand) and K13 (chain_logits), 220-16x1536/160-256-7000, "
+          f"{TDNNF_CHUNKS} chunks (card: {smi})")
+    tdnnf_phase(torch, dev, smi, report, path_launches)
 
     rows = [
         {

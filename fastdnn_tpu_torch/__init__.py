@@ -16,6 +16,10 @@ Quick start::
     scorer = fdt.Scorer(qnet, device="cuda")       # "cpu": plain versions
     posteriors = scorer.score(frames)              # [n, senones] numpy
     lazy = scorer.score_masked(frames, masks)      # masks [n, senones], nonzero = active
+
+A TDNN-F chain net (TdnnfNet, e.g. random_tdnnf_net) quantizes the same way
+and scores chunks with their context: scorer.score(chunks [C, L + T + R,
+in]) -> [C, T / 3, out] (scorer.context = (L, R)).
 """
 
 from .config import EngineConfig
@@ -52,12 +56,15 @@ from .models.feedforward import (
     restructure,
     to_raw,
 )
+from .models.tdnnf import BatchNorm, TdnnfLayer, TdnnfNet, random_tdnnf_net
 from .quant.quantize import (
     QuantizedNet,
+    QuantizedTdnnf,
     pack_int4_trunk,
     pad_qnet,
     quantize_layer,
     quantize_net,
+    quantize_tdnnf,
 )
 from .quant.serialize import load_qnet, load_quantized, qnet_from_arrays, save_qnet
 
@@ -75,6 +82,7 @@ def load_model_text(network_path, transform_path) -> FeedForwardNet:
 
 
 __all__ = [
+    "BatchNorm",
     "BeamDecoder",
     "EngineConfig",
     "FeedForwardNet",
@@ -82,9 +90,12 @@ __all__ = [
     "LowRank",
     "Lexicon",
     "QuantizedNet",
+    "QuantizedTdnnf",
     "RawNetwork",
     "Scorer",
     "StreamingScorer",
+    "TdnnfLayer",
+    "TdnnfNet",
     "align",
     "apply_transform",
     "build_hidden_stack",
@@ -103,9 +114,11 @@ __all__ = [
     "qnet_from_arrays",
     "quantize_layer",
     "quantize_net",
+    "quantize_tdnnf",
     "random_lexicon",
     "random_lowrank_net",
     "random_net",
+    "random_tdnnf_net",
     "read_features",
     "read_model",
     "restructure",

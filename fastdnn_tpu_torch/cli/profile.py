@@ -145,7 +145,13 @@ def kernel_of(symbol: str) -> Optional[str]:
                          ("normalize_stats", "normalize_stats_kernel"),
                          ("lazy_output", "lazy_output_kernel"),
                          ("lowrank_layer", "lowrank_layer_kernel"),
-                         ("lowrank_bottleneck", "lowrank_bottleneck_kernel")):
+                         ("lowrank_bottleneck", "lowrank_bottleneck_kernel"),
+                         ("tdnnf_input", "tdnnf_input_kernel"),
+                         ("tdnnf_project", "tdnnf_project_kernel"),
+                         ("tdnnf_expand", "tdnnf_expand_kernel"),
+                         ("chain_project", "chain_project_kernel"),
+                         ("chain_expand", "chain_expand_kernel"),
+                         ("chain_logits", "chain_logits_kernel")):
         if kernel in symbol:
             return name
     return None

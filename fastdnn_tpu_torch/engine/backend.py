@@ -32,8 +32,9 @@ import torch
 
 from ..ops import kernels
 from ..ops import matmul as xops
-from ..quant.quantize import Bottleneck, QuantizedNet, pack_int4_trunk, pad_qnet
+from ..quant.quantize import Bottleneck, QuantizedNet, QuantizedTdnnf, pack_int4_trunk, pad_qnet
 from ..utils.timer import span
+from .tdnnf import kernel_layout as tdnnf_kernel_layout
 
 
 def output_layer(net: QuantizedNet) -> tuple:
@@ -117,6 +118,17 @@ class Backend:
     normalize_stats: Callable
     #: (acts, *output layer, masks, *, out_dim, semantics, row_scale) -> f32 [rows, out_dim]
     lazy_output: Callable
+    #: a TDNN-F net (engine.tdnnf): net on its device -> the net its steps read
+    lay_out_tdnnf: Callable
+    #: (net, rows f32 [n, in]) -> (codes s8 [n, H], scale f32 [n])
+    tdnnf_input: Callable
+    #: (terms, n_out, row map, bias=None, *, chain) -> (codes, scale); a term is
+    #: (codes, scale, weight, inv_scale, row offset)
+    tdnnf_project: Callable
+    #: (terms, n_out, row map, bias, gamma, beta, bypass=None, *, chain) -> (codes, scale)
+    tdnnf_expand: Callable
+    #: (codes, scale, weight, inv_scale, bias) -> f32 [n, N]
+    chain_logits: Callable
 
     def prepare(self, net: QuantizedNet, device, *, mesh=None, int4_packed: bool = False,
                 input_precision: str = "high") -> QuantizedNet:
@@ -145,6 +157,12 @@ class Backend:
 
             net = shard_qnet(net, mesh)
         return self.lay_out(net.to(device), input_precision)
+
+    def prepare_tdnnf(self, net: QuantizedTdnnf, device) -> QuantizedTdnnf:
+        """A TDNN-F net as this backend's steps read it on `device`: no
+        padding (its kernels take its widths as they are), then laid out
+        (`lay_out_tdnnf`)."""
+        return self.lay_out_tdnnf(net.to(device))
 
     def posteriors(self, net: QuantizedNet, acts: torch.Tensor, masks, *, out_dim: int,
                    semantics: str = "reference", fast: bool = False,
@@ -239,6 +257,18 @@ def _plain_lowrank_layer(acts, bn: Bottleneck, w, colsum, inv_scale, bias):
                                    inv_scale, bias)
 
 
+def _kernels_tdnnf_input(net: QuantizedTdnnf, rows: torch.Tensor):
+    return kernels.tdnnf_input(rows, net.input_w, net.input_b, net.input_gamma, net.input_beta)
+
+
+def _plain_project(terms, n_out, row_map, bias=None, *, chain=False):
+    return xops.tdnnf_project_step(terms, n_out, row_map, bias)
+
+
+def _plain_expand(terms, n_out, row_map, bias, gamma, beta, bypass=None, *, chain=False):
+    return xops.tdnnf_expand_step(terms, n_out, row_map, bias, gamma, beta, bypass)
+
+
 KERNELS = Backend(
     name="cuda",
     lanes=kernels.TILE_N,
@@ -263,6 +293,11 @@ KERNELS = Backend(
     flash_stats_block_sparse=kernels.flash_stats_block_sparse,
     normalize_stats=kernels.normalize_stats,
     lazy_output=kernels.lazy_output,
+    lay_out_tdnnf=tdnnf_kernel_layout,
+    tdnnf_input=_kernels_tdnnf_input,
+    tdnnf_project=kernels.tdnnf_project,
+    tdnnf_expand=kernels.tdnnf_expand,
+    chain_logits=kernels.chain_logits,
 )
 
 PLAIN = Backend(
@@ -288,6 +323,12 @@ PLAIN = Backend(
     flash_stats_block_sparse=xops.block_sparse_stats,
     normalize_stats=xops.normalize_stats,
     lazy_output=_plain_lazy_output,
+    lay_out_tdnnf=lambda net: net,
+    tdnnf_input=lambda net, rows: xops.tdnnf_input_step(
+        rows, net.input_w, net.input_b, net.input_gamma, net.input_beta),
+    tdnnf_project=_plain_project,
+    tdnnf_expand=_plain_expand,
+    chain_logits=xops.chain_logits_step,
 )
 
 BACKENDS = {b.name: b for b in (KERNELS, PLAIN)}

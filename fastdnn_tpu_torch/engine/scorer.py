@@ -36,6 +36,13 @@ LazyContext, lazy_output's over the codes, which `calculate_until_output`
 keeps.  Such a net raises at set-up under the knobs that have no low-rank
 route (check_lowrank).
 
+A TDNN-F chain net (quant.quantize.QuantizedTdnnf, engine.tdnnf) scores
+chunks with their time context: `score_device(chunks)` takes f32
+[C, L + T + R, in] and returns the chain output [C, T / 3, out], and
+`score` the same in numpy.  Its frames are not independent, so every other
+entry raises for it, and the knobs it has no route for raise at set-up
+(engine.tdnnf.check_time_context).
+
 Each public entry, and the host stages inside them, record a span while a
 torch.profiler runs (utils.timer.span; SPANS below lists the names).
 
@@ -58,13 +65,14 @@ import torch
 from ..config import EngineConfig
 from ..ops import kernels
 from ..ops import matmul as xops
-from ..quant.quantize import QuantizedNet
+from ..quant.quantize import QuantizedNet, QuantizedTdnnf
 from ..utils.align import aligned_size
 from ..utils.timer import span
 from . import lazy as _lazy
 # uses_resident_output: the gate keeps the JAX package's module and name
 from .backend import Backend, output_bottleneck, output_layer, uses_resident_output  # noqa: F401
 from .backend import get as get_backend
+from .tdnnf import TdnnfRoute, check_time_context, refuse
 
 #: every span this module records: the public entries, then the stages
 #: inside them
@@ -79,6 +87,7 @@ SPANS = (
     "fastdnn.output_stats",  # the output layer through the stats: K8 and the normalize
     "fastdnn.output_lazy",  # a frame's output layer: one lazy_output launch
     "fastdnn.output_bottleneck",  # a low-rank output layer's first product: one launch
+    "fastdnn.output_chain",  # a TDNN-F net's prefinal pair and chain output: four launches
     "fastdnn.finish",  # the gather under a mesh, the wait, the download and numpy
 )
 
@@ -369,6 +378,11 @@ class Scorer:
                 "to score with the plain PyTorch versions"
             )
         self._backend = get_backend(self.config.resolve_backend(self.device))
+        #: (left, right) rows of context of a net with time context, else None
+        self.context = net.context() if isinstance(net, QuantizedTdnnf) else None
+        if self.context is not None:
+            self._init_time_context(net, mesh)
+            return
         # measured launch knobs for this (net topology, card) replace those
         # left at their defaults; explicit knobs win (tuning.py)
         self.config = tuned_config(self.config, net, self._backend, self.device)
@@ -423,6 +437,27 @@ class Scorer:
             aligned_size(max(int(self._output_dim * self.config.lazy_capacity), 1), 128),
             self._output_dim,
         )
+
+    def _init_time_context(self, net: QuantizedTdnnf, mesh) -> None:
+        """Set-up for a net with time context: its refusals, its layout on
+        the backend, its route; no launch-knob registry (its knobs are the
+        feed-forward routes')."""
+        check_time_context(self.config, mesh)
+        self._data_size = 1
+        self._output_dim = net.output_dim
+        self._input_dim = net.input_dim
+        self.net = self._backend.prepare_tdnnf(net, self.device)
+        self._route = TdnnfRoute(self._backend)
+        self._programs = None
+        self._hstack = None
+
+    def _chunks(self, chunks: torch.Tensor) -> torch.Tensor:
+        """A net with time context: its chain output [C, T / 3, out] of
+        chunks [C, L + T + R, input_dim]."""
+        if chunks.dim() != 3 or chunks.shape[2] != self.input_dim:
+            raise ValueError(f"chunks must be [C, L + T + R, {self.input_dim}], got "
+                             f"{tuple(chunks.shape)}")
+        return self._route.score(self.net, chunks)
 
     # -- helpers ------------------------------------------------------------
 
@@ -551,11 +586,28 @@ class Scorer:
         """Posteriors f32 [n, out] for a frame batch."""
         with span("fastdnn.score"):
             frames = np.asarray(frames, dtype=np.float32)
+            if self.context is not None:
+                return self._score_chunks(frames)
             if frames.ndim == 2 and frames.shape[0] == 0:
                 return np.zeros((0, self.output_dim), np.float32)
             padded, n = self._prepare(frames)
             with torch.inference_mode():
                 return self._finish(self._run(padded), n)
+
+    def _score_chunks(self, chunks: np.ndarray) -> np.ndarray:
+        """`score` for a net with time context: chunks [C, L + T + R, dim]
+        (dim <= input_dim, zero-padded) -> [C, T / 3, out] numpy."""
+        if chunks.ndim != 3 or chunks.shape[2] > self.input_dim:
+            raise ValueError(f"chunks must be [C, L + T + R, <= {self.input_dim}], got "
+                             f"{chunks.shape}")
+        if chunks.shape[2] < self.input_dim:
+            padded = np.zeros((*chunks.shape[:2], self.input_dim), np.float32)
+            padded[:, :, : chunks.shape[2]] = chunks
+            chunks = padded
+        with torch.inference_mode():
+            out = self._chunks(self._to_device(chunks))
+        with span("fastdnn.finish"):
+            return out.cpu().numpy()
 
     def score_device(self, frames: torch.Tensor) -> torch.Tensor:
         """Device-resident variant: f32 [B, input_dim] on the scorer's
@@ -570,7 +622,11 @@ class Scorer:
         with model = 1, [B / data, output_dim].  The JAX package's mesh
         variant returns the padded-width global array instead, sharded
         over the devices of its one program; here nothing spans ranks
-        without a collective, so each rank keeps what it computed."""
+        without a collective, so each rank keeps what it computed.
+
+        A net with time context takes chunks f32 [C, L + T + R,
+        input_dim] (`context` = (L, R)) and returns the chain output
+        [C, T / 3, output_dim] (engine.tdnnf)."""
         with span("fastdnn.score_device"):
             if frames.device.type != self.device.type or frames.dtype != torch.float32:
                 raise ValueError(
@@ -578,6 +634,8 @@ class Scorer:
                     f"{frames.dtype} on {frames.device}"
                 )
             with torch.inference_mode():
+                if self.context is not None:
+                    return self._chunks(frames)
                 return self._run(frames)
 
     def score_masked(self, frames, masks) -> np.ndarray:
@@ -585,6 +643,8 @@ class Scorer:
         active).  The dense masked kernel unless config.lazy_mode asks for
         "gathered" or "block_sparse"."""
         with span("fastdnn.score_masked"):
+            if self.context is not None:
+                raise refuse("score_masked")
             frames = np.asarray(frames, dtype=np.float32)
             masks = np.asarray(masks)
             if masks.shape != (frames.shape[0], self.output_dim):
@@ -623,6 +683,8 @@ class Scorer:
         frame batch and split back.  Accepts a dict {id: [n, dim]} or a list
         of [n, dim] arrays; returns the same container shape.
         """
+        if self.context is not None:
+            raise refuse("score_utterances")
         keys = None
         if isinstance(utterances, dict):
             keys = list(utterances.keys())
@@ -698,6 +760,8 @@ class LazyContext:
     """
 
     def __init__(self, scorer: Scorer, input_vector_count: int):
+        if scorer.context is not None:
+            raise refuse("LazyContext")
         self._scorer = scorer
         self.input_vector_count = input_vector_count
         self.current_vector_index = 0

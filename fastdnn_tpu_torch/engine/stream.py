@@ -124,6 +124,10 @@ class StreamingScorer:
     ):
         if max_batch_frames < 1:
             raise ValueError("max_batch_frames must be >= 1")
+        if getattr(scorer, "context", None) is not None:
+            from .tdnnf import refuse
+
+            raise refuse("StreamingScorer")
         if scorer.mesh is not None:
             from ..parallel.service import MultiHostScorer
 

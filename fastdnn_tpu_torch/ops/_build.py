@@ -107,6 +107,23 @@ _SIGNATURES = {
          _P, ctypes.c_int, _P],
     ),
     "fdn_lazy_output_smem_bytes": (ctypes.c_longlong, [ctypes.c_int] * 2),
+    "fdn_tdnnf_input": (ctypes.c_int, [*[_P] * 7, *[ctypes.c_int] * 4, _P]),
+    "fdn_tdnnf_input_smem_bytes": (ctypes.c_longlong, [ctypes.c_int] * 2),
+    "fdn_tdnnf_project": (
+        ctypes.c_int,
+        [_P, _P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, ctypes.c_float, ctypes.c_int,
+         *[ctypes.c_int] * 5, _P, _P, _P, *[ctypes.c_int] * 5, _P],
+    ),
+    "fdn_tdnnf_expand": (
+        ctypes.c_int,
+        [_P, _P, _P, ctypes.c_float, ctypes.c_int, _P, _P, _P, ctypes.c_float, ctypes.c_int,
+         *[ctypes.c_int] * 5, _P, _P, _P, _P, _P, ctypes.c_float, *[ctypes.c_int] * 4, _P, _P,
+         *[ctypes.c_int] * 5, _P],
+    ),
+    "fdn_chain_logits": (
+        ctypes.c_int, [_P, _P, _P, ctypes.c_float, _P, _P, *[ctypes.c_int] * 4, _P],
+    ),
+    "fdn_tdnnf_smem_bytes": (ctypes.c_longlong, [ctypes.c_int] * 4),
     "fdn_lazy_output_max_clusters": (ctypes.c_int, [ctypes.c_int] * 3),
 }
 

@@ -52,11 +52,28 @@ A wrapper given CPU tensors transposes back for its plain version.
         lowrank_bottleneck            K10's first half for a low-rank output layer:
                                       the codes and each frame's scale, which K4
                                       and lazy_output take as a per-row scale
+       tdnnf_input                    the TDNN-F chain net's tdnn1: the f32 product
+                                      taken in f64 in the order of k (CUDA cores),
+                                      ReLU, batchnorm, signed codes with a scale per
+                                      row
+    K11 tdnnf_project                 a TDNN-F layer's linear part: one product per
+        chain_project                 time offset on signed codes, their rows read
+                                      through a row map and offset; the codes of
+                                      the sum (chain_: prefinal-l and prefinal-
+                                      chain's second linear)
+    K12 tdnnf_expand                  its affine part: the products, ReLU, batch-
+        chain_expand                  norm, the bypass, the codes; two passes over
+                                      the columns (chain_: prefinal-chain's affine)
+    K13 chain_logits                  the chain output, f32 logits with a per-row
+                                      scale, no softmax
 
 Masks are uint8 [B, N] at the tile-padded output width, nonzero = active.
 
-Every product runs Hopper's warp-specialised shape (csrc/hopper.cuh: TMA
-stages, wgmma products).  K2, K3, K5 and K7 run blocks of 64 frames in
+Every int8, TF32 and bf16 product runs Hopper's wgmma (csrc/hopper.cuh),
+all but K11-K13's in its warp-specialised shape (TMA stages); K11-K13
+(csrc/tdnnf.cu), whose row maps no tensor map describes, stage their
+operands in the same swizzle by cp.async, one warpgroup a block, a first
+design; `tdnnf_input` sums its f64 terms on CUDA cores.  K2, K3, K5 and K7 run blocks of 64 frames in
 clusters of wgmma_cluster(B) blocks that share weight stages by multicast
 (K2 and K5 are one kernel with two epilogues); K4, K6 and K8 run clusters
 of 2 blocks that share 64 frames and split the output columns.  K9 takes
@@ -123,6 +140,13 @@ INPUT_BF16_K_MULTIPLE = 16
 #: (one 128-column tile of the bottleneck per consumer warpgroup)
 LOWRANK_FRAMES = 64
 LOWRANK_MAX_RANK = 256
+#: K11's N (a TDNN-F layer's linear part: wgmma n128 + n32), chain_project's
+#: (n256), and the widest K of K12 and K13 (csrc/tdnnf.cu)
+TDNNF_BOTTLENECK = 160
+CHAIN_WIDTH = 256
+TDNNF_MAX_AFFINE_K = 256
+#: the widest input tdnnf_input holds (its rows as f64 in shared memory)
+TDNNF_MAX_INPUT_K = 256
 #: blocks per thread-block cluster of K2, K3 and K7: each weight stage
 #: leaves L2 once per cluster and is multicast to its blocks.  On the H100
 #: clusters of 2 beat 1, and clusters of 4 lost to both (PERF.md)
@@ -187,6 +211,13 @@ KERNELS = {
     # the JAX package has no low-rank layer: these replace no TPU kernel
     "lowrank_layer": Kernel("fastdnn_tpu_torch/csrc/lowrank_layer.cu", "none"),
     "lowrank_bottleneck": Kernel("fastdnn_tpu_torch/csrc/lowrank_layer.cu", "none"),
+    # nor a net with time context
+    "tdnnf_input": Kernel("fastdnn_tpu_torch/csrc/tdnnf.cu", "none"),
+    "tdnnf_project": Kernel("fastdnn_tpu_torch/csrc/tdnnf.cu", "none"),
+    "tdnnf_expand": Kernel("fastdnn_tpu_torch/csrc/tdnnf.cu", "none"),
+    "chain_project": Kernel("fastdnn_tpu_torch/csrc/tdnnf.cu", "none"),
+    "chain_expand": Kernel("fastdnn_tpu_torch/csrc/tdnnf.cu", "none"),
+    "chain_logits": Kernel("fastdnn_tpu_torch/csrc/tdnnf.cu", "none"),
 }
 
 #: the lazy semantics as the resident-softmax kernels number them
@@ -919,3 +950,165 @@ def lowrank_bottleneck(acts, p_t, p_colsum, p_inv: float, e_inv: float):
                 acts.data_ptr(), p_t.data_ptr(), p_colsum.data_ptr(), float(p_inv), float(e_inv),
                 codes.data_ptr(), scale.data_ptr(), b, p_t.shape[1], rank, wgmma_cluster(b))
     return codes, scale
+
+
+# -- the TDNN-F chain net (models.tdnnf; quant.quantize's contract) ----------
+
+
+def tdnnf_input(frames, w, bias, gamma, beta):
+    """tdnn1 of the TDNN-F chain net, f32 [B, K] -> (codes s8 [B, H], scale
+    f32 [B]) in one launch: requant(f32(f32(max(f32(y + bias), 0) * gamma)
+    + beta)), y = f32(sum over k in order of f64(x_k) * f64(w_k)).  The
+    weight f32 [K, H] (K at most 256), bias, gamma and beta are taken as
+    check_tdnnf_input passed them.  Plain version:
+    ops.matmul.tdnnf_input_step, bitwise."""
+    if frames.device.type == "cpu":
+        return plain.tdnnf_input_step(frames, w, bias, gamma, beta)
+    b, k = frames.shape
+    device = _check("tdnnf_input", (frames,), (torch.float32,), ((None, w.shape[0]),))
+    h = w.shape[1]
+    codes = torch.empty((b, h), dtype=torch.int8, device=device)
+    scale = torch.empty((b,), dtype=torch.float32, device=device)
+    if b:
+        _launch("tdnnf_input", device, _build.load().fdn_tdnnf_input, frames.data_ptr(),
+                w.data_ptr(), bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                codes.data_ptr(), scale.data_ptr(), b, k, h)
+    return codes, scale
+
+
+def check_tdnnf_input(w, bias, gamma, beta) -> None:
+    """tdnnf_input's checks of a net's constant input layer once a net: the
+    weight f32 [K, H] (K at most 256) with the bias, gamma and beta f32 [H]
+    on one CUDA device, contiguous, and the block's shared memory.  CPU
+    tensors need none."""
+    if w.device.type == "cpu":
+        return
+    k, h = w.shape if w.dim() == 2 else (-1, -1)
+    device = _check("tdnnf_input", (w, bias, gamma, beta), (torch.float32,) * 4,
+                    ((k, h), (h,), (h,), (h,)))
+    if not 0 < k <= TDNNF_MAX_INPUT_K:
+        raise ValueError(f"tdnnf_input: K={k} must be in [1, {TDNNF_MAX_INPUT_K}]")
+    _require_smem("tdnnf_input", device, _build.load().fdn_tdnnf_input_smem_bytes(k, h))
+
+
+def check_tdnnf_matrix(name: str, w_t, vectors=(), *, k_multiple: int, n_multiple: int = 8,
+                       max_k: int = 0, n_exact: int = 0) -> None:
+    """The checks of a TDNN-F net's constant matrix in the kernels' layout
+    [N, K] (and its f32 [N] vectors) once a net: dtypes, shapes, contiguity,
+    16-byte boundaries, the kernels' multiples and limits.
+    engine.backend.Backend.prepare makes them; a call checks its
+    activations only.  CPU tensors need none."""
+    if w_t.device.type == "cpu":
+        return
+    n, k = w_t.shape if w_t.dim() == 2 else (-1, -1)
+    _check(name, (w_t, *vectors), (torch.int8,) + (torch.float32,) * len(vectors),
+           ((n, k),) + ((n,),) * len(vectors))
+    _require_multiples(name, K=(k, k_multiple), N=(n, n_multiple))
+    if (max_k and k > max_k) or (n_exact and n != n_exact):
+        raise ValueError(f"{name}: [{n}, {k}] is not a width the kernel takes (K <= "
+                         f"{max_k or 'any'}, N {'= ' + str(n_exact) if n_exact else 'any'})")
+    _check_tma_weight(name, w_t)
+    for v in vectors:
+        if v.data_ptr() % 8:
+            raise ValueError(f"{name}: its vectors must start on an 8-byte boundary")
+
+
+def _tdnnf_acts(name: str, codes, scale, k: int) -> torch.device:
+    """A call's own checks of K11-K13: codes s8 [n, k] and scale f32 [n] on
+    one CUDA device, contiguous, the codes from a 16-byte boundary."""
+    device = _check(name, (codes, scale), (torch.int8, torch.float32),
+                    ((None, k), (codes.shape[0],)))
+    _check_tma_weight(name, codes, "the codes")
+    return device
+
+
+def _term_args(term) -> tuple:
+    codes, scale, w_t, inv, offset = term
+    return codes.data_ptr(), scale.data_ptr(), w_t.data_ptr(), float(inv), int(offset)
+
+
+_NO_TERM = (None, None, None, 0.0, 0)
+
+
+def _plain_terms(terms) -> list:
+    """The terms as the plain versions take them: each weight [K, N]."""
+    return [(c, s, w_t.t(), inv, o) for c, s, w_t, inv, o in terms]
+
+
+def tdnnf_project(terms, n_out: int, row_map=plain.ROWS_IDENTITY, bias=None, *,
+                  chain: bool = False):
+    """K11 (tdnnf_project; chain_project with `chain`): requant(sum of the
+    terms [+ bias]) -> (codes s8 [n_out, N], scale f32 [n_out]).  terms:
+    one or two (codes s8 [n_in, K], scale f32 [n_in], w_t s8 [N, K] =
+    kernel_layout(w), inv_scale, row offset), both on the same codes; each
+    output row r reads row map(r) + offset of them (ops.matmul.ROWS_IDENTITY's
+    form; codes 0 and scale 0 outside).  K a multiple of 128; N
+    TDNNF_BOTTLENECK (chain: CHAIN_WIDTH, one term, `bias` f32 [N] or None;
+    without chain no bias).  The matrices are taken
+    as check_tdnnf_matrix passed them.  Plain version:
+    ops.matmul.tdnnf_project_step."""
+    codes, scale = terms[0][0], terms[0][1]
+    if codes.device.type == "cpu":
+        return plain.tdnnf_project_step(_plain_terms(terms), n_out, row_map, bias)
+    name = "chain_project" if chain else "tdnnf_project"
+    n_in, k = codes.shape
+    device = _tdnnf_acts(name, codes, scale, k)
+    n = terms[0][2].shape[0]
+    out = torch.empty((n_out, n), dtype=torch.int8, device=device)
+    out_scale = torch.empty((n_out,), dtype=torch.float32, device=device)
+    second = _term_args(terms[1]) if len(terms) > 1 else _NO_TERM
+    _launch(name, device, _build.load().fdn_tdnnf_project, *_term_args(terms[0]), *second,
+            *row_map, n_in, None if bias is None else bias.data_ptr(), out.data_ptr(),
+            out_scale.data_ptr(), n_out, k, n, int(chain))
+    return out, out_scale
+
+
+def tdnnf_expand(terms, n_out: int, row_map, bias, gamma, beta, bypass=None, *,
+                 chain: bool = False):
+    """K12 (tdnnf_expand; chain_expand with `chain`): x = f32(f32(max(u, 0)
+    * gamma) + beta), u = sum of the terms + bias, plus, with bypass =
+    (codes s8 [., N], scale f32, factor, row map), f32(f32(q * s) * factor)
+    of the row the bypass map gives; -> requant(x), (codes s8 [n_out, N],
+    scale f32 [n_out]).  Terms as tdnnf_project's; K a multiple of 32, at
+    most TDNNF_MAX_AFFINE_K; N a multiple of 128.  Without chain the bypass
+    is required, with it none and one term.  Plain version:
+    ops.matmul.tdnnf_expand_step."""
+    codes, scale = terms[0][0], terms[0][1]
+    if codes.device.type == "cpu":
+        return plain.tdnnf_expand_step(_plain_terms(terms), n_out, row_map, bias, gamma, beta,
+                                       bypass)
+    name = "chain_expand" if chain else "tdnnf_expand"
+    n_in, k = codes.shape
+    device = _tdnnf_acts(name, codes, scale, k)
+    n = terms[0][2].shape[0]
+    if bypass is not None:
+        by_codes, by_scale, factor, by_map = bypass
+        _tdnnf_acts(name, by_codes, by_scale, n)
+        by = (by_codes.data_ptr(), by_scale.data_ptr(), float(factor), *by_map)
+    else:
+        by = (None, None, 0.0, *plain.ROWS_IDENTITY)
+    out = torch.empty((n_out, n), dtype=torch.int8, device=device)
+    out_scale = torch.empty((n_out,), dtype=torch.float32, device=device)
+    second = _term_args(terms[1]) if len(terms) > 1 else _NO_TERM
+    _launch(name, device, _build.load().fdn_tdnnf_expand, *_term_args(terms[0]), *second,
+            *row_map, n_in, bias.data_ptr(), gamma.data_ptr(), beta.data_ptr(), *by,
+            out.data_ptr(), out_scale.data_ptr(), n_out, k, n, int(chain))
+    return out, out_scale
+
+
+def chain_logits(codes, scale, w_t, inv_scale, bias) -> torch.Tensor:
+    """K13: the chain output, f32(T(p, O) + o) -> f32 [B, N], no softmax:
+    codes s8 [B, K] with their scale f32 [B], O given as w_t =
+    kernel_layout(O), [N, K], and its bias f32 [N]; K a multiple of 32, at
+    most TDNNF_MAX_AFFINE_K, N a multiple of 8.  Plain version:
+    ops.matmul.chain_logits_step."""
+    if codes.device.type == "cpu":
+        return plain.chain_logits_step(codes, scale, w_t.t(), inv_scale, bias)
+    b, k = codes.shape
+    device = _tdnnf_acts("chain_logits", codes, scale, k)
+    n = w_t.shape[0]
+    out = torch.empty((b, n), dtype=torch.float32, device=device)
+    _launch("chain_logits", device, _build.load().fdn_chain_logits, codes.data_ptr(),
+            scale.data_ptr(), w_t.data_ptr(), float(inv_scale), bias.data_ptr(), out.data_ptr(),
+            b, k, n)
+    return out

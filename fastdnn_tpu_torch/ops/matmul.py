@@ -396,3 +396,106 @@ def output_posteriors_block_sparse_stats(acts_i8, w_i8, colsum128_i32, inv_scale
     z, m, s = block_sparse_stats(acts_i8, w_i8, colsum128_i32, inv_scale, bias_f32, masks,
                                  valid_count=out_dim, semantics=semantics)
     return normalize_stats(z, m, s, out_dim=out_dim)
+
+
+# -- the TDNN-F chain net (models.tdnnf; quant.quantize's contract) ----------
+
+#: a row map (per_out, per_in, first, step): output row r reads input row
+#: r // per_out * per_in + first + r % per_out * step (then a term's offset)
+ROWS_IDENTITY = (1, 1, 0, 0)
+
+
+def requantize(v: torch.Tensor):
+    """The contract's requant: f32 [B, N] -> (codes s8 [B, N], scale f32 [B]),
+    s = max|v| / 127 per row, codes clip(round_half_away(v / s), -127, 127),
+    0 in a row whose s is 0; each division a true f32 division."""
+    amax = v.abs().amax(dim=1)
+    s = amax / torch.full_like(amax, CODE_MAX)
+    live = s[:, None] > 0
+    codes = torch.clamp(_round_half_away(v / torch.where(live, s[:, None], 1.0)),
+                        -CODE_MAX, CODE_MAX)
+    return torch.where(live, codes, 0.0).to(torch.int8), s
+
+
+def tdnnf_rows(n_out: int, row_map, offset: int, n_in: int, device):
+    """(index, valid) of the input rows that output rows 0 .. n_out - 1 read
+    under `row_map` and `offset`; a row outside [0, n_in) is not valid (its
+    index clamped in range)."""
+    per_out, per_in, first, step = row_map
+    r = torch.arange(n_out, device=device)
+    idx = r // per_out * per_in + first + r % per_out * step + offset
+    valid = (idx >= 0) & (idx < n_in)
+    return idx.clamp(0, max(n_in - 1, 0)), valid
+
+
+def tdnnf_term(codes, scale, w_i8, inv_scale, n_out: int, row_map=ROWS_IDENTITY,
+               offset: int = 0) -> torch.Tensor:
+    """One term of the contract, T(q, s, W) = f32(f32(q @ W) * f32(s * inv)),
+    over the rows that `row_map` and `offset` read of codes s8 [n_in, K] and
+    scale f32 [n_in] (codes 0 and scale 0 outside them) -> f32 [n_out, N]."""
+    idx, valid = tdnnf_rows(n_out, row_map, offset, codes.shape[0], codes.device)
+    q = torch.where(valid[:, None], codes[idx], torch.zeros((), dtype=torch.int8,
+                                                            device=codes.device))
+    s = torch.where(valid, scale[idx], 0.0)
+    return int8_matmul(q, w_i8).to(torch.float32) * (s * inv_scale)[:, None]
+
+
+def _terms(terms, n_out: int, row_map) -> torch.Tensor:
+    """The sum of the terms (codes, scale, w [K, N], inv_scale, offset), in
+    order, each rounded to f32."""
+    v = None
+    for codes, scale, w, inv, offset in terms:
+        t = tdnnf_term(codes, scale, w, inv, n_out, row_map, offset)
+        v = t if v is None else v + t
+    return v
+
+
+def matmul_f64_in_order(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 [B, K] @ f32 [K, N] -> f32: sum over k = 0, 1, ... of f64(a_k) *
+    f64(b_k), each product exact in f64 and each sum rounded in f64, then
+    rounded once to f32.  One fixed order, so the kernel that takes the
+    same order (tdnnf_input) agrees with it bit for bit, which no f32 or
+    library product's order promises."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float64, device=a.device)
+    for k in range(a.shape[1]):
+        acc += a[:, k, None] * b[k]
+    return acc.to(torch.float32)
+
+
+def tdnnf_input_step(frames_f32, w_f32, b_f32, gamma, beta):
+    """tdnn1: requant(BN(ReLU(y + b1))) -> (codes s8 [B, H], scale f32 [B]),
+    y = matmul_f64_in_order(x, W1).  The plain version of the tdnnf_input
+    kernel."""
+    v = matmul_f64_in_order(frames_f32, w_f32) + b_f32
+    return requantize(torch.clamp(v, min=0.0) * gamma + beta)
+
+
+def tdnnf_project_step(terms, n_out: int, row_map=ROWS_IDENTITY, bias=None):
+    """A linear product on signed codes: requant(sum of the terms [+ bias])
+    -> (codes s8 [n_out, N], scale f32 [n_out]); terms (codes, scale,
+    w [K, N], inv_scale, offset).  The plain version of the TDNN-F layer's
+    linear kernel (and prefinal-l's and prefinal-chain's second linear)."""
+    v = _terms(terms, n_out, row_map)
+    return requantize(v if bias is None else v + bias)
+
+
+def tdnnf_expand_step(terms, n_out: int, row_map, bias, gamma, beta, bypass=None):
+    """An affine product with ReLU and batchnorm: u = sum of the terms +
+    bias, x = f32(f32(max(u, 0) * gamma) + beta), plus, with `bypass` =
+    (codes s8, scale f32, factor 0-d f32, row map), f32(f32(q * s) * factor)
+    of the rows it maps; -> requant(x).  The plain version of the TDNN-F
+    layer's affine kernel (and prefinal-chain's affine, with no bypass)."""
+    u = _terms(terms, n_out, row_map) + bias
+    x = torch.clamp(u, min=0.0) * gamma + beta
+    if bypass is not None:
+        codes, scale, factor, by_map = bypass
+        idx, _ = tdnnf_rows(n_out, by_map, 0, codes.shape[0], codes.device)
+        x = (codes[idx].to(torch.float32) * scale[idx][:, None]) * factor + x
+    return requantize(x)
+
+
+def chain_logits_step(codes, scale, w_i8, inv_scale, bias):
+    """The chain output: f32(T(p, O) + o) -> f32 [B, N], no softmax.  The
+    plain version of the chain logits kernel."""
+    return tdnnf_term(codes, scale, w_i8, inv_scale, codes.shape[0]) + bias

@@ -35,6 +35,39 @@ each frame's posteriors independent of its batch companions.  Per frame r:
 then the sigmoid table (a hidden layer) or the softmax (the output layer).
 The codes have no zero point, so the expand factor's colsum128 is zero and
 `inv_scales[i]` is 1 / mult_e, not 1 / (mult_e * 255).
+
+A TDNN-F chain net (models.tdnnf.TdnnfNet) quantizes to a QuantizedTdnnf
+(`quantize_tdnnf`).  Every matrix is int8 by the same per-layer rule (a
+layer's two time offsets are two matrices, each with its own multiplier);
+biases, batchnorms and tdnn1 stay float; each batchnorm folds to gamma and
+beta (models.tdnnf.BatchNorm.fold), and prefinal-chain's second one into
+its linear: L2' = f32(L2 * gamma_b) by columns, then quantized, and the
+bias beta_b.  Every activation after tdnn1 is signed, so each travels as
+int8 codes with a scale per row, as the bottleneck above: requant(v) gives
+s = max|v| / 127 and q = clip(round_half_away(v / s), -127, 127) (0 where
+s is 0), f32 ops throughout.  With a row's codes q, its scale s and a
+matrix W of multiplier m, one term of a product is
+
+    T(q, s, W) = f32(f32(q @ W) * f32(s * (1 / m)))     q @ W exact in int32
+
+(a row outside the batch reads codes 0 and scale 0), and, per row r, with
+the layer's stride in rows of its rate (r - s, r + s):
+
+    tdnn1     v = f32(y + b1), y = f32(sum over k = 0, 1, ... of f64(x_k) *
+                                   f64(W1_k)), each sum rounded in f64
+                                   (bf16 operands under "default")
+              h = requant(f32(f32(max(v, 0) * gamma) + beta))
+    tdnnf     c = requant(f32(T(h[r - s], P_a) + T(h[r], P_b)))
+              u = f32(f32(T(c[r], E_a) + T(c[r + s], E_b)) + e)
+              h' = requant(f32(f32(f32(q_h[r] * s_h[r]) * 0.66) +
+                               f32(f32(max(u, 0) * gamma) + beta)))
+              (stride 0: c = requant(T(h[r], P)), u = f32(T(c[r], E) + e))
+    prefinal  g = requant(T(h, L))
+              v = requant(f32(f32(max(f32(T(g, F) + f), 0) * gamma_a) + beta_a))
+              p = requant(f32(T(v, L2') + beta_b))
+    output    y = f32(T(p, O) + o)
+
+the sums in the order written.  The bypass scale 0.66 is its f32 value.
 """
 
 from __future__ import annotations
@@ -47,6 +80,7 @@ import torch
 
 from ..config import ACTIVATION_SCALE, WEIGHT_SCALE, EngineConfig
 from ..models.feedforward import FeedForwardNet, LowRank, fuse_transform
+from ..models.tdnnf import TdnnfNet, chunk_rows, context, drop_layer
 
 #: int4 weight scale and code range (one code point below -scale, as int8's -128)
 INT4_SCALE = 7.0
@@ -212,9 +246,15 @@ def quantize_net(
     hidden_bits=4 stores the hidden trunk as int4 (scale 7); the output
     layer stays int8, because 4-bit logit steps would visibly move the
     posteriors.  A low-rank layer (LowRank) quantizes both factors at int8
-    (the module's docstring has its contract); it has no int4 form."""
+    (the module's docstring has its contract); it has no int4 form.  A
+    TDNN-F net (models.tdnnf.TdnnfNet) gives a QuantizedTdnnf
+    (quantize_tdnnf); it has no int4 form either."""
     if cutoff <= 0:
         raise ValueError(f"weight cutoff must be positive, got {cutoff}")
+    if isinstance(net, TdnnfNet):
+        if hidden_bits != 8:
+            raise ValueError("a TDNN-F net has no int4 form: quantize it at hidden_bits=8")
+        return quantize_tdnnf(net, cutoff)
     if net.layer_count < 2:
         raise ValueError("need at least an input layer and an output layer")
     if hidden_bits not in (8, 4):
@@ -255,6 +295,133 @@ def quantize_net(
         hidden_bits=hidden_bits,
         bottlenecks=tuple(bottlenecks) if lowrank else (),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class Matrix:
+    """An int8 matrix [in, out] (the kernels' layout [out, in] once laid
+    out) and 1 / its multiplier, 0-d f32 on the host."""
+
+    weight: torch.Tensor
+    inv_scale: torch.Tensor
+
+    def to(self, device) -> "Matrix":
+        return dataclasses.replace(self, weight=self.weight.to(device))
+
+
+def _matrix(w: torch.Tensor, cutoff: float) -> Matrix:
+    w_q, mult = quantize_layer(w, cutoff)
+    return Matrix(w_q, (1.0 / mult).to(torch.float32))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedTdnnfLayer:
+    """One factorized layer: `linear` P per time offset (read at r - s, then
+    r), `affine` E per offset (r, then r + s), each a Matrix; the affine's
+    bias and the folded batchnorm, f32 [out]."""
+
+    stride: int
+    linear: Tuple[Matrix, ...]
+    affine: Tuple[Matrix, ...]
+    bias: torch.Tensor
+    gamma: torch.Tensor
+    beta: torch.Tensor
+
+    def to(self, device) -> "QuantizedTdnnfLayer":
+        mv = lambda ms: tuple(m.to(device) for m in ms)
+        return dataclasses.replace(self, linear=mv(self.linear), affine=mv(self.affine),
+                                   bias=self.bias.to(device), gamma=self.gamma.to(device),
+                                   beta=self.beta.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedTdnnf:
+    """A quantized TDNN-F chain net (the contract in the module docstring).
+
+    input_w/input_b, input_gamma/input_beta: tdnn1 in float, its batchnorm
+        folded
+    layers: QuantizedTdnnfLayer per factorized layer
+    prefinal_l: Matrix (no bias); prefinal_w, prefinal_b, prefinal_gamma,
+        prefinal_beta: prefinal-chain's affine and first batchnorm;
+        prefinal_small (L2', its batchnorm folded in) and prefinal_small_b
+    output: Matrix, output_b: the chain output's bias f32 [N]
+    bypass_scale: 0-d f32; subsampling: the frame-subsampling factor
+    """
+
+    input_w: torch.Tensor
+    input_b: torch.Tensor
+    input_gamma: torch.Tensor
+    input_beta: torch.Tensor
+    layers: Tuple[QuantizedTdnnfLayer, ...]
+    prefinal_l: Matrix
+    prefinal_w: Matrix
+    prefinal_b: torch.Tensor
+    prefinal_gamma: torch.Tensor
+    prefinal_beta: torch.Tensor
+    prefinal_small: Matrix
+    prefinal_small_b: torch.Tensor
+    output: Matrix
+    output_b: torch.Tensor
+    bypass_scale: torch.Tensor
+    subsampling: int
+
+    @property
+    def input_dim(self) -> int:
+        return self.input_w.shape[0]
+
+    @property
+    def output_dim(self) -> int:
+        return self.output_b.shape[0]
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        return tuple(layer.stride for layer in self.layers)
+
+    def context(self) -> Tuple[int, int]:
+        """(left, right) rows of context (models.tdnnf.context)."""
+        return context(self.strides)
+
+    def plan(self, chunk_frames: int) -> dict:
+        """models.tdnnf.chunk_rows for a chunk of this net, with the index
+        of the layer that reads every `subsampling`-th row ("drop")."""
+        return dict(chunk_rows(chunk_frames, self.strides, self.subsampling),
+                    drop=drop_layer(self.strides, self.subsampling))
+
+    def to(self, device) -> "QuantizedTdnnf":
+        t = lambda x: x.to(device)
+        return dataclasses.replace(
+            self, input_w=t(self.input_w), input_b=t(self.input_b),
+            input_gamma=t(self.input_gamma), input_beta=t(self.input_beta),
+            layers=tuple(layer.to(device) for layer in self.layers),
+            prefinal_l=self.prefinal_l.to(device), prefinal_w=self.prefinal_w.to(device),
+            prefinal_b=t(self.prefinal_b), prefinal_gamma=t(self.prefinal_gamma),
+            prefinal_beta=t(self.prefinal_beta), prefinal_small=self.prefinal_small.to(device),
+            prefinal_small_b=t(self.prefinal_small_b), output=self.output.to(device),
+            output_b=t(self.output_b))
+
+
+def quantize_tdnnf(net: TdnnfNet, cutoff: float = EngineConfig.cutoff) -> QuantizedTdnnf:
+    """TdnnfNet -> QuantizedTdnnf: every matrix int8 at `cutoff` (the
+    per-layer rule of quantize_layer), each batchnorm folded, prefinal-chain's
+    second one into its linear (module docstring)."""
+    if cutoff <= 0:
+        raise ValueError(f"weight cutoff must be positive, got {cutoff}")
+    f32 = lambda t: t.to(torch.float32)
+    layers = []
+    for layer in net.layers:
+        gamma, beta = layer.bn.fold()
+        layers.append(QuantizedTdnnfLayer(
+            layer.stride, tuple(_matrix(w, cutoff) for w in layer.linear),
+            tuple(_matrix(w, cutoff) for w in layer.affine), f32(layer.bias), gamma, beta))
+    in_gamma, in_beta = net.input_bn.fold()
+    pre_gamma, pre_beta = net.prefinal_bn.fold()
+    small_gamma, small_beta = net.prefinal_small_bn.fold()
+    return QuantizedTdnnf(
+        f32(net.input_w), f32(net.input_b), in_gamma, in_beta, tuple(layers),
+        _matrix(net.prefinal_l, cutoff), _matrix(net.prefinal_w, cutoff), f32(net.prefinal_b),
+        pre_gamma, pre_beta, _matrix(f32(net.prefinal_small) * small_gamma, cutoff), small_beta,
+        _matrix(net.output_w, cutoff), f32(net.output_b),
+        torch.tensor(net.bypass_scale, dtype=torch.float32), net.subsampling)
 
 
 def _colsum128(w_q: torch.Tensor) -> torch.Tensor:

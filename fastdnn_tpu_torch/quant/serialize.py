@@ -93,7 +93,11 @@ def qnet_from_arrays(arrays: Mapping[str, np.ndarray]) -> QuantizedNet:
 
 
 def save_qnet(qnet: QuantizedNet, path) -> None:
-    """Persist a QuantizedNet to `path` (.npz)."""
+    """Persist a QuantizedNet to `path` (.npz).  A TDNN-F net
+    (QuantizedTdnnf) has no checkpoint format: it raises ValueError."""
+    if not isinstance(qnet, QuantizedNet):
+        raise ValueError(f"no checkpoint format for a {type(qnet).__name__}: save_qnet writes "
+                         "a feed-forward QuantizedNet")
     arrays = qnet_arrays(qnet)
     with open(path, "wb") as f:
         np.savez(f, **arrays)

@@ -148,6 +148,21 @@ SYMBOLS = [
      "lowrank_layer"),
     ("void (anonymous namespace)::lowrank_bottleneck_kernel<1>(CUtensorMap_st, CUtensorMap_st, "
      "int const*, float, float, signed char*, float*, int, int)", "lowrank_bottleneck"),
+    ("void (anonymous namespace)::tdnnf_input_kernel<false>(float const*, float const*, "
+     "float const*, float const*, float const*, signed char*, float*, int, int, int)",
+     "tdnnf_input"),
+    ("void (anonymous namespace)::tdnnf_project_kernel<2>((anonymous namespace)::Term, (anonymous namespace)::Term, "
+     "(anonymous namespace)::RowMap, int, signed char*, float*, int, int)", "tdnnf_project"),
+    ("void (anonymous namespace)::tdnnf_expand_kernel<2>((anonymous namespace)::Term, (anonymous namespace)::Term, "
+     "(anonymous namespace)::RowMap, int, float const*, float const*, float const*, "
+     "(anonymous namespace)::Bypass, signed char*, float*, int, int, int)", "tdnnf_expand"),
+    ("void (anonymous namespace)::chain_project_kernel<true>((anonymous namespace)::Term, (anonymous namespace)::RowMap, "
+     "int, float const*, signed char*, float*, int, int)", "chain_project"),
+    ("void (anonymous namespace)::chain_expand_kernel((anonymous namespace)::Term, (anonymous namespace)::RowMap, int, "
+     "float const*, float const*, float const*, signed char*, float*, int, int, int)",
+     "chain_expand"),
+    ("void (anonymous namespace)::chain_logits_kernel((anonymous namespace)::Term, float const*, float*, int, int, int)",
+     "chain_logits"),
     ("ampere_sgemm_128x64_nn", None),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
      None),

@@ -146,9 +146,11 @@ def test_every_span_is_recorded_by_some_entry(scorer, inputs):
         _, events = _traced(scorer, entry, *inputs)
         names |= {e[2] for e in events if e[2].startswith("fastdnn.")}
     # the stats net's entries record every span; a narrow net's all but the
-    # stats route's; neither has a low-rank output layer's bottleneck
+    # stats route's; neither has a low-rank output layer's bottleneck nor a
+    # TDNN-F net's output chain
     stats_route = not uses_resident_output(scorer.net)
-    assert names == set(SPANS) - (set() if stats_route else {STATS}) - {"fastdnn.output_bottleneck"}
+    assert names == (set(SPANS) - (set() if stats_route else {STATS})
+                     - {"fastdnn.output_bottleneck", "fastdnn.output_chain"})
 
 
 def test_no_span_is_constructed_without_a_profiler(scorer, inputs, monkeypatch):
